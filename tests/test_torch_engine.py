@@ -99,7 +99,9 @@ def test_state_matches_jax_engine(engines):
 
 def test_outputs_carry_reference_keys(engines):
     _, _, (jouts, touts) = engines
-    assert set(touts[-1]) == set(jouts[-1])
+    # the reference's Engine keeps face_applied to itself; the port's
+    # returns it beside the other face outputs
+    assert set(touts[-1]) == set(jouts[-1]) | {"face_applied"}
     np.testing.assert_array_equal(touts[-1]["face_has_prior"].numpy(),
                                   np.asarray(jouts[-1]["face_has_prior"]))
     np.testing.assert_array_equal(touts[-1]["face_prior_params"].numpy(),
@@ -118,8 +120,19 @@ def test_engine_cuda_without_card_raises():
 
 def test_engine_refuses_unported_statics():
     with pytest.raises(NotImplementedError):
-        Engine(1, preset("fast_int8_pico", frame_hw=(80, 160), mask_hw=(32, 64)),
-               device="cpu")
+        Engine(1, preset("fast_int8_pico", face_tracking="translation",
+                         frame_hw=(80, 160), mask_hw=(32, 64)), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"affine_mode": "reference"}, {"prior_impl": "plane"}, {"refine_alpha_src": "lowres"},
+    {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"}])
+def test_engine_refuses_unserved_options(override):
+    """Both presets are served as they stand; any other value of a static
+    the step reads is refused, not silently served another way."""
+    for name in ("fast_int8_pico", "fast_int8_micro"):
+        with pytest.raises(NotImplementedError, match=next(iter(override))):
+            Engine(1, preset(name, **override, **FACE_GEOM), device="cpu")
 
 
 def test_engine_refuses_color_background():
@@ -157,3 +170,165 @@ def test_engine_rejects_misshaped_frames():
     eng = Engine(2, preset("fast_int8_pico", **GEOM), device="cpu")
     with pytest.raises(ValueError, match="frames"):
         eng.process(np.zeros((2, 80, 150, 3), np.uint8))
+
+
+# ---- the face path on: both presets as they stand ---------------------------
+
+FACE_S, FACE_T = 2, 8
+FACE_GEOM = dict(frame_hw=(80, 160), mask_hw=(32, 64), fd_size=64, lmk_size=48)
+FACE_RUNS = {
+    # preset: (JAX overrides: the Pallas kernels 'auto' picks on the TPU,
+    # in interpret mode; matting checkpoint; face checkpoints)
+    "fast_int8_pico": (dict(int8_decoder_impl="trunk"), PICO_CKPT,
+                       ("checkpoints/facefinder_128", "checkpoints/landmarknet_128")),
+    "fast_int8_micro": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10_micro",
+                        ("checkpoints/facefinder", "checkpoints/landmarknet")),
+}
+
+
+def _face_frames():
+    """Rendered people whose faces the trained detectors find: stream 0
+    from one clip, stream 1 from another, FACE_T frames each."""
+    from video_stream_segmenetation_tpu.utils.clips import articulated_clip
+
+    clips = [articulated_clip(n_frames=FACE_T, hw=(80, 160), seed=sd, features=True).frames
+             for sd in (2, 1)]
+    return [np.stack([clips[s][t] for s in range(FACE_S)]) for t in range(FACE_T)]
+
+
+def _drive(e, frames, before_step=None):
+    """8 steps; at step 3 stream 0 is evicted and re-admitted, so its
+    cadence restarts.  With S=2 a round takes K=1 stream: step 0 serves
+    stream 0 (stream 1 overflows and skips), step 3 stream 0 again, step 6
+    stream 1.  Returns per-step outputs with ``applied`` (host) added."""
+    e.face_min_interval_s = 0.0
+    e.admit_all()
+    outs = []
+    for t, f in enumerate(frames):
+        if t == 3:
+            e.evict(0)
+            e.admit()
+        if before_step is not None:
+            before_step(t)
+        state_in = _host_state(e)
+        last = np.array(e._last_face_at)
+        out = e.process(f)
+        out["applied"] = np.array(e._last_face_at) != last
+        out["state_in"], out["state"] = state_in, _host_state(e)
+        outs.append(out)
+    return outs
+
+
+def _host_state(e):
+    return {k: np.asarray(getattr(e.state, k)).copy() for k in
+            ("prev_alpha", "affine", "has_affine", "initialized", "frame_idx")}
+
+
+@pytest.fixture(scope="module", params=sorted(FACE_RUNS))
+def face_engines(request):
+    """The JAX Engine (Pallas kernels in interpret mode) and the port's,
+    the face path on, trained weights, the wall-clock gate off; plus a
+    teacher-forced port run that starts every step from the JAX state and
+    takes the JAX step's face prior, so that its alpha is held to the
+    refine stage's own tolerance."""
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as TPL
+    from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
+
+    name = request.param
+    jover, ckpt, (fd, lm) = FACE_RUNS[name]
+    je = JaxEngine(num_streams=FACE_S, statics=jax_preset(
+        name, use_fused_refine=True, **jover, **FACE_GEOM), rng_seed=0, donate_state=False)
+    je.load_matting_params(ckpt)
+    je.load_face_params(fd, lm)
+    npt = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    kw = dict(params=bridge.load_quantized(npt(je.bundle.matte_params)),
+              face_params={"face": bridge.face_tree(npt(je.bundle.face_params)),
+                           "lmk": bridge.face_tree(npt(je.bundle.lmk_params))},
+              device="cpu")
+    frames = _face_frames()
+    jouts = _drive(je, frames)
+    te = Engine(FACE_S, preset(name, **FACE_GEOM), **kw)
+    touts = _drive(te, frames)
+
+    # teacher-forced: the JAX state before each step, the JAX step's prior
+    tf = Engine(FACE_S, preset(name, **FACE_GEOM), **kw)
+    real = TPL.face_subpath_compact
+    step_t = {}
+
+    def forced_face(*args, **kwargs):
+        prior, has_prior, aff, has_upd, score = real(*args, **kwargs)
+        j = jouts[step_t["t"]]
+        return (torch.tensor(np.asarray(j["face_prior_params"])),
+                torch.tensor(np.asarray(j["face_has_prior"])), aff, has_upd, score)
+
+    def set_state(t):
+        step_t["t"] = t
+        tf.state = StreamState(**{k: torch.tensor(v) for k, v in
+                                  jouts[t]["state_in"].items()})
+
+    TPL.face_subpath_compact = forced_face
+    try:
+        forced = _drive(tf, frames, before_step=set_state)
+    finally:
+        TPL.face_subpath_compact = real
+    return name, jouts, touts, forced
+
+
+def test_face_decisions_match_jax_engine(face_engines):
+    """face_applied and face_has_prior equal at every step; the rounds go
+    where the cadence and the overflow rule send them."""
+    name, jouts, touts, _ = face_engines
+    for t, (j, g) in enumerate(zip(jouts, touts)):
+        np.testing.assert_array_equal(g["applied"], j["applied"], err_msg=f"step {t}")
+        np.testing.assert_array_equal(g["face_applied"].numpy(), j["applied"])
+        np.testing.assert_array_equal(g["face_has_prior"].numpy(),
+                                      np.asarray(j["face_has_prior"]))
+    has_prior = np.stack([np.asarray(j["face_has_prior"]) for j in jouts])
+    assert has_prior[[0, 3], 0].all() and has_prior[6, 1]
+    assert has_prior.sum() == 3  # no other round: stream 1 overflowed at step 0
+    assert np.stack([j["applied"] for j in jouts]).any()
+
+
+def test_face_outputs_match_jax_engine(face_engines):
+    """det_score within 1e-2 (bf16 face models, scores clear of the 0.6
+    threshold by 0.04 or more), the prior scalars within one mask pixel
+    (the floor/ceil box conversion), the merged affine within 0.3 mask
+    pixels in translation and 1e-2 in its linear part."""
+    name, jouts, touts, _ = face_engines
+    for j, g in zip(jouts, touts):
+        js = np.asarray(j["det_score"])
+        assert np.all((js == 0) | (np.abs(js - 0.6) > 0.04))
+        np.testing.assert_allclose(g["det_score"].numpy(), js, rtol=0, atol=1e-2)
+        np.testing.assert_allclose(g["face_prior_params"].numpy(),
+                                   np.asarray(j["face_prior_params"]), rtol=0, atol=1.0)
+        ja, ga = j["state"]["affine"], g["state"]["affine"]
+        np.testing.assert_allclose(ga[:, [2, 5]], ja[:, [2, 5]], rtol=0, atol=0.3)
+        np.testing.assert_allclose(ga[:, [0, 1, 3, 4]], ja[:, [0, 1, 3, 4]], rtol=0,
+                                   atol=1e-2)
+        np.testing.assert_array_equal(g["state"]["has_affine"], j["state"]["has_affine"])
+        np.testing.assert_array_equal(g["state"]["frame_idx"], j["state"]["frame_idx"])
+
+
+@pytest.mark.parametrize("step", range(FACE_T))
+def test_face_alpha_matches_jax_engine(face_engines, step):
+    """Teacher-forced (the JAX state and prior fed in): new_prev within
+    1e-4, the refined alpha within 4e-3 (pico: bf16 out; micro: f32 out,
+    where the threshold/gamma stage's (a - 0.06)^0.4 turns a 1e-7 float32
+    difference of the model alpha just above the noise cutoff into up to
+    (1e-7 / 0.89)^0.4 ~ 2e-3), the composited frame within one u8 step.
+    new_prev is 1e-7 apart at every step but one: at micro's step 5 it is
+    6.3e-5 apart, 0.45 (one minus the EMA weight) of 1.4e-4, which is how
+    far the reference's Pallas decoder departs from its own XLA graph on
+    that frame (one u1 lattice step; the reference's XLA path inside the
+    jitted step takes it too).  The port's plain trunk equals the
+    standalone XLA graph there (tests/test_torch_micro.py)."""
+    name, jouts, _, forced = face_engines
+    j, g = jouts[step], forced[step]
+    bf16 = name == "fast_int8_pico"
+    assert g["alpha"].dtype == (torch.bfloat16 if bf16 else torch.float32)
+    np.testing.assert_allclose(g["alpha"].float().numpy(), np.asarray(j["alpha"], np.float32),
+                               rtol=0, atol=4e-3)
+    np.testing.assert_allclose(g["state"]["prev_alpha"], j["state"]["prev_alpha"],
+                               rtol=0, atol=1e-4)
+    diff = np.abs(g["frame"].numpy().astype(np.int32) - np.asarray(j["frame"]).astype(np.int32))
+    assert diff.max() <= 1

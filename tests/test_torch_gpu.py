@@ -14,6 +14,7 @@ import torch
 
 from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
 from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+from video_stream_segmenetation_tpu_torch.models import quantized as Q
 from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_pico_params
 from video_stream_segmenetation_tpu_torch.models.quantized import (
     quantize_mattenet_hd,
@@ -60,7 +61,7 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     n_t, n_r = TK.fused_nano_trunk_alpha.launches, TR.fused_temporal_refine.launches
     x0, tp = _trunk_inputs("cpu", h=8, w=16)
     np.testing.assert_array_equal(TK.fused_nano_trunk_alpha(x0, tp).numpy(),
-                                  TK.fused_nano_trunk_alpha_plain(x0, tp).numpy())
+                                  Q.xla_trunk_alpha(x0, tp).numpy())
     args = _refine_inputs("cpu")
     TR.fused_temporal_refine(*args[:5], 0.3, *args[5:])
     assert TK.fused_nano_trunk_alpha.launches == n_t
@@ -73,7 +74,7 @@ def test_trunk_kernel_matches_plain(card, hw):
     x0, tp = _trunk_inputs(card, h=hw[0], w=hw[1])
     n = TK.fused_nano_trunk_alpha.launches
     got = TK.fused_nano_trunk_alpha(x0, tp)
-    want = TK.fused_nano_trunk_alpha_plain(x0, tp)
+    want = Q.xla_trunk_alpha(x0, tp)
     torch.cuda.synchronize()
     assert TK.fused_nano_trunk_alpha.launches == n + 1
     assert (got - want).abs().max().item() <= 1e-5
@@ -109,3 +110,75 @@ def test_engine_on_card_runs_both_kernels(card):
     assert TR.fused_temporal_refine.launches == n_r + 2
     assert out["frame"].shape == (2, 160, 320, 3) and out["frame"].is_cuda
     assert bool(torch.isfinite(out["alpha"].float()).all())
+
+
+def _micro_tp(device):
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params
+
+    return trunk_params(quantize_mattenet_hd(init_params("micro", 0, 10), 10, "micro"), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level,grid,ca,cb", [("u2", (18, 32), 256, 192),
+                                              ("u1", (36, 64), 192, 128),
+                                              ("u1", (3, 5), 192, 128)])
+def test_decoder_kernel_matches_plain(card, level, grid, ca, cb):
+    """Bit-exact s8 at micro's two levels (720p grids, and a ragged one)."""
+    from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
+
+    tp = _micro_tp(card)
+    g = np.random.default_rng(1)
+    small = torch.as_tensor(g.integers(0, 128, (2, *grid, ca), dtype=np.int8), device=card)
+    skip = torch.as_tensor(g.integers(0, 128, (2, 2 * grid[0], 2 * grid[1], cb),
+                                      dtype=np.int8), device=card)
+    up, sk = tp[f"{level}red_up"], tp[f"{level}red_skip"]
+    n = DK.fused_decoder_level.launches
+    got = DK.fused_decoder_level(small, skip, up, sk)
+    want = Q.split_conv_up(small, skip, up, sk)
+    torch.cuda.synchronize()
+    assert DK.fused_decoder_level.launches == n + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_micro_trunk_kernels_match_plain(card):
+    x0 = torch.as_tensor(np.random.default_rng(2).integers(0, 128, (2, 72, 128, 128),
+                                                            dtype=np.int8), device=card)
+    tp = _micro_tp(card)
+    got = TK.micro_trunk_alpha(x0, tp)
+    want = Q.xla_micro_trunk_alpha(x0, tp)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_refine_kernel_f32_out_matches_plain(card):
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+
+    alpha, prev, affine, use_warp, init, guide, pp, has_prior, knobs = _refine_inputs(card)
+    got_prev, got = TR.fused_temporal_refine(alpha, prev, affine, use_warp, init, 0.3,
+                                             guide, pp, has_prior, knobs,
+                                             out_dtype=torch.float32)
+    yi, xi = separable_warp_indices(affine, alpha.shape[-2:])
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+    want_prev, want = TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table,
+                                                     torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert (got_prev - want_prev).abs().max().item() <= 2e-5
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.gpu
+def test_micro_engine_on_card_runs_its_kernels(card):
+    from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
+
+    eng = Engine(2, preset("fast_int8_micro", frame_hw=(160, 320), mask_hw=(64, 128)), seed=0)
+    eng.admit_all()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 160, 320, 3), dtype=np.uint8)
+    n_d, n_r = DK.fused_decoder_level.launches, TR.fused_temporal_refine.launches
+    for _ in range(2):
+        out = eng.process(frames)
+    assert DK.fused_decoder_level.launches == n_d + 4
+    assert TR.fused_temporal_refine.launches == n_r + 2
+    assert out["alpha"].dtype == torch.float32 and out["face_applied"].is_cuda

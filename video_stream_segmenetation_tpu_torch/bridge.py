@@ -1,28 +1,41 @@
-"""Weight bridge from the JAX package's parameters, as numpy trees.
+"""Weight bridge from the JAX package's parameters, as numpy trees, and the
+loader of the committed exports.
 
 The machine with the card has no JAX, flax or orbax, so nothing here reads
-a checkpoint: a caller that has the reference restores its checkpoint
-there and hands the arrays over as nested dicts of numpy arrays.  Serving
-trained weights on the card needs such an export committed as numpy.
+a checkpoint.  A caller that has the reference restores its checkpoint
+there and hands the arrays over as nested dicts of numpy arrays; the
+trained weights the port serves on the card are committed as numpy
+archives under ``weights/`` (written by ``tests/test_torch_weights.py::
+export``, which restores the checkpoints with the reference).
 
 * :func:`params_from_jax`: the reference's float MatteNetHD tree
   (``{"params", "batch_stats"}``) -> the port's int8 serving dict, through
   the port's own quantizer.
 * :func:`load_quantized`: the reference's already-quantized dict
   (``quantize_mattenet_hd`` output) -> the same serving dict.
-
-Either result goes to ``Engine(params=...)``.
+* :func:`face_tree`: a reference FaceFinder / LandmarkNet float tree ->
+  the numpy tree the port's face models load.
+* :func:`load_export` / :func:`save_export`: one tree <-> one ``.npz``
+  (``np.load(..., allow_pickle=False)``; numpy is all they need).
+* :func:`trained_weights`: the committed trained weights a preset serves,
+  as ``Engine(params=..., face_params=...)`` takes them.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
 from video_stream_segmenetation_tpu_torch.models.quantized import quantize_mattenet_hd
 
-# keys of the serving dict; per-layer dicts keep these fields
-_LAYERS = ("d2dn", "d2b", "d3dn", "d3b", "ctx", "u2red", "u1red", "alpha_q")
-_DENSE = ("ctxse/Dense_0", "ctxse/Dense_1")
+WEIGHTS_DIR = Path(__file__).resolve().parent / "weights"
+# separates the levels of a nested dict in an export's array names (the
+# serving dict's own keys hold '/')
+SEP = ":"
+# quantized-dict entries the port does not serve: the det/sem heads and
+# the int8-stem variant
+_UNSERVED = {"det", "sem", "alpha", "det_q", "stem_wq", "stem_mult", "stem_b2"}
 
 
 def _numpy_tree(tree):
@@ -31,26 +44,89 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
-def params_from_jax(float_tree: dict, stem_stride: int = 10) -> dict:
-    """Float pico tree (numpy leaves, or anything ``np.asarray`` takes)
-    -> int8 serving dict."""
-    return quantize_mattenet_hd(_numpy_tree(float_tree), stem_stride)
+def params_from_jax(float_tree: dict, stem_stride: int = 10,
+                    decoder: str = "pico") -> dict:
+    """Float tree of the ``decoder`` plan (numpy leaves, or anything
+    ``np.asarray`` takes) -> int8 serving dict."""
+    return quantize_mattenet_hd(_numpy_tree(float_tree), stem_stride, decoder)
 
 
 def load_quantized(q: dict) -> dict:
-    """The reference's quantized dict (numpy leaves; ``stem_w`` may be a
-    bfloat16 array) -> the port's serving dict.  Keys the port does not
-    serve (``det``/``sem`` heads, the int8-stem variant) are dropped."""
+    """The reference's quantized dict of the pico or micro plan (numpy
+    leaves; ``stem_w`` may be a bfloat16 array) -> the port's serving dict:
+    every int8 conv (``wq`` s8, ``mult``, ``bias`` f32) and SE dense layer
+    (``kernel``, ``bias`` f32) it serves; the rest is dropped."""
     out = {
         "stem_w": np.asarray(q["stem_w"]).astype(np.float32),
         "stem_b": np.asarray(q["stem_b"], np.float32),
     }
-    for name in _LAYERS:
-        out[name] = {
-            "wq": np.asarray(q[name]["wq"], np.int8),
-            "mult": np.asarray(q[name]["mult"], np.float32),
-            "bias": np.asarray(q[name]["bias"], np.float32),
-        }
-    for name in _DENSE:
-        out[name] = {f: np.asarray(q[name][f], np.float32) for f in ("kernel", "bias")}
+    for name, layer in q.items():
+        if name in _UNSERVED or not isinstance(layer, dict):
+            continue
+        if "wq" in layer:
+            out[name] = {"wq": np.asarray(layer["wq"], np.int8),
+                         "mult": np.asarray(layer["mult"], np.float32),
+                         "bias": np.asarray(layer["bias"], np.float32)}
+        else:
+            out[name] = {f: np.asarray(layer[f], np.float32) for f in ("kernel", "bias")}
     return out
+
+
+def face_tree(tree: dict) -> dict:
+    """A reference FaceFinder / LandmarkNet tree ``{"params",
+    "batch_stats"}`` -> the same tree with f32 numpy leaves."""
+    return {k: _numpy_tree(v) for k, v in tree.items() if k in ("params", "batch_stats")}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if SEP in k:
+            raise ValueError(f"key {k!r} holds the separator {SEP!r}")
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + k + SEP))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def save_export(path, tree: dict) -> None:
+    """Write a nested dict of arrays as one compressed ``.npz``."""
+    np.savez_compressed(path, **_flatten(tree))
+
+
+def load_export(path) -> dict:
+    """Read an archive of :func:`save_export` back into the nested dict."""
+    out: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        for name in z.files:
+            *parents, leaf = name.split(SEP)
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[name]
+    return out
+
+
+def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
+    """The committed trained weights of a preset: ``{"params": the int8
+    serving dict of statics.matting_decoder ('mattenet_hd10_<plan>'),
+    "face_params": {"face", "lmk"}}`` (face models keyed by geometry as the
+    reference's checkpoints are: no suffix at fd 256 / lmk 192, else
+    '_<size>')."""
+    d = Path(weights_dir)
+    fd_suf = "" if statics.fd_size == 256 else f"_{statics.fd_size}"
+    lmk_suf = "" if statics.lmk_size == 192 else f"_{statics.lmk_size}"
+    return {
+        "params": load_export(d / f"mattenet_hd10_{statics.matting_decoder}.npz"),
+        "face_params": {"face": load_export(d / f"facefinder{fd_suf}.npz"),
+                        "lmk": load_export(d / f"landmarknet{lmk_suf}.npz")},
+    }
+
+
+def load_frames(weights_dir=WEIGHTS_DIR) -> tuple[np.ndarray, np.ndarray]:
+    """The committed 720p test frames ``[2, 720, 1280, 3]`` u8 (a rendered
+    person whose face the trained detector finds) and their ground-truth
+    alpha at the 288x512 mask grid ``[2, 288, 512]`` u8 (x255)."""
+    with np.load(Path(weights_dir) / "frames_720p.npz", allow_pickle=False) as z:
+        return z["frames"], z["alpha_288x512"]

@@ -2,7 +2,8 @@
 // video_stream_segmenetation_tpu/kernels/refine_fused.py::
 // fused_temporal_refine in its analytic-prior form
 // (_temporal_refine_kernel_analytic -> _tr_body -> _chain_body), with a
-// planar u8 guide, an f32 new_prev and a bf16 refined alpha.
+// planar u8 guide, an f32 new_prev and a refined alpha in bf16 or f32
+// (the reference's out_dtype: bf16 for refined_dtype='bf16', else f32).
 //
 // Per stream, stages 3-9 of the reference pipeline:
 //   3  nearest warp of prev by per-row/per-column source indices yi/xi
@@ -16,7 +17,8 @@
 //
 // What bounds it on an H100: per pixel it reads alpha, prev and a gathered
 // prev (f32), three guide bytes, and writes new_prev (f32) and the refined
-// alpha (bf16): about 17 bytes a pixel, 160 MB at S=64 x 288x512, against
+// alpha (bf16; f32 adds 2 bytes): about 17 bytes a pixel, 160 MB at S=64
+// x 288x512, against
 // a few hundred flops a pixel -- bound by bytes (3.35 TB/s).
 //
 // Design: the TPU kernel holds a whole 288x512 plane per stream in VMEM.
@@ -72,7 +74,7 @@ temporal_refine_kernel(const float* __restrict__ alpha,
                        const uint8_t* __restrict__ guide,
                        const float* __restrict__ knobs,
                        float* __restrict__ new_prev,
-                       __nv_bfloat16* __restrict__ out, int H, int W,
+                       void* __restrict__ out, int out_f32, int H, int W,
                        int pad) {
   extern __shared__ float smem[];
   float* P = smem;             // [ROWS, W]
@@ -216,15 +218,20 @@ temporal_refine_kernel(const float* __restrict__ alpha,
       else if (p > 0.0f)
         v = fminf(v, NEAR_BG_CAP + NEAR_BG_BLEND * p);
     }
-    out[s * plane + (size_t)y * W + x] = __float2bfloat16_rn(v);
+    const size_t o = s * plane + (size_t)y * W + x;
+    if (out_f32)
+      reinterpret_cast<float*>(out)[o] = v;
+    else
+      reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
   }
 }
 
 extern "C" int vst_temporal_refine(const void* alpha, const void* prev,
                                    const void* yi, const void* xi,
                                    const void* guide, const void* knobs,
-                                   void* new_prev, void* out, int S, int H,
-                                   int W, int pad, void* stream) {
+                                   void* new_prev, void* out, int out_f32,
+                                   int S, int H, int W, int pad,
+                                   void* stream) {
   const size_t smem = 2 * (size_t)ROWS * W * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       temporal_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -233,7 +240,7 @@ extern "C" int vst_temporal_refine(const void* alpha, const void* prev,
   dim3 grid((unsigned)((H + TILE_H - 1) / TILE_H), (unsigned)S);
   temporal_refine_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const float*)alpha, (const float*)prev, (const int*)yi, (const int*)xi,
-      (const uint8_t*)guide, (const float*)knobs, (float*)new_prev,
-      (__nv_bfloat16*)out, H, W, pad);
+      (const uint8_t*)guide, (const float*)knobs, (float*)new_prev, out,
+      out_f32, H, W, pad);
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,11 @@
 //               (the split 1x1 convs of u2red/u1red) or absent,
 //       mode 1: f32 y (the up-path 1x1 convs),
 //       mode 2: f32 clip(y + res * 6/127, 0, 6) (ctx + residual, relu6).
-//   * vst_se_requant: one block a stream; the SE mean over the 18x32 grid
-//     and both dense layers in double, sigmoid, gate, requant to s8.
+//   * vst_se_requant: one block a stream; the SE mean over the stream's
+//     grid and both dense layers in double, sigmoid, gate, an optional
+//     residual (res * 6/127, the micro trunk's _Block), requant to s8.
+// The same kernels run the micro trunk's convolutions (models/quantized.py
+// micro plan), whose decoder levels are csrc/decoder_int8.cu.
 //   * vst_alpha_head_i8: the 3x3 int8 alpha head (one output channel),
 //     one thread a pixel, f32 logits.
 // The fast form (wgmma s8 tiles, layers fused so activations stay on
@@ -152,12 +155,13 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// SE over one stream's [P, C] f32 plane, then gate and requant to s8.
+// SE over one stream's [P, C] f32 plane, then gate, add the residual
+// (res * 6/127, where res is given) and requant to s8.
 extern "C" __global__ void se_requant_kernel(
     const float* __restrict__ ctx, const float* __restrict__ k0,
     const float* __restrict__ b0, const float* __restrict__ k1,
-    const float* __restrict__ b1, int8_t* __restrict__ out, int P, int C,
-    int R) {
+    const float* __restrict__ b1, const int8_t* __restrict__ res,
+    int8_t* __restrict__ out, int P, int C, int R) {
   extern __shared__ double sh[];
   double* mean = sh;      // [C]
   double* hid = sh + C;   // [R]
@@ -185,8 +189,12 @@ extern "C" __global__ void se_requant_kernel(
   }
   __syncthreads();
   int8_t* os = out + (size_t)s * P * C;
-  for (int e = threadIdx.x; e < P * C; e += blockDim.x)
-    os[e] = requant(xs[e] * gate[e % C]);
+  const int8_t* rs = res == nullptr ? nullptr : res + (size_t)s * P * C;
+  for (int e = threadIdx.x; e < P * C; e += blockDim.x) {
+    float y = xs[e] * gate[e % C];
+    if (rs != nullptr) y = y + (float)rs[e] * ACT_SCALE;
+    os[e] = requant(y);
+  }
 }
 
 // 3x3 SAME int8 conv to one output channel: f32 logits [S, H, W].
@@ -231,12 +239,13 @@ extern "C" int vst_conv_i8(const void* x, const void* w, const void* mult,
 }
 
 extern "C" int vst_se_requant(const void* ctx, const void* k0, const void* b0,
-                              const void* k1, const void* b1, void* out,
-                              int S, int P, int C, int R, void* stream) {
+                              const void* k1, const void* b1, const void* res,
+                              void* out, int S, int P, int C, int R,
+                              void* stream) {
   const size_t smem = (size_t)(C + R) * sizeof(double) + (size_t)C * sizeof(float);
   se_requant_kernel<<<S, 256, smem, (cudaStream_t)stream>>>(
       (const float*)ctx, (const float*)k0, (const float*)b0, (const float*)k1,
-      (const float*)b1, (int8_t*)out, P, C, R);
+      (const float*)b1, (const int8_t*)res, (int8_t*)out, P, C, R);
   return (int)cudaGetLastError();
 }
 

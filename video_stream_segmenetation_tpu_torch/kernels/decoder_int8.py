@@ -1,0 +1,66 @@
+"""One int8 decoder level as a CUDA kernel (``csrc/decoder_int8.cu``).
+
+Replaces the Pallas kernel
+``video_stream_segmenetation_tpu/kernels/decoder_int8.py::
+fused_decoder_level`` (pallas_call at line 100): the split 1x1 decoder
+conv ``requant(nearest_x2(small @ Wa * mult + bias) + skip @ Wb * mult)``
+of the micro trunk's u2 and u1 levels, s8 in and s8 out.
+
+Bound on an H100: bytes (179 MB at micro's u1 level at S=64, 66 MB at
+u2) -- see the source's header for the design.  One call is one launch
+and counts once in ``fused_decoder_level.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from video_stream_segmenetation_tpu_torch.kernels import _build
+from video_stream_segmenetation_tpu_torch.models import quantized as Q
+
+
+def fused_decoder_level(small: torch.Tensor, skip: torch.Tensor, up: dict,
+                        skip_layer: dict) -> torch.Tensor:
+    """small ``[S, sh, sw, Ca]`` s8, skip ``[S, 2sh, 2sw, Cb]`` s8; ``up`` and
+    ``skip_layer`` the up-path and skip halves of the level's 1x1 conv
+    (models/quantized.py::trunk_params: ``w`` ``[Cout, 1, 1, C]`` s8,
+    ``mult``, ``bias``; the skip half's bias is zero and unused here).
+    Returns ``[S, 2sh, 2sw, Cout]`` s8.  A CPU tensor takes the plain
+    version (models/quantized.py::split_conv_up: float64 1x1 products
+    rounded to integers before the f32 epilogue); a CUDA tensor launches
+    the kernel or raises."""
+    if small.device.type == "cpu":
+        return Q.split_conv_up(small, skip, up, skip_layer)
+    s, sh, sw, ca = small.shape
+    cb = skip.shape[-1]
+    wa, wb = up["w"], skip_layer["w"]
+    cout = wa.shape[0]
+    checks = (
+        (small.dtype == skip.dtype == wa.dtype == wb.dtype == torch.int8, "s8 operands"),
+        (tuple(skip.shape[:3]) == (s, 2 * sh, 2 * sw), "skip at twice small's grid"),
+        (tuple(wa.shape) == (cout, 1, 1, ca) and tuple(wb.shape) == (cout, 1, 1, cb),
+         "1x1 weights [Cout, 1, 1, C]"),
+        (ca % 32 == 0 and cb % 32 == 0, "input channels multiples of 32"),
+        (all(t.is_contiguous() and t.device == small.device
+             for t in (small, skip, wa, wb, up["mult"], up["bias"])),
+         "contiguous tensors on one device"),
+    )
+    for ok, what in checks:
+        if not ok:
+            raise ValueError(f"fused_decoder_level: needs {what}; got small "
+                             f"{tuple(small.shape)} {small.dtype}, skip "
+                             f"{tuple(skip.shape)}, weights {tuple(wa.shape)}/"
+                             f"{tuple(wb.shape)}")
+    lib = _build.library()
+    out = torch.empty((s, 2 * sh, 2 * sw, cout), dtype=torch.int8, device=small.device)
+    stream = torch.cuda.current_stream(small.device).cuda_stream
+    _build.check(lib, lib.vst_decoder_level_i8(
+        small.data_ptr(), skip.data_ptr(), wa.data_ptr(), wb.data_ptr(),
+        up["mult"].data_ptr(), up["bias"].data_ptr(), out.data_ptr(),
+        s, sh, sw, ca, cb, cout, stream,
+    ), "decoder_level_i8")
+    fused_decoder_level.launches += 1
+    return out
+
+
+fused_decoder_level.launches = 0

@@ -6,7 +6,8 @@ fused_temporal_refine`` (pallas_call at line 752) in its analytic-prior
 form (``_temporal_refine_kernel_analytic``): separable nearest warp + blend,
 motion-gated EMA, opening, closing inside the face prior, joint bilateral on
 the planar u8 guide, threshold/gamma with the prior clamps.  new_prev stays
-f32, the refined alpha is bf16.
+f32; the refined alpha is bf16 or f32 (``out_dtype``, the reference's
+``refined_dtype``).
 
 Bound on an H100: bytes (about 17 bytes a pixel) -- see the source's
 header for the row-tiled design.  One call is one launch and counts once
@@ -58,7 +59,8 @@ def scalar_table(knobs, use_warp, initialized, warp_blend, prior_params,
     return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
 
 
-def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table):
+def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table,
+                                out_dtype=torch.bfloat16):
     """Plain PyTorch version, built from ops/*: same arguments as the
     kernel's wrapper after index and scalar preparation."""
     k = dict(zip(KNOB_COLUMNS, table.unbind(1)))
@@ -79,10 +81,10 @@ def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table):
     a_bi = joint_bilateral3x3(a, guide, k["sigma_spatial"], k["sigma_range"])
     a = torch.where(flag["use_bilateral"][:, None, None], a_bi, a)
     a = refine_alpha(a, k["low"], k["high"], k["gamma"], prior, flag["has_prior"])
-    return new_prev, a.to(torch.bfloat16)
+    return new_prev, a.to(out_dtype)
 
 
-def _launch(alpha_raw, prev_alpha, yi, xi, guide, table):
+def _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype=torch.bfloat16):
     s, h, w = alpha_raw.shape
     for name, t, dt, shape in (
         ("alpha_raw", alpha_raw, torch.float32, (s, h, w)),
@@ -96,34 +98,38 @@ def _launch(alpha_raw, prev_alpha, yi, xi, guide, table):
                 or t.device != alpha_raw.device:
             raise ValueError(f"fused_temporal_refine: {name} must be contiguous "
                              f"{dt} {shape} on {alpha_raw.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_temporal_refine: out_dtype {out_dtype} is not bf16 or f32")
     lib = _build.library()
     new_prev = torch.empty_like(alpha_raw)
-    out = torch.empty((s, h, w), dtype=torch.bfloat16, device=alpha_raw.device)
+    out = torch.empty((s, h, w), dtype=out_dtype, device=alpha_raw.device)
     stream = torch.cuda.current_stream(alpha_raw.device).cuda_stream
     _build.check(lib, lib.vst_temporal_refine(
         alpha_raw.data_ptr(), prev_alpha.data_ptr(), yi.data_ptr(), xi.data_ptr(),
         guide.data_ptr(), table.data_ptr(), new_prev.data_ptr(), out.data_ptr(),
-        s, h, w, prior_pad((h, w)), stream,
+        int(out_dtype == torch.float32), s, h, w, prior_pad((h, w)), stream,
     ), "temporal_refine")
     fused_temporal_refine.launches += 1
     return new_prev, out
 
 
 def fused_temporal_refine(alpha_raw, prev_alpha, affine, use_warp, initialized,
-                          warp_blend, guide, prior_params, has_prior, knobs):
+                          warp_blend, guide, prior_params, has_prior, knobs,
+                          out_dtype=torch.bfloat16):
     """Stages 3-9.  alpha_raw, prev_alpha ``[S, H, W]`` f32; affine ``[S, 6]``
     (its scale+translate part warps prev); use_warp, initialized, has_prior
     ``[S]`` bool; guide ``[S, 3, H, W]`` u8; prior_params ``[S, 4]``
-    (cx, cy, rx, ry); knobs a PipelineKnobs.  Returns (new_prev f32,
-    refined bf16).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    (cx, cy, rx, ry); knobs a PipelineKnobs; out_dtype bf16 or f32.
+    Returns (new_prev f32, refined in out_dtype).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     h, w = alpha_raw.shape[-2:]
     yi, xi = separable_warp_indices(affine, (h, w))
     table = scalar_table(knobs, use_warp, initialized, warp_blend,
                          prior_params, has_prior)
     if alpha_raw.device.type == "cpu":
-        return fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table)
-    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table)
+        return fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide,
+                                           table, out_dtype)
+    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype)
 
 
 fused_temporal_refine.launches = 0

@@ -1,74 +1,81 @@
-"""MatteNetHD float parameter tree, pico plan (port of the parameter layout
-of ``models/mattenet_hd.py::MatteNetHD._plan_d`` with ``decoder='pico'``).
+"""MatteNetHD float parameter trees, pico and micro plans (port of the
+parameter layout of ``models/mattenet_hd.py::MatteNetHD._plan_d`` with
+``decoder='pico'`` and ``decoder='micro'``).
 
 Serving runs the int8 graph (models/quantized.py), so the port needs the
 float tree only as the quantizer's input: a nested dict of numpy arrays
 with the flax module names, ``{"params": ..., "batch_stats": ...}``.
-:func:`init_pico_params` makes one from a seed with the same tree and
-shapes as the flax ``init``.  Plan-E/F module order (mattenet_hd.py:195-240):
+:func:`init_params` makes one from a seed with the same tree and shapes as
+the flax ``init``.  Module orders (mattenet_hd.py:195-240):
 
-  ConvBN_0 stem | ConvBN_1 d2dn | ConvBN_2 d2b | ConvBN_3 d3dn |
-  ConvBN_4 d3b | ConvBN_5 ctx | SEBlock_0 | ConvBN_6 u2red(1x1) |
-  ConvBN_7 u1red(1x1) | Conv_0 sem | Conv_1 det | Conv_2 alpha
+  pico (plan F):  ConvBN_0 stem | ConvBN_1 d2dn | ConvBN_2 d2b |
+    ConvBN_3 d3dn | ConvBN_4 d3b | ConvBN_5 ctx | SEBlock_0 |
+    ConvBN_6 u2red(1x1) | ConvBN_7 u1red(1x1) | Conv_0 sem | Conv_1 det |
+    Conv_2 alpha
+  micro (plan D): ConvBN_0 stem | ConvBN_1 d2dn | _Block_0 d2b |
+    ConvBN_2 d3dn | _Block_1 d3b | ConvBN_3 ctx | SEBlock_0 |
+    ConvBN_4 u2red(1x1) | ConvBN_5 u1red(1x1) | Conv_0..2 heads
+  (_Block: ConvBN_0, ConvBN_1 (no act), SEBlock_0, residual, relu6)
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# plan-F widths: stem c0, /2 level c2, /4 level c3
-PICO_WIDTHS = (128, 128, 192)
+from video_stream_segmenetation_tpu_torch.models.backbones import seeded_tree
+
+# stem c0, /2 level c2, /4 level c3
+WIDTHS = {"pico": (128, 128, 192), "micro": (128, 192, 256)}
 SE_REDUCE = 4
 
 
-def pico_conv_shapes(stem_stride: int) -> dict:
-    """Kernel shape (HWIO) of every conv of the pico tree, by module name."""
-    c0, c2, c3 = PICO_WIDTHS
+def _se(c: int) -> dict:
+    r = max(8, c // SE_REDUCE)
+    return {"Dense_0": ("dense", (c, r)), "Dense_1": ("dense", (r, c))}
+
+
+def _block(c: int) -> dict:
+    return {"ConvBN_0": ("convbn", (3, 3, c, c)), "ConvBN_1": ("convbn", (3, 3, c, c)),
+            "SEBlock_0": _se(c)}
+
+
+def param_spec(decoder: str, stem_stride: int) -> dict:
+    """The float tree's layout (backbones.py::seeded_tree leaves), in the
+    order its kernels are drawn: convs in module order, heads, then the
+    context SE."""
+    c0, c2, c3 = WIDTHS[decoder]
     ss = stem_stride
-    return {
-        "ConvBN_0": (ss, ss, 3, c0),
-        "ConvBN_1": (3, 3, c0, c2),
-        "ConvBN_2": (3, 3, c2, c2),
-        "ConvBN_3": (3, 3, c2, c3),
-        "ConvBN_4": (3, 3, c3, c3),
-        "ConvBN_5": (3, 3, c3, c3),
-        "ConvBN_6": (1, 1, c3 + c2, c2),
-        "ConvBN_7": (1, 1, c2 + c0, c0),
-        "Conv_0": (1, 1, c3, 1),
-        "Conv_1": (1, 1, c0, 1),
-        "Conv_2": (3, 3, c0, 1),
-    }
+    spec = {"ConvBN_0": ("convbn", (ss, ss, 3, c0)),
+            "ConvBN_1": ("convbn", (3, 3, c0, c2))}
+    if decoder == "micro":
+        spec["_Block_0"] = _block(c2)
+        spec["ConvBN_2"] = ("convbn", (3, 3, c2, c3))
+        spec["_Block_1"] = _block(c3)
+        n = 3
+    else:
+        spec["ConvBN_2"] = ("convbn", (3, 3, c2, c2))
+        spec["ConvBN_3"] = ("convbn", (3, 3, c2, c3))
+        spec["ConvBN_4"] = ("convbn", (3, 3, c3, c3))
+        n = 5
+    spec[f"ConvBN_{n}"] = ("convbn", (3, 3, c3, c3))  # ctx, dilation 3
+    spec[f"ConvBN_{n + 1}"] = ("convbn", (1, 1, c3 + c2, c2))  # u2red
+    spec[f"ConvBN_{n + 2}"] = ("convbn", (1, 1, c2 + c0, c0))  # u1red
+    spec["Conv_0"] = ("conv", (1, 1, c3, 1))
+    spec["Conv_1"] = ("conv", (1, 1, c0, 1))
+    spec["Conv_2"] = ("conv", (3, 3, c0, 1))
+    spec["SEBlock_0"] = _se(c3)
+    return spec
+
+
+def init_params(decoder: str, seed: int, stem_stride: int = 10) -> dict:
+    """Seeded float tree of the ``decoder`` plan ('pico' or 'micro'):
+    LeCun-normal kernels (truncated at 2 sigma), zero biases, BatchNorm at
+    unit statistics -- flax's initializers, drawn from
+    ``numpy.random.default_rng(seed)``."""
+    if decoder not in WIDTHS:
+        raise ValueError(f"decoder {decoder!r}: the port has {sorted(WIDTHS)}")
+    return seeded_tree(np.random.default_rng(seed), param_spec(decoder, stem_stride))
 
 
 def init_pico_params(seed: int, stem_stride: int = 10) -> dict:
-    """Seeded float pico tree: LeCun-normal kernels (truncated at 2 sigma),
-    zero biases, BatchNorm at unit statistics -- flax's initializers, drawn
-    from ``numpy.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
-
-    def lecun(shape):
-        fan_in = int(np.prod(shape[:-1]))
-        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
-        return (np.clip(rng.standard_normal(shape), -2.0, 2.0) * std).astype(np.float32)
-
-    params, stats = {}, {}
-    for name, shape in pico_conv_shapes(stem_stride).items():
-        if name.startswith("ConvBN"):
-            c = shape[-1]
-            params[name] = {
-                "Conv_0": {"kernel": lecun(shape)},
-                "BatchNorm_0": {"scale": np.ones(c, np.float32),
-                                "bias": np.zeros(c, np.float32)},
-            }
-            stats[name] = {"BatchNorm_0": {"mean": np.zeros(c, np.float32),
-                                           "var": np.ones(c, np.float32)}}
-        else:
-            params[name] = {"kernel": lecun(shape),
-                            "bias": np.zeros(shape[-1], np.float32)}
-    c3 = PICO_WIDTHS[2]
-    r = max(8, c3 // SE_REDUCE)
-    params["SEBlock_0"] = {
-        "Dense_0": {"kernel": lecun((c3, r)), "bias": np.zeros(r, np.float32)},
-        "Dense_1": {"kernel": lecun((r, c3)), "bias": np.zeros(c3, np.float32)},
-    }
-    return {"params": params, "batch_stats": stats}
+    return init_params("pico", seed, stem_stride)

@@ -1,4 +1,4 @@
-"""int8 serving graph for MatteNetHD, pico plan (port of
+"""int8 serving graph for MatteNetHD, pico and micro plans (port of
 ``models/quantized.py``).
 
 * :func:`quantize_mattenet_hd`: numpy copy of the reference's quantizer --
@@ -7,16 +7,18 @@
 * :func:`trunk_params`: the quantized dict in the layout the trunk kernel
   takes (weights OHWI, the split 1x1 decoder convs cut into their up-path
   and skip halves).
-* The plain ("xla-style") trunk, :func:`xla_trunk_alpha`, mirrors the
-  reference's XLA path (``_conv_i8``, ``_se_f32``, ``split_conv_up``) and
-  is the trunk kernel's plain version.  Convolutions accumulate exactly,
+* The plain ("xla-style") trunks, :func:`xla_trunk_alpha` (pico) and
+  :func:`xla_micro_trunk_alpha` (micro: residual ``_block``s with SE),
+  mirror the reference's XLA path (``_conv_i8``, ``_se_f32``, ``_block``,
+  ``split_conv_up``) and are the plain versions of the CUDA trunks.  Convolutions accumulate exactly,
   in float64 (a d3b/ctx sum can pass float32's exact 2**24; PyTorch has
   no int8 convolution on CUDA); the SE mean and dense layers run in
   float64 (the reference: f32).  At the main path's 72x128 stem grid
   with the trained pico weights this picks the reference's lattice step
   for every ctx value (tests/test_torch_trunk.py).
 * :class:`QuantizedMatteNetHD`: bf16 stem patch product + requant, the
-  trunk kernel (kernels/trunk_int8.py), half-pixel upsample, sigmoid.
+  plan's trunk (kernels/trunk_int8.py; micro's decoder levels are
+  kernels/decoder_int8.py), half-pixel upsample, sigmoid.
   The ``det``/``sem`` heads are dead in serving and are left out.
 """
 
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_stream_segmenetation_tpu_torch.ops.resize import interp_matrix
+from video_stream_segmenetation_tpu_torch.models.backbones import same_pads
+from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear_mxu
 
 ACT_SCALE = 6.0 / 127.0  # relu6 output lattice
 RELU6_SCALE = 127.0 / 6.0
@@ -61,32 +64,60 @@ def _folded(p, st, name):
     )
 
 
-def quantize_mattenet_hd(float_tree: dict, stem_stride: int) -> dict:
-    """Float pico tree ``{"params", "batch_stats"}`` (nested dicts of numpy
-    arrays, flax module names) -> int8 serving dict with the reference's
-    keys: ``stem_w`` (f32; served as bf16), ``stem_b``, ``d2dn``, ``d2b``,
-    ``d3dn``, ``d3b``, ``ctx``, ``u2red``, ``u1red`` (each ``wq`` s8 HWIO,
-    ``mult``, ``bias``), ``ctxse/Dense_0|1`` and ``alpha_q``."""
+def _qconvbn(p, st, name):
+    w, b = _folded(p, st, name)
+    wq, sw = _quant_w(w)
+    return {"wq": wq, "mult": (ACT_SCALE * sw).astype(np.float32),
+            "bias": b.astype(np.float32)}
+
+
+def _dense(d):
+    return {"kernel": np.asarray(d["kernel"], np.float32),
+            "bias": np.asarray(d["bias"], np.float32)}
+
+
+# serving key -> flax module, per plan (mattenet_hd.py module orders)
+PLAN_LAYERS = {
+    "pico": (("d2dn", "ConvBN_1"), ("d2b", "ConvBN_2"), ("d3dn", "ConvBN_3"),
+             ("d3b", "ConvBN_4"), ("ctx", "ConvBN_5"), ("u2red", "ConvBN_6"),
+             ("u1red", "ConvBN_7")),
+    "micro": (("d2dn", "ConvBN_1"), ("d3dn", "ConvBN_2"), ("ctx", "ConvBN_3"),
+              ("u2red", "ConvBN_4"), ("u1red", "ConvBN_5")),
+}
+# micro's residual blocks: serving prefix <- flax module
+MICRO_BLOCKS = (("d2b", "_Block_0"), ("d3b", "_Block_1"))
+
+
+def quantize_mattenet_hd(float_tree: dict, stem_stride: int,
+                         decoder: str = "pico") -> dict:
+    """Float tree ``{"params", "batch_stats"}`` of the ``decoder`` plan
+    (nested dicts of numpy arrays, flax module names) -> int8 serving dict
+    with the reference's keys: ``stem_w`` (f32; served as bf16),
+    ``stem_b``, the plan's convs (each ``wq`` s8 HWIO, ``mult``, ``bias``:
+    pico ``d2dn``, ``d2b``, ``d3dn``, ``d3b``, ``ctx``, ``u2red``,
+    ``u1red``; micro the same with ``d2b``/``d3b`` as blocks
+    ``d2b/ConvBN_0|1`` and ``d2b/SEBlock_0/Dense_0|1``), ``ctxse/Dense_0|1``
+    and ``alpha_q``."""
     if stem_stride < 8:
         raise ValueError("int8 serving path targets plan B (stem_stride >= 8)")
+    if decoder not in PLAN_LAYERS:
+        raise ValueError(f"decoder {decoder!r}: the port has {sorted(PLAN_LAYERS)}")
     p, st = float_tree["params"], float_tree["batch_stats"]
     q = {}
     w, b = _folded(p, st, "ConvBN_0")
     wm = w.reshape(stem_stride * stem_stride * 3, -1) / 255.0
     q["stem_w"] = wm.astype(np.float32)
     q["stem_b"] = b.astype(np.float32)
-    for name, mod in (("d2dn", "ConvBN_1"), ("d2b", "ConvBN_2"),
-                      ("d3dn", "ConvBN_3"), ("d3b", "ConvBN_4"),
-                      ("ctx", "ConvBN_5"), ("u2red", "ConvBN_6"),
-                      ("u1red", "ConvBN_7")):
-        w, b = _folded(p, st, mod)
-        wq, sw = _quant_w(w)
-        q[name] = {"wq": wq, "mult": (ACT_SCALE * sw).astype(np.float32),
-                   "bias": b.astype(np.float32)}
+    for name, mod in PLAN_LAYERS[decoder]:
+        q[name] = _qconvbn(p, st, mod)
+    if decoder == "micro":
+        for pfx, blk in MICRO_BLOCKS:
+            for conv in ("ConvBN_0", "ConvBN_1"):
+                q[f"{pfx}/{conv}"] = _qconvbn(p[blk], st[blk], conv)
+            for d in ("Dense_0", "Dense_1"):
+                q[f"{pfx}/SEBlock_0/{d}"] = _dense(p[blk]["SEBlock_0"][d])
     for d in ("Dense_0", "Dense_1"):
-        dd = p["SEBlock_0"][d]
-        q[f"ctxse/{d}"] = {"kernel": np.asarray(dd["kernel"], np.float32),
-                           "bias": np.asarray(dd["bias"], np.float32)}
+        q[f"ctxse/{d}"] = _dense(p["SEBlock_0"][d])
     wq, sw = _quant_w(_f64(p["Conv_2"]["kernel"]))
     q["alpha_q"] = {"wq": wq, "mult": (ACT_SCALE * sw).astype(np.float32),
                     "bias": np.asarray(p["Conv_2"]["bias"], np.float32)}
@@ -106,33 +137,44 @@ def _layer(wq_hwio, mult, bias, device):
     }
 
 
+def _se_params(q: dict, pfx: str, device) -> dict:
+    return {
+        f"{short}{i}": torch.tensor(np.asarray(q[f"{pfx}/Dense_{i}"][field], np.float32),
+                                    device=device)
+        for i in (0, 1) for short, field in (("k", "kernel"), ("b", "bias"))
+    }
+
+
+def is_micro(q: dict) -> bool:
+    """Whether a serving dict (or its trunk layout) is the micro plan's."""
+    return "d2b/ConvBN_0" in q or "c0" in q.get("d2b", {})
+
+
 def trunk_params(q: dict, device="cpu") -> dict:
-    """The quantized dict as the trunk takes it, on ``device``."""
+    """The quantized dict as the trunk takes it, on ``device``.  Micro's
+    blocks become ``{"c0", "c1", "se"}`` under ``d2b``/``d3b``."""
     tp = {}
-    for name in ("d2dn", "d2b", "d3dn", "d3b", "ctx"):
+    micro = is_micro(q)
+    for name in ("d2dn", "d3dn", "ctx") + (() if micro else ("d2b", "d3b")):
         tp[name] = _layer(q[name]["wq"], q[name]["mult"], q[name]["bias"], device)
+    if micro:
+        for pfx, _ in MICRO_BLOCKS:
+            tp[pfx] = {f"c{i}": _layer(q[f"{pfx}/ConvBN_{i}"]["wq"],
+                                       q[f"{pfx}/ConvBN_{i}"]["mult"],
+                                       q[f"{pfx}/ConvBN_{i}"]["bias"], device)
+                       for i in (0, 1)}
+            tp[pfx]["se"] = _se_params(q, f"{pfx}/SEBlock_0", device)
     for name, ca in (("u2red", q["ctx"]["wq"].shape[-1]),
                      ("u1red", q["u2red"]["wq"].shape[-1])):
         wq, mult, bias = q[name]["wq"], q[name]["mult"], q[name]["bias"]
         tp[name + "_up"] = _layer(wq[:, :, :ca], mult, bias, device)
         tp[name + "_skip"] = _layer(wq[:, :, ca:], mult, np.zeros_like(bias), device)
-    tp["se"] = {
-        f"{short}{i}": torch.tensor(np.asarray(q[f"ctxse/Dense_{i}"][field], np.float32),
-                                    device=device)
-        for i in (0, 1) for short, field in (("k", "kernel"), ("b", "bias"))
-    }
+    tp["se"] = _se_params(q, "ctxse", device)
     tp["alpha"] = _layer(q["alpha_q"]["wq"], q["alpha_q"]["mult"], q["alpha_q"]["bias"], device)
     return tp
 
 
 # ---- plain (xla-style) trunk -------------------------------------------
-
-
-def same_pads(size: int, k: int, stride: int, dil: int) -> tuple[int, int]:
-    """XLA/TF 'SAME' padding (low, high) along one axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + (k - 1) * dil + 1 - size, 0)
-    return total // 2, total - total // 2
 
 
 def _requant(y: torch.Tensor) -> torch.Tensor:
@@ -174,6 +216,28 @@ def split_conv_up(small, skip, up_layer, skip_layer):
     return _requant(ya + _conv_i8(skip, skip_layer))
 
 
+def _block(x_i8: torch.Tensor, bp: dict) -> torch.Tensor:
+    """Micro's _Block: 3x3 requant conv, 3x3 f32 conv, SE on that f32
+    output, + residual, requant (the reference's ``_block``)."""
+    h = _requant(_conv_i8(x_i8, bp["c0"]))
+    y = _se(_conv_i8(h, bp["c1"]), bp["se"])
+    return _requant(y + x_i8.to(torch.float32) * ACT_SCALE)
+
+
+def xla_micro_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
+    """Micro (plan D): d2dn -> d2b block -> d3dn -> d3b block -> ctx
+    (dil 3) + residual -> SE -> u2red -> u1red -> int8 alpha head.
+    x0 [S, H, W, C0] s8 -> logits [S, H, W] f32."""
+    d2 = _block(_requant(_conv_i8(x0, tp["d2dn"], stride=2)), tp["d2b"])
+    d3 = _block(_requant(_conv_i8(d2, tp["d3dn"], stride=2)), tp["d3b"])
+    c3 = _conv_i8(d3, tp["ctx"], dilation=3)
+    ctx_f = torch.clamp(c3 + d3.to(torch.float32) * ACT_SCALE, 0.0, 6.0)
+    ctx = _requant(_se(ctx_f, tp["se"]))
+    u2 = split_conv_up(ctx, d2, tp["u2red_up"], tp["u2red_skip"])
+    u1 = split_conv_up(u2, x0, tp["u1red_up"], tp["u1red_skip"])
+    return _conv_i8(u1, tp["alpha"])[..., 0]
+
+
 def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     """d2dn -> d2b -> d3dn -> d3b -> ctx(dil 3) + residual -> SE ->
     u2red -> u1red -> int8 alpha head.  x0 [S, H, W, C0] s8 -> logits
@@ -195,12 +259,13 @@ def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
 
 class QuantizedMatteNetHD(torch.nn.Module):
     """Packed u8 frames ``[S, H/b, W/b, b*b*3]`` -> ``{"alpha": [S, mh, mw]
-    f32}``."""
+    f32}``; the plan (pico or micro) follows the serving dict's keys."""
 
     def __init__(self, q: dict, stem_stride: int, head_upsample: int, device="cpu"):
         super().__init__()
         self.stem_stride = stem_stride
         self.head_upsample = head_upsample
+        self.decoder = "micro" if is_micro(q) else "pico"
         self.register_buffer(
             "stem_w", torch.tensor(np.asarray(q["stem_w"], np.float32), device=device)
             .to(torch.bfloat16))
@@ -208,18 +273,24 @@ class QuantizedMatteNetHD(torch.nn.Module):
             "stem_b", torch.tensor(np.asarray(q["stem_b"], np.float32), device=device))
         self.trunk = trunk_params(q, device)
 
-    def forward(self, frames_p: torch.Tensor) -> dict:
-        from video_stream_segmenetation_tpu_torch.kernels.trunk_int8 import (
-            fused_nano_trunk_alpha,
-        )
-
+    def stem(self, frames_p: torch.Tensor) -> torch.Tensor:
+        """bf16 patch product + folded BN -> x0 on the relu6 lattice, s8."""
         y = torch.matmul(frames_p.to(torch.bfloat16), self.stem_w)
-        x0 = _requant(y.to(torch.float32) + self.stem_b)
-        logits = fused_nano_trunk_alpha(x0.contiguous(), self.trunk)
+        return _requant(y.to(torch.float32) + self.stem_b).contiguous()
+
+    def trunk_logits(self, x0: torch.Tensor) -> torch.Tensor:
+        from video_stream_segmenetation_tpu_torch.kernels import trunk_int8
+
+        if self.decoder == "micro":
+            return trunk_int8.micro_trunk_alpha(x0, self.trunk)
+        return trunk_int8.fused_nano_trunk_alpha(x0, self.trunk)
+
+    def upsample(self, logits: torch.Tensor) -> torch.Tensor:
+        """Half-pixel x``head_upsample`` bilinear upsample and sigmoid."""
         h0, w0 = logits.shape[-2:]
         uf = self.head_upsample
-        dev = logits.device
-        a_h = interp_matrix(uf * h0, h0, "half_pixel", device=dev)
-        a_w = interp_matrix(uf * w0, w0, "half_pixel", device=dev)
-        al = torch.matmul(torch.matmul(a_h, logits), a_w.t())
-        return {"alpha": torch.sigmoid(al)}
+        return torch.sigmoid(resize_bilinear_mxu(logits, (uf * h0, uf * w0), "half_pixel",
+                                                 channel_last=False))
+
+    def forward(self, frames_p: torch.Tensor) -> dict:
+        return {"alpha": self.upsample(self.trunk_logits(self.stem(frames_p)))}

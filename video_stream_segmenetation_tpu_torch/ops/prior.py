@@ -1,5 +1,6 @@
-"""The soft elliptical face prior rasterised from 4 scalars (port of
-``ops/prior.py::prior_plane_from_params``)."""
+"""The soft elliptical face prior: its 4 scalars from a detector box and
+its plane rasterised from them (port of ``ops/prior.py::
+face_prior_params`` and ``prior_plane_from_params``)."""
 
 from __future__ import annotations
 
@@ -32,3 +33,19 @@ def prior_plane_from_params(params: torch.Tensor, mask_hw) -> torch.Tensor:
     edge_zone = d2 > 1.0 - pad / torch.maximum(rx, ry)
     v = torch.where(edge_zone, torch.clamp(v, min=0.25), v)
     return torch.where(d2 <= 1.0, v, torch.zeros_like(v))
+
+
+def face_prior_params(box_video: torch.Tensor, video_hw, mask_hw) -> torch.Tensor:
+    """Detector box ``[..., 4]`` in video pixels -> ``[..., 4]`` = (cx, cy,
+    rx, ry) in mask pixels: the box floored/ceiled onto the mask grid,
+    radii 0.56 and 0.70 of its width and height."""
+    vh, vw = video_hw
+    mh, mw = mask_hw
+    sx, sy = mw / vw, mh / vh
+    x0 = torch.floor(box_video[..., 0] * sx)
+    y0 = torch.floor(box_video[..., 1] * sy)
+    x1 = torch.ceil(box_video[..., 2] * sx)
+    y1 = torch.ceil(box_video[..., 3] * sy)
+    rx = torch.clamp((x1 - x0) * 0.56, min=1e-6)
+    ry = torch.clamp((y1 - y0) * 0.70, min=1e-6)
+    return torch.stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0, rx, ry], dim=-1)

@@ -1,5 +1,6 @@
-"""Linear-interpolation matrices with explicit coordinate conventions
-(port of the matrix form of ``ops/resize.py``).
+"""Bilinear resizes with explicit coordinate conventions (port of
+``ops/resize.py``): interpolation matrices, the gather and matrix forms of
+the separable resize, and the ROI crop of the face path.
 
 ``half_pixel``: src = (dst + 0.5) * in/out - 0.5, taps clamped to the edge
 and weights clipped into [0, 1] (Canvas2D drawImage / patched ONNX Resize).
@@ -53,3 +54,77 @@ def _interp_matrix(out_size: int, in_size: int, method: str) -> np.ndarray:
 def interp_matrix(out_size: int, in_size: int, method: str, device="cpu") -> torch.Tensor:
     """:func:`_interp_matrix` as a new f32 tensor on ``device``."""
     return torch.tensor(_interp_matrix(out_size, in_size, method), device=device)
+
+
+def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, method: str):
+    in_size = x.shape[axis]
+    if in_size == out_size and method != "half_pixel":
+        return x
+    i0, i1, w1 = _linear_taps(out_size, in_size, method)
+    dev = x.device
+    lo = torch.index_select(x, axis, torch.as_tensor(i0, dtype=torch.long, device=dev))
+    hi = torch.index_select(x, axis, torch.as_tensor(i1, dtype=torch.long, device=dev))
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    w = torch.as_tensor(w1, dtype=x.dtype, device=dev).reshape(shape)
+    return lo * (1 - w) + hi * w
+
+
+def resize_bilinear(img: torch.Tensor, out_hw, method: str = "asymmetric",
+                    channel_last: bool = True) -> torch.Tensor:
+    """Separable bilinear resize of ``[..., H, W, C]`` (or ``[..., H, W]``
+    with ``channel_last=False``) as two-tap gathers (port of
+    ``resize_bilinear``)."""
+    h_axis = img.ndim - (3 if channel_last else 2)
+    out = _resize_axis_linear(img, h_axis, out_hw[0], method)
+    return _resize_axis_linear(out, h_axis + 1, out_hw[1], method)
+
+
+def resize_bilinear_mxu(img: torch.Tensor, out_hw, method: str = "asymmetric",
+                        channel_last: bool = True) -> torch.Tensor:
+    """The same taps as :func:`resize_bilinear`, as two f32 interpolation
+    products ``A_h @ img @ A_w^T`` (port of ``resize_bilinear_mxu`` at its
+    default HIGHEST precision; f32 products need TF32 off, PyTorch's
+    default for matmuls)."""
+    h_axis = img.ndim - (3 if channel_last else 2)
+    in_h, in_w = img.shape[h_axis], img.shape[h_axis + 1]
+    dev = img.device
+    a_h = interp_matrix(out_hw[0], in_h, method, device=dev)
+    a_w = interp_matrix(out_hw[1], in_w, method, device=dev)
+    x = img if img.is_floating_point() else img.to(torch.float32)
+    a_h, a_w = a_h.to(x.dtype), a_w.to(x.dtype)
+    if channel_last:
+        x = torch.einsum("oh,...hwc->...owc", a_h, x)
+        return torch.einsum("pw,...hwc->...hpc", a_w, x)
+    x = torch.einsum("oh,...hw->...ow", a_h, x)
+    return torch.einsum("pw,...hw->...hp", a_w, x)
+
+
+def crop_and_resize_mxu(img: torch.Tensor, box: torch.Tensor, out_hw,
+                        fill: float = 0.0) -> torch.Tensor:
+    """Crop ``box [K, 4]`` = (x0, y0, x1, y1) float pixels out of ``img
+    [K, H, W, C]`` and resample it to ``out_hw`` with half-pixel bilinear
+    taps (port of ``crop_and_resize_mxu``): two products with weight
+    matrices built from hat functions ``clip(1 - |src - grid|, 0, 1)``;
+    samples outside the frame read ``fill``."""
+    k, h, w, _ = img.shape
+    out_h, out_w = out_hw
+    dev = img.device
+    bw = torch.clamp(box[:, 2] - box[:, 0], min=1e-6)[:, None]
+    bh = torch.clamp(box[:, 3] - box[:, 1], min=1e-6)[:, None]
+    ar_h = torch.arange(out_h, dtype=torch.float32, device=dev)
+    ar_w = torch.arange(out_w, dtype=torch.float32, device=dev)
+    ys = box[:, 1:2] + (ar_h + 0.5) * (bh / out_h) - 0.5
+    xs = box[:, 0:1] + (ar_w + 0.5) * (bw / out_w) - 0.5
+    vy = (ys >= -0.5) & (ys <= h - 0.5)
+    vx = (xs >= -0.5) & (xs <= w - 0.5)
+
+    def hat(coords, size):  # [K, out] -> [K, out, size]
+        s = torch.clamp(coords, 0.0, size - 1.0)[..., None]
+        grid = torch.arange(size, dtype=torch.float32, device=dev)
+        return torch.clamp(1.0 - torch.abs(s - grid), 0.0, 1.0).to(img.dtype)
+
+    row = torch.einsum("kuh,khwc->kuwc", hat(ys, h), img)
+    out = torch.einsum("kvw,kuwc->kuvc", hat(xs, w), row)
+    mask = (vy[:, :, None] & vx[:, None, :])[..., None]
+    return torch.where(mask, out, torch.full((), fill, dtype=img.dtype, device=dev))

@@ -1,12 +1,19 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
+        [--config pico_noface|pico|micro ...]
 
-Builds Engine(S, fast_int8_pico with the face path off) with seeded weights,
-warms it up, then
+For each configuration (default: all three) it builds Engine(S, preset):
+``pico_noface`` is fast_int8_pico with the face path off and seeded
+weights, ``pico`` and ``micro`` are fast_int8_pico and fast_int8_micro as
+their presets stand with the committed trained weights and frames.  It
+warms the engine up, then
   * times each stage of the step with CUDA events, calling the step's own
-    functions on the engine's tensors (frames host->device, s2d pack, model,
-    guide, refine kernel, packed composite, unpack), and
+    functions on the engine's tensors (frames host->device, s2d pack, stem,
+    the trunk -- for micro its convolutions and its decoder levels plus
+    head apart, and each kernel of the latter by torch.profiler --,
+    upsample, guide, face subpath, refine kernel, packed composite,
+    unpack), and
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
@@ -22,6 +29,12 @@ import time
 import numpy as np
 import torch
 
+CONFIGS = {
+    "pico_noface": ("fast_int8_pico", {"face_path": False}, False),
+    "pico": ("fast_int8_pico", {}, True),
+    "micro": ("fast_int8_micro", {}, True),
+}
+
 
 def _event_ms(fn, iters=5):
     fn()
@@ -35,13 +48,45 @@ def _event_ms(fn, iters=5):
     return t0.elapsed_time(t1) / iters, out
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--streams", type=int, default=64)
-    ap.add_argument("--steps", type=int, default=4)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a card")
+def _kernel_ms(fn):
+    """(kernel name, device ms) of each kernel one call of ``fn`` launches,
+    in launch order (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us() / 1e3)
+            for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+def _trunk_stages(model, x0, stages):
+    """Time the served trunk.  Micro's is timed as the two functions
+    ``micro_trunk_alpha`` runs (its convolutions, then its decoder levels
+    and head), and the second's kernels are listed one by one.  Returns
+    (logits, that list)."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+
+    if model.decoder != "micro":
+        stages["pico trunk kernel (11 launches)"], logits = _event_ms(
+            lambda: model.trunk_logits(x0))
+        return logits, []
+    tp = model.trunk
+    stages["micro_encoder: d2dn, d2b block, d3dn, d3b block, ctx, SE"], (d2, ctx) = \
+        _event_ms(lambda: TK.micro_encoder(x0, tp))
+
+    def decoder():
+        return TK.micro_decoder(x0, d2, ctx, tp)
+
+    stages["micro_decoder: u2 and u1 decoder_int8 levels, alpha head"], logits = \
+        _event_ms(decoder)
+    return logits, _kernel_ms(decoder)
+
+
+def profile(config: str, s: int, steps: int, smi: str) -> None:
+    from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
     from video_stream_segmenetation_tpu_torch.ops.layout import (
         alpha_composite_s2d,
@@ -49,49 +94,67 @@ def main() -> None:
         guide_from_s2d,
         space_to_depth,
     )
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
-    s = args.streams
-    st = preset("fast_int8_pico", face_path=False)
-    eng = Engine(s, st, seed=0)
-    eng.admit_all()
+    name, overrides, trained = CONFIGS[config]
+    st = preset(name, **overrides)
     fh, fw = st.frame_hw
     mh, mw = st.mask_hw
     blk = st.s2d_block
-    frames = np.random.default_rng(0).integers(0, 256, (s, fh, fw, 3), dtype=np.uint8)
+    if trained:
+        eng = Engine(s, st, **bridge.trained_weights(st))
+        clip, _ = bridge.load_frames()
+        frames = np.ascontiguousarray(clip[np.arange(s) % 2])
+    else:
+        eng = Engine(s, st, seed=0)
+        frames = np.random.default_rng(0).integers(0, 256, (s, fh, fw, 3), dtype=np.uint8)
+    eng.admit_all()
     for _ in range(2):
         eng.process(frames)
 
     dev = eng.device
+    out_dtype = torch.bfloat16 if st.refined_dtype == "bf16" else torch.float32
     stages = {}
     stages["frames host->device"], ft = _event_ms(lambda: torch.as_tensor(frames, device=dev))
     stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
-    stages["model (stem, trunk kernel, upsample)"], mo = _event_ms(lambda: eng.model(fp))
-    alpha = mo["alpha"].contiguous()
+    stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(lambda: eng.model.stem(fp))
+    logits, decoder_kernels = _trunk_stages(eng.model, x0, stages)
+    stages["x4 upsample, sigmoid"], alpha = _event_ms(lambda: eng.model.upsample(logits))
+    alpha = alpha.contiguous()
     stages["planar guide"], guide = _event_ms(
         lambda: guide_from_s2d(fp, (fh, fw), (mh, mw), blk).contiguous())
-    zeros4 = torch.zeros((s, 4), device=dev)
-    no = torch.zeros((s,), dtype=torch.bool, device=dev)
+    if st.face_path:
+        gate = torch.ones((s,), dtype=torch.bool, device=dev)
+        fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+        stages[f"face subpath (K={-(-s // st.lmk_interval)} of {s} streams)"], face = \
+            _event_ms(lambda: face_subpath_compact(eng.face_models, guide, fidx, gate, st))
+        prior, has_prior = face[0].contiguous(), face[1]
+    else:
+        prior = torch.zeros((s, 4), device=dev)
+        has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
     stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
         alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
-        eng.state.initialized, st.warp_blend_weight, guide, zeros4, no, eng.knobs))
+        eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
+        out_dtype=out_dtype))
     stages["packed composite"], out = _event_ms(
         lambda: alpha_composite_s2d(fp, a, eng.backgrounds, (fh, fw), blk))
     stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
     total = sum(stages.values())
-    print(f"stage times, S={s}, CUDA events, mean of 5 ({smi}):", flush=True)
+    print(f"[{config}] {name} {overrides or ''} stage times, S={s}, CUDA events, "
+          f"mean of 5 ({smi}):", flush=True)
     for k, v in stages.items():
-        print(f"  {k:40s} {v:8.3f} ms  {100 * v / total:5.1f} %")
-    print(f"  {'sum':40s} {total:8.3f} ms")
+        print(f"  {k:56s} {v:8.3f} ms  {100 * v / total:5.1f} %")
+    print(f"  {'sum':56s} {total:8.3f} ms")
+    for i, (kernel, ms) in enumerate(decoder_kernels):
+        print(f"    micro_decoder launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
+              "(torch.profiler, one call)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             eng.process(frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -102,12 +165,30 @@ def main() -> None:
             continue
         us = getattr(e, "self_device_time_total", 0)
         busy["memcpy/memset" if e.key.startswith(("Memcpy", "Memset")) else "kernels"] += us
-    per_step = wall_ms / args.steps
-    print(f"profiled {args.steps} Engine.process calls: wall {per_step:.2f} ms a step; "
-          + ", ".join(f"{k} {v / 1e3 / args.steps:.2f} ms a step" for k, v in busy.items())
-          + f"; SMs idle (no kernel running) {100 - 100 * busy['kernels'] / 1e3 / wall_ms:.1f} %"
-          " of the wall time")
-    print(ka.table(sort_by="self_device_time_total", row_limit=18, max_name_column_width=60))
+    print(f"[{config}] profiled {steps} Engine.process calls: wall {wall_ms / steps:.2f} ms "
+          "a step; " + ", ".join(f"{k} {v / 1e3 / steps:.2f} ms a step"
+                                 for k, v in busy.items())
+          + f"; SMs idle (no kernel running) "
+          f"{100 - 100 * busy['kernels'] / 1e3 / wall_ms:.1f} % of the wall time", flush=True)
+    print(ka.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=60),
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--streams", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--config", nargs="*", default=list(CONFIGS), choices=list(CONFIGS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    for config in args.config:
+        profile(config, args.streams, args.steps, smi)
 
 
 if __name__ == "__main__":

@@ -75,18 +75,40 @@ def default_knobs(
 class PipelineStatics:
     """Pipeline geometry and constants (the reference's tier 1).
 
-    Defaults are the reference's.  Only the fields the port reads are here.
-    The port's step is the reference's ``fast_int8_pico`` path and has no
-    switches for what that preset selects (s2d-packed frames, native int8
-    pico matting, nearest-u8 planar guide, separable warp, bf16 refined
-    alpha); ``face_path`` must be False until the face path is ported.
+    Defaults are the reference's.  Only the fields the port reads or
+    refuses are here.  The port's step is the reference's ``fast_int8_*``
+    path and has no switches for what those presets select (s2d-packed
+    frames, native int8 matting, nearest-u8 planar guide, separable warp,
+    the fused temporal refine with the analytic prior); runtime/
+    pipeline.py::check_statics refuses what it does not serve.
     """
 
     frame_hw: tuple[int, int] = (720, 1280)
     mask_hw: tuple[int, int] = (288, 512)  # MODEL_INPUT_SIZE [W,H]=[512,288]
+    fd_size: int = 256  # FD_INPUT (frameProcessorTest.ts:33)
+    lmk_size: int = 192  # LMK_INPUT (:34)
+    lmk_interval: int = 6  # LANDMARK_INTERVAL (main.ts:10)
     warp_gain: float = 0.7  # WARP_GAIN (main.ts:12)
     warp_blend_weight: float = 0.3  # WARP_BLEND_WEIGHT (frameProcessorTest.ts:108)
+    face_score_thresh: float = 0.6  # FACE_SCORE_THRESH (:35)
+    lmk_score_thresh: float = 0.3  # (:143)
+    roi_pad: float = 0.25  # cropFaceROI pad (:139)
+    affine_mode: str = "exact"  # the port serves 'exact' conjugation only
     background: str = "image"  # the port serves 'image' only
     face_path: bool = True
+    face_tracking: str = "landmarks"  # the port serves 'landmarks' only
     ema_adapt_default: float = 0.0
+    # cadence compaction: the face models run on the <= face_batch streams
+    # whose cadence fires (0 = ceil(S / lmk_interval)); the port serves
+    # face_compact=True only
+    face_compact: bool = True
+    face_batch: int = 0
+    # face source: 'guide' (the mask-resolution planar u8 guide; the only
+    # one the port serves) or 'frames'
+    face_input: str = "frames"
     s2d_block: int = 5
+    matting_decoder: str = "full"  # the port serves 'pico' and 'micro'
+    prior_impl: str = "auto"  # 'auto' = analytic; the port refuses 'plane'
+    refine_alpha_src: str = "full"  # the port refuses 'lowres'
+    guide_kernel_unfold: bool = False  # the port refuses True
+    refined_dtype: str = "f32"  # refined alpha: 'f32' or 'bf16'

@@ -1,21 +1,36 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
-Only ``fast_int8_pico`` is ported so far; ``preset(name, **overrides)``
-takes overrides the way the reference's does (``face_path=False``,
-``frame_hw``, ``mask_hw``, ...).
+``fast_int8_pico`` and ``fast_int8_micro`` are ported, as the reference
+defines them; ``preset(name, **overrides)`` takes overrides the way the
+reference's does (``face_path=False``, ``frame_hw``, ``mask_hw``, ...).
+The rest of each reference preset -- native int8 matting over s2d-packed
+frames, the nearest-u8 planar guide, the separable warp, the matrix-form
+ROI crop and letterbox resize (``crop_impl='mxu'``,
+``resize_impl='mxu'``) -- is what the port's step does
+unconditionally.
 """
 
 from __future__ import annotations
 
 from video_stream_segmenetation_tpu_torch.runtime.config import PipelineStatics
 
+_FAST_INT8 = dict(
+    ema_adapt_default=1.0,
+    face_compact=True,
+    s2d_block=10,
+    face_input="guide",
+)
+
 _PRESETS = {
-    # plan-F pico trunk, int8 serving over s2d-packed frames (the
-    # reference's runtime/presets.py:119-136).  The rest of that preset --
-    # native int8 pico matting, nearest-u8 guide, separable warp, bf16
-    # refined alpha, the face-path geometry -- is what the port's step does
-    # unconditionally, or, for the face path, not yet.
-    "fast_int8_pico": dict(ema_adapt_default=1.0, s2d_block=10),
+    # plan-D micro trunk (the reference's runtime/presets.py:71-84):
+    # residual blocks at 192/256, one dilation-3 context conv, 1x1-only
+    # decoder; the face models at the reference geometry 256/192 and an
+    # f32 refined alpha (the preset sets no refined_dtype)
+    "fast_int8_micro": dict(_FAST_INT8, matting_decoder="micro"),
+    # plan-F pico trunk (:119-136): bf16 refined alpha, face models
+    # retrained at 128/128
+    "fast_int8_pico": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
+                           fd_size=128, lmk_size=128),
 }
 
 

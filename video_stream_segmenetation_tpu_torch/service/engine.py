@@ -7,6 +7,11 @@ accumulator, affine, knobs, packed backgrounds) there.  Knob updates are
 staged host-side and applied at the next step boundary, so a step sees one
 consistent config.
 
+The face path runs on a wall-clock gate as the reference's does: a
+stream's face round may fire again only ``face_min_interval_s`` (0.180 s)
+after its last applied one (set it to 0.0 to make steps depend on the
+frames alone).
+
 Unlike the reference, a failed step raises (after recording the failure
 in ``health``): there is no catch-all that serves passthrough frames.
 """
@@ -19,7 +24,15 @@ import time
 import numpy as np
 import torch
 
-from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_pico_params
+from video_stream_segmenetation_tpu_torch.models.blazeface import (
+    FaceFinder,
+    init_face_finder_params,
+)
+from video_stream_segmenetation_tpu_torch.models.facemesh import (
+    LandmarkNet,
+    init_landmark_net_params,
+)
+from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params
 from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
     quantize_mattenet_hd,
@@ -34,6 +47,7 @@ from video_stream_segmenetation_tpu_torch.runtime.config import (
     default_knobs,
 )
 from video_stream_segmenetation_tpu_torch.runtime.pipeline import (
+    FaceModels,
     check_statics,
     make_step,
 )
@@ -58,13 +72,17 @@ def resolve_device(device) -> torch.device:
 
 class Engine:
     def __init__(self, num_streams: int, statics: PipelineStatics | None = None,
-                 params: dict | None = None, seed: int = 0, device="cuda"):
-        """``params``: the int8 serving dict (models/quantized.py
-        ``quantize_mattenet_hd`` or bridge.py); None quantizes a float pico
-        tree made from ``seed`` (models/mattenet_hd.py)."""
+                 params: dict | None = None, seed: int = 0, device="cuda",
+                 face_params: dict | None = None):
+        """``params``: the int8 serving dict of ``statics.matting_decoder``'s
+        plan (models/quantized.py ``quantize_mattenet_hd`` or bridge.py);
+        None quantizes a float tree made from ``seed``
+        (models/mattenet_hd.py).  ``face_params``: ``{"face": FaceFinder
+        tree, "lmk": LandmarkNet tree}`` (flax-shaped float trees, e.g.
+        bridge.py::trained_weights); None makes both from ``seed``."""
         self.device = resolve_device(device)
         self.num_streams = num_streams
-        self.statics = statics or preset("fast_int8_pico", face_path=False)
+        self.statics = statics or preset("fast_int8_pico")
         check_statics(self.statics)
         st = self.statics
         fh, fw = st.frame_hw
@@ -77,9 +95,21 @@ class Engine:
             raise ValueError(f"mask_hw {st.mask_hw} must be one integer multiple "
                              f"of the stem grid {(hp, wp)}")
         if params is None:
-            params = quantize_mattenet_hd(init_pico_params(seed, blk), blk)
+            params = quantize_mattenet_hd(init_params(st.matting_decoder, seed, blk), blk,
+                                          st.matting_decoder)
         self.model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device)
-        self._step = make_step(self.model, st)
+        if self.model.decoder != st.matting_decoder:
+            raise ValueError(f"params are the {self.model.decoder} plan's; statics ask "
+                             f"for matting_decoder={st.matting_decoder!r}")
+        self.face_models = None
+        if st.face_path:
+            if face_params is None:
+                face_params = {"face": init_face_finder_params(seed + 1),
+                               "lmk": init_landmark_net_params(seed + 2)}
+            self.face_models = FaceModels(
+                face=FaceFinder(face_params["face"], st.fd_size, device=self.device),
+                lmk=LandmarkNet(face_params["lmk"], device=self.device))
+        self._step = make_step(self.model, st, self.face_models)
         self.state = init_state(num_streams, (mh, mw), device=self.device)
         self.knobs = default_knobs(num_streams, ema_adapt=st.ema_adapt_default,
                                    device=self.device)
@@ -87,6 +117,9 @@ class Engine:
         self.backgrounds = torch.zeros((num_streams, hp, wp, blk * blk * 3),
                                        dtype=torch.uint8, device=self.device)
         self.active = np.zeros((num_streams,), bool)
+        # host clock of each stream's last applied face round (L_MIN_MS)
+        self._last_face_at = np.zeros((num_streams,), np.float64)
+        self.face_min_interval_s = 0.180
         self.counters = Counters()
         self.health = HealthMonitor()
         self._lock = threading.Lock()
@@ -102,6 +135,7 @@ class Engine:
             s = int(free[0])
             self.active[s] = True
         reset_stream(self.state, s)
+        self._last_face_at[s] = 0.0
         return s
 
     def admit_all(self) -> list[int]:
@@ -113,6 +147,7 @@ class Engine:
             mask = np.zeros((self.num_streams,), bool)
             mask[free] = True
             reset_streams(self.state, torch.as_tensor(mask, device=self.device))
+            self._last_face_at[free] = 0.0
         return [int(s) for s in free]
 
     def evict(self, slot: int) -> None:
@@ -152,10 +187,15 @@ class Engine:
     def process(self, frames: np.ndarray) -> dict:
         """One batch step: frames u8 ``[S, H, W, 3]`` (rows of inactive slots
         are processed too and ignored).  Returns ``frame`` (composited u8
-        ``[S, H, W, 3]``), ``alpha`` (bf16 ``[S, mh, mw]``), ``metrics`` and
-        the step's other outputs, as tensors on the engine's device."""
+        ``[S, H, W, 3]``), ``alpha`` (``[S, mh, mw]``, bf16 or f32 by
+        ``refined_dtype``), ``metrics`` and the step's face outputs
+        (``face_applied``, ``det_score``, ``face_prior_params``,
+        ``face_has_prior``), as tensors on the engine's device."""
         t0 = time.perf_counter()
         self._apply_staged()
+        now = time.monotonic()
+        gate = torch.as_tensor((now - self._last_face_at) >= self.face_min_interval_s,
+                               device=self.device)
         want = (self.num_streams, *self.statics.frame_hw, 3)
         if tuple(np.shape(frames)) != want:
             raise ValueError(f"process: frames must be u8 {want}, got {np.shape(frames)}")
@@ -163,7 +203,8 @@ class Engine:
         frames_p = space_to_depth(frames_t, self.statics.s2d_block).contiguous()
         t1 = time.perf_counter()
         try:
-            new_state, out = self._step(self.state, frames_p, self.backgrounds, self.knobs)
+            new_state, out = self._step(self.state, frames_p, self.backgrounds, self.knobs,
+                                        gate)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:
@@ -171,11 +212,11 @@ class Engine:
             raise
         self.health.record_success()
         self.state = new_state
+        self._last_face_at[out["face_applied"].cpu().numpy()] = now
         t2 = time.perf_counter()
         n_active = int(self.active.sum()) or self.num_streams
         self.counters.record_step(n_active, (t2 - t1) * 1e3, (t2 - t0) * 1e3)
-        extras = {k: v for k, v in out.items()
-                  if k not in ("frame", "alpha", "face_applied")}
+        extras = {k: v for k, v in out.items() if k not in ("frame", "alpha")}
         return {
             "frame": depth_to_space(out["frame"], self.statics.s2d_block),
             "alpha": out["alpha"],
