@@ -182,3 +182,106 @@ def test_micro_engine_on_card_runs_its_kernels(card):
     assert DK.fused_decoder_level.launches == n_d + 4
     assert TR.fused_temporal_refine.launches == n_r + 2
     assert out["alpha"].dtype == torch.float32 and out["face_applied"].is_cuda
+
+
+def _k_trunk(device, plan, k):
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params
+
+    return trunk_params(quantize_mattenet_hd(init_params(plan, 0, 10, k), 10, plan), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan,k,hw", [("pico", 4, (72, 128)), ("nano", 4, (72, 128)),
+                                       ("nano", 3, (16, 32))])
+def test_k_class_trunk_kernel_matches_plain(card, plan, k, hw):
+    """The K-class head at the pico and nano widths: logits [S, H, W, K]
+    equal to the plain trunk's (exact s32 sums, the same f32 epilogue);
+    K = 3 as well, so the class axis cannot pass by symmetry."""
+    tp = _k_trunk(card, plan, k)
+    x0 = torch.as_tensor(np.random.default_rng(3).integers(0, 128, (2, *hw, 128),
+                                                            dtype=np.int8), device=card)
+    n = TK.fused_nano_trunk_alpha.launches
+    got = TK.fused_nano_trunk_alpha(x0, tp)
+    want = Q.xla_trunk_alpha(x0, tp)
+    torch.cuda.synchronize()
+    assert TK.fused_nano_trunk_alpha.launches == n + 1
+    assert got.shape == want.shape == (2, *hw, k)
+    assert torch.equal(got, want)
+
+
+def test_k_class_head_refuses_too_many_classes():
+    """The head kernel takes 1 to ALPHA_HEAD_MAX_K classes; the wrapper
+    refuses more by name before it launches (checked without a card)."""
+    tp = {"w": torch.zeros((TK.ALPHA_HEAD_MAX_K + 1, 3, 3, 128), dtype=torch.int8),
+          "mult": torch.ones(TK.ALPHA_HEAD_MAX_K + 1),
+          "bias": torch.zeros(TK.ALPHA_HEAD_MAX_K + 1)}
+    u1 = torch.zeros((1, 4, 4, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="classes"):
+        TK._alpha_head(None, 0, u1, tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,mask_hw", [("multiclass_fast_pico", (16, 32)),
+                                          ("multiclass_fast", (64, 128))])
+def test_multiclass_engine_on_card_runs_the_trunk(card, name, mask_hw):
+    eng = Engine(2, preset(name, frame_hw=(160, 320), mask_hw=mask_hw), seed=0)
+    eng.admit_all()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 160, 320, 3), dtype=np.uint8)
+    n_t, n_r = TK.fused_nano_trunk_alpha.launches, TR.fused_temporal_refine.launches
+    for _ in range(2):
+        out = eng.process(frames)
+    assert TK.fused_nano_trunk_alpha.launches == n_t + 2
+    assert TR.fused_temporal_refine.launches == n_r
+    ca = out["class_alpha"]
+    assert ca.shape == (2, *mask_hw, 4) and ca.is_cuda
+    assert (ca.sum(-1) - 1).abs().max().item() <= 1e-3
+    assert out["frame"].shape == (2, 160, 320, 3)
+
+
+def _precision_flags():
+    m = torch.backends.cuda.matmul
+    return (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+            m.allow_bf16_reduced_precision_reduction)
+
+
+def _set_precision_flags(matmul_tf32, cudnn_tf32, bf16_reduction):
+    m = torch.backends.cuda.matmul
+    m.allow_tf32 = matmul_tf32
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    m.allow_bf16_reduced_precision_reduction = bf16_reduction
+
+
+@pytest.mark.gpu
+def test_served_step_does_not_depend_on_precision_flags(card):
+    """One step of fast_int8_pico with the face path on (16 streams, seeded
+    weights, 720p frames, backgrounds resized from 360x640): the same
+    frame and alpha bit for bit with TF32 (matmul and cuDNN) and cuBLAS's
+    bf16 reduced-precision reductions on as with all three off; the
+    engine leaves the caller's flags as it found them."""
+    s = 16
+    g = np.random.default_rng(5)
+    frames = (g.random((s, 720, 1280, 3)) * 90).astype(np.uint8)
+    yy, xx = np.ogrid[0:720, 0:1280]
+    frames[:, ((xx - 640) / 200.0) ** 2 + ((yy - 380) / 260.0) ** 2 <= 1.0] = (230, 200, 175)
+    bgs = g.integers(0, 256, (s, 360, 640, 3), dtype=np.uint8)
+
+    def serve():
+        eng = Engine(s, preset("fast_int8_pico"), seed=0)
+        eng.face_min_interval_s = 0.0
+        eng.admit_all()
+        for i in range(s):
+            eng.set_background(i, bgs[i])
+        out = eng.process(frames)
+        return out["frame"].cpu(), out["alpha"].float().cpu()
+
+    saved = _precision_flags()
+    try:
+        _set_precision_flags(False, False, False)
+        strict = serve()
+        _set_precision_flags(True, True, True)
+        loose = serve()
+        assert _precision_flags() == (True, True, True)
+    finally:
+        _set_precision_flags(*saved)
+    assert torch.equal(strict[0], loose[0])
+    assert torch.equal(strict[1], loose[1])

@@ -1,9 +1,11 @@
-"""Port's int8 pico trunk and model vs the JAX package.
+"""Port's int8 pico and nano trunks and model vs the JAX package.
 
 The port's plain trunk (video_stream_segmenetation_tpu_torch/models/
 quantized.py::xla_trunk_alpha, the CUDA kernel's plain version) against
 the JAX Pallas megakernel fused_nano_trunk_alpha_rowfold run in interpret
-mode, on the same s8 stem output and the same quantized pico weights.
+mode, on the same s8 stem output and the same quantized weights: the pico
+widths with one class, and the pico and nano widths with the K=4 head of
+the multi-class presets.
 """
 
 import jax
@@ -29,8 +31,9 @@ FH, FW = 80, 160  # stem grid 8x16, the JAX engine tests' geometry
 PICO_CKPT = "checkpoints/mattenet_hd10_pico"
 
 
-def _jax_pico(seed):
-    model = models.MatteNetHD(stem_stride=SS, head_upsample=4, decoder="pico")
+def _jax_pico(seed, decoder="pico", k=1, head_upsample=4):
+    model = models.MatteNetHD(stem_stride=SS, head_upsample=head_upsample, num_classes=k,
+                              decoder=decoder)
     params = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, FH, FW, 3)))
     return model, params
 
@@ -42,14 +45,17 @@ def _x0(rng, s, q):
     return np.asarray(JQ._requant(y.astype(jnp.float32) + q["stem_b"])), np.asarray(x)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_plain_trunk_matches_pallas_rowfold(rng, seed):
+@pytest.mark.parametrize("seed,decoder,k", [
+    (0, "pico", 1), (1, "pico", 1), (0, "pico", 4), (0, "nano", 4), (1, "nano", 1)],
+    ids=["0", "1", "pico-k4-0", "nano-k4-0", "nano-1"])
+def test_plain_trunk_matches_pallas_rowfold(rng, seed, decoder, k):
     """Exact logits: the s32 sums are exact on both sides and the f32
     epilogues are the same operations.  The only inexact step is the SE
     mean and dense layers (f32 in the reference, float64 in the port); at
     these shapes it flipped no lattice step of ctx (the full 72x128 grid
-    is held below)."""
-    model, params = _jax_pico(seed)
+    is held below).  One class gives [S, H, W], K classes [S, H, W, K] in
+    the reference's unfolded class order."""
+    model, params = _jax_pico(seed, decoder, k)
     q = JQ.quantize_mattenet_hd(model, params)
     x0, _ = _x0(rng, 2, q)
     s, h, w, c0 = x0.shape
@@ -57,23 +63,28 @@ def test_plain_trunk_matches_pallas_rowfold(rng, seed):
         jnp.asarray(x0).reshape(s, h // 4, 4, w, c0), q, interpret=True))
     tp = TQ.trunk_params(bridge.load_quantized(jax.tree_util.tree_map(np.asarray, q)))
     got = TK.fused_nano_trunk_alpha(torch.tensor(x0), tp).numpy()
-    assert got.shape == (s, h, w) and got.dtype == np.float32
+    assert got.shape == ((s, h, w) if k == 1 else (s, h, w, k)) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
 
 
-def test_model_alpha_matches_jax_xla_path(rng):
-    """QuantizedMatteNetHD forward (bf16 stem, trunk, x4 half-pixel
-    upsample, sigmoid) vs the JAX int8 graph on packed frames.  The stem's
-    bf16 product may round a knife-edge x0 value to the other lattice
-    step, so alpha is held to 1e-5 rather than bit-exact."""
-    model, params = _jax_pico(0)
+@pytest.mark.parametrize("decoder,k,uf", [("pico", 1, 4), ("pico", 4, 1), ("nano", 4, 4)])
+def test_model_alpha_matches_jax_xla_path(rng, decoder, k, uf):
+    """QuantizedMatteNetHD forward (bf16 stem, trunk, x``uf`` half-pixel
+    upsample -- none at uf=1 --, sigmoid, or softmax over K classes) vs
+    the JAX int8 graph on packed frames.  The stem's bf16 product may
+    round a knife-edge x0 value to the other lattice step, so alpha is
+    held to 1e-5 rather than bit-exact."""
+    model, params = _jax_pico(0, decoder, k, uf)
     q = JQ.quantize_mattenet_hd(model, params)
     _, xp = _x0(rng, 2, q)
-    jm = JQ.QuantizedMatteNetHD(SS, 4, decoder="pico", decoder_impl="xla", head_impl="int8")
+    jm = JQ.QuantizedMatteNetHD(SS, uf, num_classes=k, decoder=decoder, decoder_impl="xla",
+                                head_impl="int8")
     want = np.asarray(jm.apply(q, jnp.asarray(xp))["alpha"])
-    tm = TQ.QuantizedMatteNetHD(bridge.load_quantized(jax.tree_util.tree_map(np.asarray, q)), SS, 4)
+    tm = TQ.QuantizedMatteNetHD(bridge.load_quantized(jax.tree_util.tree_map(np.asarray, q)),
+                                SS, uf)
     got = tm(torch.tensor(xp))["alpha"].numpy()
-    assert got.shape == want.shape == (2, 32, 64)
+    hw = (8 * uf, 16 * uf)
+    assert got.shape == want.shape == ((2, *hw) if k == 1 else (2, *hw, k))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 

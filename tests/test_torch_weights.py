@@ -26,9 +26,12 @@ from video_stream_segmenetation_tpu.models.quantized import quantize_mattenet_hd
 from video_stream_segmenetation_tpu.utils.checkpoint import restore_params
 from video_stream_segmenetation_tpu.utils.clips import articulated_clip
 from video_stream_segmenetation_tpu_torch import bridge
+from video_stream_segmenetation_tpu_torch.models import quantized as TQ
 
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints"
-TRUNKS = ("micro", "pico")
+# (checkpoint name, plan, classes)
+TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1),
+          ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4))
 FACE = ("facefinder", "facefinder_128", "landmarknet", "landmarknet_128")
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
@@ -45,9 +48,9 @@ def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True) -> list[Path]:
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     written = []
-    for plan in TRUNKS:
-        name = f"mattenet_hd10_{plan}"
-        model = models.MatteNetHD(stem_stride=10, head_upsample=4, decoder=plan)
+    for name, plan, k in TRUNKS:
+        model = models.MatteNetHD(stem_stride=10, head_upsample=4, num_classes=k,
+                                  decoder=plan)
         q = quantize_mattenet_hd(model, restore_params(str(CKPT / name)))
         bridge.save_export(out / f"{name}.npz", bridge.load_quantized(_numpy(q)))
         written.append(out / f"{name}.npz")
@@ -84,10 +87,11 @@ def test_loaded_exports_are_served_trees():
     """The committed trees load with numpy alone into what Engine takes."""
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
 
-    for name, plan in (("fast_int8_micro", "micro"), ("fast_int8_pico", "pico")):
+    for name, plan, k in (("fast_int8_micro", "micro", 1), ("fast_int8_pico", "pico", 1),
+                          ("multiclass_fast_pico", "pico", 4), ("multiclass_fast", "nano", 4)):
         w = bridge.trained_weights(preset(name))
         assert w["params"]["d2dn"]["wq"].dtype == np.int8
-        assert ("d2b/ConvBN_0" in w["params"]) == (plan == "micro")
+        assert TQ.plan_of(w["params"]) == plan and TQ.num_classes_of(w["params"]) == k
         assert set(w["face_params"]) == {"face", "lmk"}
         assert w["face_params"]["face"]["params"]["ConvBN_0"]["Conv_0"]["kernel"].shape \
             == (3, 3, 3, 32)

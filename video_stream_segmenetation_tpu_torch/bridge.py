@@ -52,7 +52,7 @@ def params_from_jax(float_tree: dict, stem_stride: int = 10,
 
 
 def load_quantized(q: dict) -> dict:
-    """The reference's quantized dict of the pico or micro plan (numpy
+    """The reference's quantized dict of the pico, nano or micro plan (numpy
     leaves; ``stem_w`` may be a bfloat16 array) -> the port's serving dict:
     every int8 conv (``wq`` s8, ``mult``, ``bias`` f32) and SE dense layer
     (``kernel``, ``bias`` f32) it serves; the rest is dropped."""
@@ -108,17 +108,24 @@ def load_export(path) -> dict:
     return out
 
 
+# the K=4 multi-class checkpoints by plan (the reference's names)
+MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc"}
+
+
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     """The committed trained weights of a preset: ``{"params": the int8
-    serving dict of statics.matting_decoder ('mattenet_hd10_<plan>'),
-    "face_params": {"face", "lmk"}}`` (face models keyed by geometry as the
-    reference's checkpoints are: no suffix at fd 256 / lmk 192, else
-    '_<size>')."""
+    serving dict of statics.matting_decoder ('mattenet_hd10_<plan>' for one
+    class, ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face",
+    "lmk"}}`` (face models keyed by geometry as the reference's
+    checkpoints are: no suffix at fd 256 / lmk 192, else '_<size>')."""
     d = Path(weights_dir)
+    plan = statics.matting_decoder
+    matting = (f"mattenet_hd10_{plan}" if statics.num_classes == 1
+               else MULTICLASS_EXPORTS[plan])
     fd_suf = "" if statics.fd_size == 256 else f"_{statics.fd_size}"
     lmk_suf = "" if statics.lmk_size == 192 else f"_{statics.lmk_size}"
     return {
-        "params": load_export(d / f"mattenet_hd10_{statics.matting_decoder}.npz"),
+        "params": load_export(d / f"{matting}.npz"),
         "face_params": {"face": load_export(d / f"facefinder{fd_suf}.npz"),
                         "lmk": load_export(d / f"landmarknet{lmk_suf}.npz")},
     }

@@ -1,11 +1,14 @@
 // int8 pico/nano trunk for Hopper (sm_90a): the port of the Pallas
-// megakernel video_stream_segmenetation_tpu/kernels/trunk_int8.py::
-// fused_nano_trunk_alpha_rowfold (body _kernel, pallas_call in _run).
+// megakernel video_stream_segmenetation_tpu/kernels/trunk_int8.py (body
+// _kernel, pallas_call in _run) in its one-class form
+// fused_nano_trunk_alpha_rowfold and its K-class form
+// fused_nano_trunk_alpha_q / fused_nano_trunk_alpha.
 //
 // What bounds it on an H100: about 1.44 G multiply-adds a stream at the
-// 720p pico shapes (x0 [72,128,128] s8), against 1.2 MB of input and
-// 37 KB of output: it is bound by operations (int8 peak 1979 TOP/s),
-// never by bytes.
+// 720p pico shapes (x0 [72,128,128] s8; about 2.6 G at the nano widths
+// 192/256; the head is 10.6 M of them a class), against 1.2 MB of input
+// and 37 KB of output a class: it is bound by operations (int8 peak
+// 1979 TOP/s), never by bytes.
 //
 // Design: the TPU kernel keeps one stream's whole trunk in VMEM and folds
 // quad parities into lanes; neither fits Hopper (227 KB of shared memory a
@@ -29,8 +32,13 @@
 //     residual (res * 6/127, the micro trunk's _Block), requant to s8.
 // The same kernels run the micro trunk's convolutions (models/quantized.py
 // micro plan), whose decoder levels are csrc/decoder_int8.cu.
-//   * vst_alpha_head_i8: the 3x3 int8 alpha head (one output channel),
-//     one thread a pixel, f32 logits.
+//   * vst_alpha_head_i8: the 3x3 int8 alpha head with K output channels
+//     (1 <= K <= ALPHA_HEAD_MAX_K; the served presets use K = 1 and the
+//     multi-class K = 4), one thread a (pixel, class), classes fastest so
+//     a warp's neighbours read the same taps; f32 logits [S, H, W, K],
+//     acc * mult[k] + bias[k].  This is the Pallas head's K-class form
+//     (trunk_int8.py:_alpha_head_consts, quad columns qo*K + k), written
+//     in the natural layout: no quad fold to undo.
 // The fast form (wgmma s8 tiles, layers fused so activations stay on
 // chip) is later work.
 
@@ -44,6 +52,7 @@
 #define BN 64
 #define KW_WORDS 8  // 32 channels of K per stage, as 8 words of 4 s8
 #define LDS 9       // padded row stride (words) of the shared tiles
+#define ALPHA_HEAD_MAX_K 16
 
 __device__ __forceinline__ int8_t requant(float y) {
   y = fminf(fmaxf(y, 0.0f), 6.0f);
@@ -197,15 +206,18 @@ extern "C" __global__ void se_requant_kernel(
   }
 }
 
-// 3x3 SAME int8 conv to one output channel: f32 logits [S, H, W].
+// 3x3 SAME int8 conv to K output channels (weights OHWI [K, 3, 3, Cin]):
+// f32 logits [S, H, W, K], one thread an output element.
 extern "C" __global__ void alpha_head_i8_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ mult, const float* __restrict__ bias,
-    float* __restrict__ out, int S, int H, int W, int Cin) {
+    float* __restrict__ out, int S, int H, int W, int Cin, int K) {
   const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long long)S * H * W) return;
-  const int s = (int)(m / ((long long)H * W));
-  const int rem = (int)(m % ((long long)H * W));
+  if (m >= (long long)S * H * W * K) return;
+  const int k = (int)(m % K);
+  const long long px = m / K;
+  const int s = (int)(px / ((long long)H * W));
+  const int rem = (int)(px % ((long long)H * W));
   const int oy = rem / W, ox = rem % W;
   int acc = 0;
   for (int r = 0; r < 3; ++r) {
@@ -216,11 +228,12 @@ extern "C" __global__ void alpha_head_i8_kernel(
       if (ix < 0 || ix >= W) continue;
       const int* xa = reinterpret_cast<const int*>(
           x + (((size_t)s * H + iy) * W + ix) * Cin);
-      const int* wa = reinterpret_cast<const int*>(w + (size_t)(r * 3 + q) * Cin);
-      for (int k = 0; k < Cin / 4; ++k) acc = __dp4a(__ldg(xa + k), __ldg(wa + k), acc);
+      const int* wa = reinterpret_cast<const int*>(
+          w + ((size_t)k * 9 + r * 3 + q) * Cin);
+      for (int c = 0; c < Cin / 4; ++c) acc = __dp4a(__ldg(xa + c), __ldg(wa + c), acc);
     }
   }
-  out[m] = (float)acc * mult[0] + bias[0];
+  out[m] = (float)acc * mult[k] + bias[k];
 }
 
 extern "C" int vst_conv_i8(const void* x, const void* w, const void* mult,
@@ -251,11 +264,13 @@ extern "C" int vst_se_requant(const void* ctx, const void* k0, const void* b0,
 
 extern "C" int vst_alpha_head_i8(const void* x, const void* w,
                                  const void* mult, const void* bias, void* out,
-                                 int S, int H, int W, int Cin, void* stream) {
-  const long long M = (long long)S * H * W;
+                                 int S, int H, int W, int Cin, int K,
+                                 void* stream) {
+  if (K < 1 || K > ALPHA_HEAD_MAX_K || Cin % 4) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)S * H * W * K;
   alpha_head_i8_kernel<<<(unsigned)((M + 255) / 256), 256, 0,
                          (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)mult,
-      (const float*)bias, (float*)out, S, H, W, Cin);
+      (const float*)bias, (float*)out, S, H, W, Cin, K);
   return (int)cudaGetLastError();
 }

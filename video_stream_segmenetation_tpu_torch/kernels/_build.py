@@ -40,7 +40,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "vst_conv_i8": [_P] * 7 + [_I] * 14 + [_P],
     "vst_se_requant": [_P] * 7 + [_I] * 4 + [_P],
-    "vst_alpha_head_i8": [_P] * 5 + [_I] * 4 + [_P],
+    "vst_alpha_head_i8": [_P] * 5 + [_I] * 5 + [_P],
     "vst_temporal_refine": [_P] * 8 + [_I] * 5 + [_P],
     "vst_decoder_level_i8": [_P] * 7 + [_I] * 6 + [_P],
 }

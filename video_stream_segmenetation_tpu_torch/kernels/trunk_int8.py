@@ -1,15 +1,20 @@
-"""The int8 pico and micro trunks as CUDA kernels (``csrc/trunk_int8.cu``).
+"""The int8 pico, nano and micro trunks as CUDA kernels
+(``csrc/trunk_int8.cu``).
 
 Replaces the Pallas megakernel
-``video_stream_segmenetation_tpu/kernels/trunk_int8.py::
-fused_nano_trunk_alpha_rowfold`` (pallas_call at ``_run``, line 297):
-d2dn -> d2b -> d3dn -> d3b -> ctx (dilation 3) + residual -> SE ->
-u2red/u1red split 1x1 convs -> int8 3x3 alpha head.  It takes the stem
-output in its natural NHWC layout; the TPU's quad-parity folds are not
-carried over.
+``video_stream_segmenetation_tpu/kernels/trunk_int8.py`` (pallas_call at
+``_run``, line 297) in its one-class form ``fused_nano_trunk_alpha_rowfold``
+and its K-class form ``fused_nano_trunk_alpha_q``/``fused_nano_trunk_alpha``
+(the multi-class presets, K = 4): d2dn -> d2b -> d3dn -> d3b -> ctx
+(dilation 3) + residual -> SE -> u2red/u1red split 1x1 convs -> int8 3x3
+alpha head with K output channels.  It takes the stem output in its
+natural NHWC layout; the TPU's quad-parity folds are not carried over, so
+the K-class logits come out as ``[S, H, W, K]`` directly (the reference
+unfolds its quad columns ``qo*K + k`` to the same layout).
 
 Bound on an H100: operations (about 1.44 G int8 multiply-adds a stream at
-720p) -- see the source's header for the design.  One call of
+720p at the pico widths, 2.6 G at nano's) -- see the source's header for
+the design.  One call of
 :func:`fused_nano_trunk_alpha` is 11 launches (one per layer, SE, head)
 and counts once in ``fused_nano_trunk_alpha.launches``.
 
@@ -53,12 +58,17 @@ def _conv(lib, stream, x, layer, out_dtype, stride=1, dil=1, mode=0,
     return out
 
 
+# the K the head kernel takes (csrc/trunk_int8.cu ALPHA_HEAD_MAX_K)
+ALPHA_HEAD_MAX_K = 16
+
+
 def fused_nano_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     """x0 [S, H, W, C0] s8 (stem output; H, W even twice over) + the trunk
-    params of models/quantized.py::trunk_params -> alpha logits [S, H, W]
-    f32.  A CPU tensor takes the plain version (the xla-style trunk
-    models/quantized.py::xla_trunk_alpha); a CUDA tensor launches the
-    kernels or raises."""
+    params of models/quantized.py::trunk_params (pico or nano widths, K
+    head classes) -> alpha logits [S, H, W] f32 for K = 1, [S, H, W, K]
+    for 1 < K <= ALPHA_HEAD_MAX_K.  A CPU tensor takes the plain version
+    (the xla-style trunk models/quantized.py::xla_trunk_alpha); a CUDA
+    tensor launches the kernels or raises."""
     if x0.device.type == "cpu":
         return Q.xla_trunk_alpha(x0, tp)
     if x0.dtype != torch.int8 or x0.dim() != 4 or not x0.is_contiguous():
@@ -102,10 +112,17 @@ def _se_requant(lib, stream, x_f, se, res=None):
 
 def _alpha_head(lib, stream, u1, head):
     s, h, w, c = u1.shape
-    logits = torch.empty((s, h, w), dtype=torch.float32, device=u1.device)
+    k = head["w"].shape[0]
+    if not 1 <= k <= ALPHA_HEAD_MAX_K:
+        raise ValueError(f"alpha_head_i8: {k} classes; the kernel takes 1 to "
+                         f"{ALPHA_HEAD_MAX_K}")
+    if head["mult"].numel() != k or head["bias"].numel() != k:
+        raise ValueError(f"alpha_head_i8: mult and bias need one value a class ({k})")
+    logits = torch.empty((s, h, w) if k == 1 else (s, h, w, k), dtype=torch.float32,
+                         device=u1.device)
     _build.check(lib, lib.vst_alpha_head_i8(
         u1.data_ptr(), head["w"].data_ptr(), head["mult"].data_ptr(),
-        head["bias"].data_ptr(), logits.data_ptr(), s, h, w, c, stream,
+        head["bias"].data_ptr(), logits.data_ptr(), s, h, w, c, k, stream,
     ), "alpha_head_i8")
     return logits
 

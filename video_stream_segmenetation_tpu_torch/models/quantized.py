@@ -1,5 +1,5 @@
-"""int8 serving graph for MatteNetHD, pico and micro plans (port of
-``models/quantized.py``).
+"""int8 serving graph for MatteNetHD, the pico, nano and micro plans, one
+alpha class or K (port of ``models/quantized.py``).
 
 * :func:`quantize_mattenet_hd`: numpy copy of the reference's quantizer --
   BatchNorm folded into the conv weights, symmetric per-output-channel
@@ -7,7 +7,7 @@
 * :func:`trunk_params`: the quantized dict in the layout the trunk kernel
   takes (weights OHWI, the split 1x1 decoder convs cut into their up-path
   and skip halves).
-* The plain ("xla-style") trunks, :func:`xla_trunk_alpha` (pico) and
+* The plain ("xla-style") trunks, :func:`xla_trunk_alpha` (pico, nano) and
   :func:`xla_micro_trunk_alpha` (micro: residual ``_block``s with SE),
   mirror the reference's XLA path (``_conv_i8``, ``_se_f32``, ``_block``,
   ``split_conv_up``) and are the plain versions of the CUDA trunks.  Convolutions accumulate exactly,
@@ -18,7 +18,9 @@
   for every ctx value (tests/test_torch_trunk.py).
 * :class:`QuantizedMatteNetHD`: bf16 stem patch product + requant, the
   plan's trunk (kernels/trunk_int8.py; micro's decoder levels are
-  kernels/decoder_int8.py), half-pixel upsample, sigmoid.
+  kernels/decoder_int8.py), half-pixel upsample (none at
+  ``head_upsample=1``), sigmoid -- or, with K > 1 classes, softmax over
+  the class axis.
   The ``det``/``sem`` heads are dead in serving and are left out.
 """
 
@@ -76,14 +78,20 @@ def _dense(d):
             "bias": np.asarray(d["bias"], np.float32)}
 
 
-# serving key -> flax module, per plan (mattenet_hd.py module orders)
+# serving key -> flax module, per plan (mattenet_hd.py module orders);
+# nano is pico's structure at deeper widths
+_PLAN_EF = (("d2dn", "ConvBN_1"), ("d2b", "ConvBN_2"), ("d3dn", "ConvBN_3"),
+            ("d3b", "ConvBN_4"), ("ctx", "ConvBN_5"), ("u2red", "ConvBN_6"),
+            ("u1red", "ConvBN_7"))
 PLAN_LAYERS = {
-    "pico": (("d2dn", "ConvBN_1"), ("d2b", "ConvBN_2"), ("d3dn", "ConvBN_3"),
-             ("d3b", "ConvBN_4"), ("ctx", "ConvBN_5"), ("u2red", "ConvBN_6"),
-             ("u1red", "ConvBN_7")),
+    "pico": _PLAN_EF,
+    "nano": _PLAN_EF,
     "micro": (("d2dn", "ConvBN_1"), ("d3dn", "ConvBN_2"), ("ctx", "ConvBN_3"),
               ("u2red", "ConvBN_4"), ("u1red", "ConvBN_5")),
 }
+# (c2, c3) of the single-conv plans, as their d2dn and d3dn weights give
+# them (the reference's NANO_WIDTHS)
+_EF_WIDTHS = {(128, 192): "pico", (192, 256): "nano"}
 # micro's residual blocks: serving prefix <- flax module
 MICRO_BLOCKS = (("d2b", "_Block_0"), ("d3b", "_Block_1"))
 
@@ -94,10 +102,10 @@ def quantize_mattenet_hd(float_tree: dict, stem_stride: int,
     (nested dicts of numpy arrays, flax module names) -> int8 serving dict
     with the reference's keys: ``stem_w`` (f32; served as bf16),
     ``stem_b``, the plan's convs (each ``wq`` s8 HWIO, ``mult``, ``bias``:
-    pico ``d2dn``, ``d2b``, ``d3dn``, ``d3b``, ``ctx``, ``u2red``,
+    pico and nano ``d2dn``, ``d2b``, ``d3dn``, ``d3b``, ``ctx``, ``u2red``,
     ``u1red``; micro the same with ``d2b``/``d3b`` as blocks
     ``d2b/ConvBN_0|1`` and ``d2b/SEBlock_0/Dense_0|1``), ``ctxse/Dense_0|1``
-    and ``alpha_q``."""
+    and ``alpha_q`` (K output channels, a ``mult`` and ``bias`` each)."""
     if stem_stride < 8:
         raise ValueError("int8 serving path targets plan B (stem_stride >= 8)")
     if decoder not in PLAN_LAYERS:
@@ -145,16 +153,34 @@ def _se_params(q: dict, pfx: str, device) -> dict:
     }
 
 
-def is_micro(q: dict) -> bool:
-    """Whether a serving dict (or its trunk layout) is the micro plan's."""
-    return "d2b/ConvBN_0" in q or "c0" in q.get("d2b", {})
+def plan_of(q: dict) -> str:
+    """The plan ('pico', 'nano' or 'micro') of a serving dict or of its
+    trunk layout, by its keys (micro's residual blocks) and its widths."""
+    if "d2b/ConvBN_0" in q or "c0" in q.get("d2b", {}):
+        return "micro"
+    if "wq" in q["d2dn"]:
+        c2, c3 = q["d2dn"]["wq"].shape[-1], q["d3dn"]["wq"].shape[-1]
+    else:
+        c2, c3 = q["d2dn"]["w"].shape[0], q["d3dn"]["w"].shape[0]
+    if (c2, c3) not in _EF_WIDTHS:
+        raise ValueError(f"widths (c2, c3) = {(c2, c3)} are no plan of the port's: "
+                         f"{_EF_WIDTHS}")
+    return _EF_WIDTHS[(c2, c3)]
+
+
+def num_classes_of(q: dict) -> int:
+    """K, the alpha head's output channels, of a serving dict or its trunk
+    layout."""
+    return q["alpha_q"]["wq"].shape[-1] if "alpha_q" in q else q["alpha"]["w"].shape[0]
 
 
 def trunk_params(q: dict, device="cpu") -> dict:
     """The quantized dict as the trunk takes it, on ``device``.  Micro's
-    blocks become ``{"c0", "c1", "se"}`` under ``d2b``/``d3b``."""
+    blocks become ``{"c0", "c1", "se"}`` under ``d2b``/``d3b``.  The alpha
+    head's ``mult`` and ``bias`` are per class; a single value is
+    broadcast to the K classes (the reference's _alpha_head_consts)."""
     tp = {}
-    micro = is_micro(q)
+    micro = plan_of(q) == "micro"
     for name in ("d2dn", "d3dn", "ctx") + (() if micro else ("d2b", "d3b")):
         tp[name] = _layer(q[name]["wq"], q[name]["mult"], q[name]["bias"], device)
     if micro:
@@ -170,7 +196,11 @@ def trunk_params(q: dict, device="cpu") -> dict:
         tp[name + "_up"] = _layer(wq[:, :, :ca], mult, bias, device)
         tp[name + "_skip"] = _layer(wq[:, :, ca:], mult, np.zeros_like(bias), device)
     tp["se"] = _se_params(q, "ctxse", device)
-    tp["alpha"] = _layer(q["alpha_q"]["wq"], q["alpha_q"]["mult"], q["alpha_q"]["bias"], device)
+    k = num_classes_of(q)
+    head = q["alpha_q"]
+    tp["alpha"] = _layer(head["wq"], *(np.broadcast_to(np.asarray(head[f], np.float32)
+                                                      .reshape(-1), (k,))
+                                       for f in ("mult", "bias")), device)
     return tp
 
 
@@ -235,13 +265,20 @@ def xla_micro_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     ctx = _requant(_se(ctx_f, tp["se"]))
     u2 = split_conv_up(ctx, d2, tp["u2red_up"], tp["u2red_skip"])
     u1 = split_conv_up(u2, x0, tp["u1red_up"], tp["u1red_skip"])
-    return _conv_i8(u1, tp["alpha"])[..., 0]
+    return alpha_head(u1, tp["alpha"])
+
+
+def alpha_head(u1: torch.Tensor, head: dict) -> torch.Tensor:
+    """The int8 3x3 alpha head: logits ``[S, H, W]`` for one class,
+    ``[S, H, W, K]`` for K."""
+    logits = _conv_i8(u1, head)
+    return logits[..., 0] if logits.shape[-1] == 1 else logits
 
 
 def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     """d2dn -> d2b -> d3dn -> d3b -> ctx(dil 3) + residual -> SE ->
-    u2red -> u1red -> int8 alpha head.  x0 [S, H, W, C0] s8 -> logits
-    [S, H, W] f32."""
+    u2red -> u1red -> int8 alpha head, pico or nano widths.  x0 [S, H, W,
+    C0] s8 -> logits [S, H, W] f32 for one class, [S, H, W, K] for K."""
     d2 = _requant(_conv_i8(x0, tp["d2dn"], stride=2))
     d2 = _requant(_conv_i8(d2, tp["d2b"]))
     d3 = _requant(_conv_i8(d2, tp["d3dn"], stride=2))
@@ -251,7 +288,7 @@ def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     ctx = _requant(_se(ctx_f, tp["se"]))
     u2 = split_conv_up(ctx, d2, tp["u2red_up"], tp["u2red_skip"])
     u1 = split_conv_up(u2, x0, tp["u1red_up"], tp["u1red_skip"])
-    return _conv_i8(u1, tp["alpha"])[..., 0]
+    return alpha_head(u1, tp["alpha"])
 
 
 # ---- serving module ----------------------------------------------------
@@ -259,13 +296,18 @@ def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
 
 class QuantizedMatteNetHD(torch.nn.Module):
     """Packed u8 frames ``[S, H/b, W/b, b*b*3]`` -> ``{"alpha": [S, mh, mw]
-    f32}``; the plan (pico or micro) follows the serving dict's keys."""
+    f32}`` (sigmoid), or ``[S, mh, mw, K]`` class maps (softmax) with K > 1
+    classes; the plan (pico, nano or micro) and K follow the serving
+    dict's keys and widths."""
 
     def __init__(self, q: dict, stem_stride: int, head_upsample: int, device="cpu"):
         super().__init__()
         self.stem_stride = stem_stride
         self.head_upsample = head_upsample
-        self.decoder = "micro" if is_micro(q) else "pico"
+        self.decoder = plan_of(q)
+        self.num_classes = num_classes_of(q)
+        if self.decoder == "micro" and self.num_classes > 1:
+            raise NotImplementedError("the micro plan serves one class only")
         self.register_buffer(
             "stem_w", torch.tensor(np.asarray(q["stem_w"], np.float32), device=device)
             .to(torch.bfloat16))
@@ -286,11 +328,23 @@ class QuantizedMatteNetHD(torch.nn.Module):
         return trunk_int8.fused_nano_trunk_alpha(x0, self.trunk)
 
     def upsample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Half-pixel x``head_upsample`` bilinear upsample and sigmoid."""
-        h0, w0 = logits.shape[-2:]
+        """Half-pixel x``head_upsample`` bilinear upsample of each class
+        plane (none at ``head_upsample=1``, as the reference), then
+        sigmoid (one class, ``[S, H, W]``) or softmax over the class axis
+        (``[S, H, W, K]``)."""
         uf = self.head_upsample
-        return torch.sigmoid(resize_bilinear_mxu(logits, (uf * h0, uf * w0), "half_pixel",
-                                                 channel_last=False))
+        if self.num_classes == 1:
+            h0, w0 = logits.shape[-2:]
+            if uf > 1:
+                logits = resize_bilinear_mxu(logits, (uf * h0, uf * w0), "half_pixel",
+                                             channel_last=False)
+            return torch.sigmoid(logits)
+        h0, w0 = logits.shape[-3:-1]
+        if uf > 1:
+            planes = resize_bilinear_mxu(logits.permute(0, 3, 1, 2), (uf * h0, uf * w0),
+                                         "half_pixel", channel_last=False)
+            logits = planes.permute(0, 2, 3, 1)
+        return torch.softmax(logits, dim=-1).contiguous()
 
     def forward(self, frames_p: torch.Tensor) -> dict:
         return {"alpha": self.upsample(self.trunk_logits(self.stem(frames_p)))}

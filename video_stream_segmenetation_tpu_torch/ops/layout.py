@@ -2,8 +2,8 @@
 
 Frames ride packed as ``[S, H/b, W/b, b*b*3]`` u8, patch lane order
 ``(dy, dx, c)``.  The guide is a lane selection of the packed frames; the
-composite upsamples the mask-resolution alpha and blends in the packed
-layout.
+composites (one alpha, or K class maps with one effect a class) upsample
+at mask resolution and blend in the packed layout.
 """
 
 from __future__ import annotations
@@ -11,7 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_planar_mxu
 from video_stream_segmenetation_tpu_torch.ops.resize import (
+    _interp_matrix,
     _nearest_taps,
     interp_matrix,
 )
@@ -123,3 +125,101 @@ def alpha_composite_s2d(frame_p: torch.Tensor, alpha: torch.Tensor,
     g = bg_p.expand(s, *frame_p.shape[1:]).float()
     blend = f * a_p + g * (1.0 - a_p)
     return torch.clamp(torch.floor(blend + 0.5), 0, 255).to(torch.uint8)
+
+
+def effect_algebra(effects) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One effect a class as the affine layer ``alpha_w[k] * frame +
+    beta_w[k] * blurred + cmat[k]`` (keep: alpha 1 | tint s: alpha 1-s,
+    c = s*tint*255 | color: c = color*255 | blur: beta 1).  Returns
+    (alpha_w [K], beta_w [K], cmat [K, 3]) f32; an unknown effect is
+    refused by name."""
+    k = len(effects)
+    alpha_w = np.zeros((k,), np.float32)
+    beta_w = np.zeros((k,), np.float32)
+    cmat = np.zeros((k, 3), np.float32)
+    for ci, eff in enumerate(effects):
+        if eff.get("keep"):
+            alpha_w[ci] = 1.0
+        elif "color" in eff:
+            cmat[ci] = np.asarray(eff["color"], np.float32) * 255.0
+        elif "blur" in eff:
+            beta_w[ci] = 1.0
+        elif "tint" in eff:
+            st = float(eff.get("strength", 0.5))
+            alpha_w[ci] = 1.0 - st
+            cmat[ci] = np.asarray(eff["tint"], np.float32) * 255.0 * st
+        else:
+            raise ValueError(f"unknown effect {eff!r}: the effects are keep, color, "
+                             "blur and tint")
+    return alpha_w, beta_w, cmat
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to bf16 and back (a DEFAULT-precision product's operand
+    or result on the reference)."""
+    return x.to(torch.bfloat16).float()
+
+
+def multiclass_composite_s2d(frame_p: torch.Tensor, class_alpha: torch.Tensor, effects,
+                             frame_hw, block: int, method: str = "half_pixel",
+                             highest: bool = False) -> torch.Tensor:
+    """Per-class-effect composite in the packed layout (port of
+    ``multiclass_composite_s2d``): every effect layer is affine in (frame,
+    blurred, constant), so the blend collapses to two fields composed at
+    class-map resolution and upsampled once,
+
+        out = up(w_f) * frame + up(R),   w_f = sum_k alpha_k a_k,
+        R = blurred * 255 * sum_k beta_k a_k + sum_k c_k a_k,
+
+    with ``a`` the class simplex ``class_alpha [S, mh, mw, K]`` (taken as it
+    is: the caller renormalises, as the reference's ``assume_simplex=True``
+    caller does) and the blur over the nearest planar guide
+    at sigma ``max(sigma * mh / fh, 0.5)``.  The field contraction is f32
+    (the reference's HIGHEST); the upsample is the reference's
+    DEFAULT-precision dtype flow unless ``highest``: its operands and its
+    H-pass and per-dy W-pass results round to bf16.  The H pass takes the
+    rows dy-major and each dy slice of the packed output is made from its
+    own row block.  frame_p ``[S, H/b, W/b, b*b*3]`` u8 -> packed u8."""
+    fh, fw = frame_hw
+    b = block
+    hp, wp = fh // b, fw // b
+    s = frame_p.shape[0]
+    mh, mw, k = class_alpha.shape[-3:]
+    if len(effects) != k:
+        raise ValueError(f"need {k} effects, got {len(effects)}")
+    dev = frame_p.device
+    rnd = (lambda x: x) if highest else _bf16
+    alpha_w, beta_w, cmat = effect_algebra(effects)
+
+    ca = class_alpha.to(torch.float32)
+    coef = torch.tensor(np.concatenate([alpha_w[:, None], beta_w[:, None], cmat], axis=1),
+                        device=dev)  # [K, 5]: (w_f, w_b, c_r, c_g, c_b)
+    planes = torch.einsum("smwk,kp->spmw", ca, coef)  # [S, 5, mh, mw]
+    w_f = planes[:, 0]
+    rgb = planes[:, 2:5]
+    if beta_w.any():
+        guide = guide_from_s2d(frame_p, frame_hw, (mh, mw), b, method=method)
+        sigma = float(next(e["blur"] for e in effects if "blur" in e))
+        sigma_small = max(sigma * mh / fh, 0.5)
+        blurred = torch.clamp(gaussian_blur_planar_mxu(guide.float() / 255.0, sigma_small),
+                              0.0, 1.0)  # [S, 3, mh, mw]
+        rgb = rgb + blurred * 255.0 * planes[:, 1:2]
+
+    a_h = _interp_matrix(fh, mh, method)
+    a_h_perm = rnd(torch.tensor(np.concatenate([a_h[dy::b] for dy in range(b)], axis=0),
+                                device=dev))  # rows (dy, i) = a_h[i*b + dy]
+    a_w_t = rnd(interp_matrix(fw, mw, method, device=dev)).t()  # [mw, fw]
+    cmat_f = rnd(torch.matmul(a_h_perm, rnd(w_f)))  # [S, b*hp, mw]
+    hmat_r = rnd(torch.matmul(a_h_perm, rnd(rgb)))  # [S, 3, b*hp, mw]
+    out_slices = []
+    for dy in range(b):
+        rows = slice(dy * hp, (dy + 1) * hp)
+        wf_sl = rnd(torch.matmul(cmat_f[:, rows], a_w_t))  # [S, hp, fw]
+        r_sl = rnd(torch.matmul(hmat_r[:, :, rows], a_w_t))  # [S, 3, hp, fw]
+        # packed lanes (dx, c) of row block dy
+        r_p = r_sl.permute(0, 2, 3, 1).reshape(s, hp, wp, 3 * b)
+        wf3 = wf_sl.reshape(s, hp, wp, b, 1).expand(s, hp, wp, b, 3).reshape(s, hp, wp, 3 * b)
+        f_sl = frame_p[..., 3 * b * dy: 3 * b * (dy + 1)].float()
+        acc = f_sl * wf3 + r_p
+        out_slices.append(torch.clamp(torch.floor(acc + 0.5), 0, 255).to(torch.uint8))
+    return torch.cat(out_slices, dim=-1)

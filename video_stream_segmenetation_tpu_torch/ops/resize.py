@@ -84,8 +84,8 @@ def resize_bilinear_mxu(img: torch.Tensor, out_hw, method: str = "asymmetric",
                         channel_last: bool = True) -> torch.Tensor:
     """The same taps as :func:`resize_bilinear`, as two f32 interpolation
     products ``A_h @ img @ A_w^T`` (port of ``resize_bilinear_mxu`` at its
-    default HIGHEST precision; f32 products need TF32 off, PyTorch's
-    default for matmuls)."""
+    default HIGHEST precision; f32 products need TF32 off, which the
+    engine pins for its steps, runtime/precision.py)."""
     h_axis = img.ndim - (3 if channel_last else 2)
     in_h, in_w = img.shape[h_axis], img.shape[h_axis + 1]
     dev = img.device

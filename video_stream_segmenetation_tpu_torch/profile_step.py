@@ -1,19 +1,22 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro ...]
+        [--config pico_noface|pico|micro|mc_pico|mc ...]
 
-For each configuration (default: all three) it builds Engine(S, preset):
+For each configuration (default: all five) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
-weights, ``pico`` and ``micro`` are fast_int8_pico and fast_int8_micro as
-their presets stand with the committed trained weights and frames.  It
-warms the engine up, then
+weights, ``pico``, ``micro``, ``mc_pico`` and ``mc`` are fast_int8_pico,
+fast_int8_micro, multiclass_fast_pico and multiclass_fast as their
+presets stand with the committed trained weights and frames.  It warms
+the engine up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
     the trunk -- for micro its convolutions and its decoder levels plus
     head apart, and each kernel of the latter by torch.profiler --,
     upsample, guide, face subpath, refine kernel, packed composite,
-    unpack), and
+    unpack; for the multi-class presets: the K=4 trunk, the per-class
+    upsample and softmax, the simplex EMA, the per-class composite and its
+    blurred guide), and
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
@@ -33,7 +36,11 @@ CONFIGS = {
     "pico_noface": ("fast_int8_pico", {"face_path": False}, False),
     "pico": ("fast_int8_pico", {}, True),
     "micro": ("fast_int8_micro", {}, True),
+    "mc_pico": ("multiclass_fast_pico", {}, True),
+    "mc": ("multiclass_fast", {}, True),
 }
+# a stage timed apart that another stage's time already holds
+INSIDE = "  (inside the composite) "
 
 
 def _event_ms(fn, iters=5):
@@ -70,7 +77,8 @@ def _trunk_stages(model, x0, stages):
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
     if model.decoder != "micro":
-        stages["pico trunk kernel (11 launches)"], logits = _event_ms(
+        head = f", K={model.num_classes} head" if model.num_classes > 1 else ""
+        stages[f"{model.decoder} trunk kernel (11 launches{head})"], logits = _event_ms(
             lambda: model.trunk_logits(x0))
         return logits, []
     tp = model.trunk
@@ -87,21 +95,14 @@ def _trunk_stages(model, x0, stages):
 
 def profile(config: str, s: int, steps: int, smi: str) -> None:
     from video_stream_segmenetation_tpu_torch import bridge
-    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
-    from video_stream_segmenetation_tpu_torch.ops.layout import (
-        alpha_composite_s2d,
-        depth_to_space,
-        guide_from_s2d,
-        space_to_depth,
-    )
-    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
+    from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
 
     name, overrides, trained = CONFIGS[config]
     st = preset(name, **overrides)
     fh, fw = st.frame_hw
-    mh, mw = st.mask_hw
     blk = st.s2d_block
     if trained:
         eng = Engine(s, st, **bridge.trained_weights(st))
@@ -117,10 +118,78 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     dev = eng.device
     out_dtype = torch.bfloat16 if st.refined_dtype == "bf16" else torch.float32
     stages = {}
-    stages["frames host->device"], ft = _event_ms(lambda: torch.as_tensor(frames, device=dev))
-    stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
-    stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(lambda: eng.model.stem(fp))
-    logits, decoder_kernels = _trunk_stages(eng.model, x0, stages)
+    with pinned():  # as the engine's step runs
+        stages["frames host->device"], ft = _event_ms(
+            lambda: torch.as_tensor(frames, device=dev))
+        stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
+        stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(
+            lambda: eng.model.stem(fp))
+        logits, decoder_kernels = _trunk_stages(eng.model, x0, stages)
+        if st.num_classes > 1:
+            _multiclass_stages(eng, logits, fp, stages)
+        else:
+            _refine_stages(eng, logits, fp, stages, out_dtype)
+    total = sum(v for k, v in stages.items() if not k.startswith(INSIDE))
+    print(f"[{config}] {name} {overrides or ''} stage times, S={s}, CUDA events, "
+          f"mean of 5 ({smi}):", flush=True)
+    for k, v in stages.items():
+        print(f"  {k:56s} {v:8.3f} ms  {100 * v / total:5.1f} %")
+    print(f"  {'sum':56s} {total:8.3f} ms")
+    for i, (kernel, ms) in enumerate(decoder_kernels):
+        print(f"    micro_decoder launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
+              "(torch.profiler, one call)")
+    _profile_steps(eng, frames, steps, config)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _multiclass_stages(eng, logits, fp, stages):
+    """The multi-class step after the trunk: upsample and softmax, the
+    simplex EMA and renorm (the step's own code, timed whole), the
+    per-class composite, and its blurred guide apart."""
+    from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_planar_mxu
+    from video_stream_segmenetation_tpu_torch.ops.layout import (
+        depth_to_space,
+        guide_from_s2d,
+        multiclass_composite_s2d,
+    )
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import simplex_ema
+
+    st = eng.statics
+    fh, fw = st.frame_hw
+    mh, mw = st.mask_hw
+    blk = st.s2d_block
+    uf = eng.model.head_upsample
+    stages[f"x{uf} per-class upsample, softmax"], ca = _event_ms(
+        lambda: eng.model.upsample(logits))
+    stages["simplex EMA + renorm"], blended = _event_ms(
+        lambda: simplex_ema(ca, eng.state.rec, eng.knobs, eng.state.initialized))
+    effects = st.class_effects
+    sigma = max(float(next(e["blur"] for e in effects if "blur" in e)) * mh / fh, 0.5)
+    stages[f"{INSIDE}guide + blur at sigma {sigma:.2f}"], _ = _event_ms(
+        lambda: gaussian_blur_planar_mxu(guide_from_s2d(fp, (fh, fw), (mh, mw), blk)
+                                         .float() / 255.0, sigma))
+    stages["per-class packed composite (plain PyTorch)"], out = _event_ms(
+        lambda: multiclass_composite_s2d(fp, blended, effects, (fh, fw), blk))
+    stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
+
+
+def _refine_stages(eng, logits, fp, stages, out_dtype):
+    """The single-class step after the trunk."""
+    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
+    from video_stream_segmenetation_tpu_torch.ops.layout import (
+        alpha_composite_s2d,
+        depth_to_space,
+        guide_from_s2d,
+    )
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
+
+    st = eng.statics
+    s = fp.shape[0]
+    fh, fw = st.frame_hw
+    mh, mw = st.mask_hw
+    blk = st.s2d_block
+    dev = eng.device
     stages["x4 upsample, sigmoid"], alpha = _event_ms(lambda: eng.model.upsample(logits))
     alpha = alpha.contiguous()
     stages["planar guide"], guide = _event_ms(
@@ -141,16 +210,10 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     stages["packed composite"], out = _event_ms(
         lambda: alpha_composite_s2d(fp, a, eng.backgrounds, (fh, fw), blk))
     stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
-    total = sum(stages.values())
-    print(f"[{config}] {name} {overrides or ''} stage times, S={s}, CUDA events, "
-          f"mean of 5 ({smi}):", flush=True)
-    for k, v in stages.items():
-        print(f"  {k:56s} {v:8.3f} ms  {100 * v / total:5.1f} %")
-    print(f"  {'sum':56s} {total:8.3f} ms")
-    for i, (kernel, ms) in enumerate(decoder_kernels):
-        print(f"    micro_decoder launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
-              "(torch.profiler, one call)")
 
+
+def _profile_steps(eng, frames, steps, config):
+    """torch.profiler over whole Engine.process calls."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -172,8 +235,6 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
           f"{100 - 100 * busy['kernels'] / 1e3 / wall_ms:.1f} % of the wall time", flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=60),
           flush=True)
-    del eng
-    torch.cuda.empty_cache()
 
 
 def main() -> None:

@@ -76,11 +76,12 @@ class PipelineStatics:
     """Pipeline geometry and constants (the reference's tier 1).
 
     Defaults are the reference's.  Only the fields the port reads or
-    refuses are here.  The port's step is the reference's ``fast_int8_*``
-    path and has no switches for what those presets select (s2d-packed
-    frames, native int8 matting, nearest-u8 planar guide, separable warp,
-    the fused temporal refine with the analytic prior); runtime/
-    pipeline.py::check_statics refuses what it does not serve.
+    refuses are here.  The port's steps are the reference's ``fast_int8_*``
+    and ``multiclass_fast*`` paths and have no switches for what those
+    presets select (native int8 matting of s2d-packed frames, nearest-u8
+    planar guide, separable warp, the fused temporal refine with the
+    analytic prior); runtime/pipeline.py::check_statics refuses what they
+    do not serve.
     """
 
     frame_hw: tuple[int, int] = (720, 1280)
@@ -112,3 +113,14 @@ class PipelineStatics:
     refine_alpha_src: str = "full"  # the port refuses 'lowres'
     guide_kernel_unfold: bool = False  # the port refuses True
     refined_dtype: str = "f32"  # refined alpha: 'f32' or 'bf16'
+    # multi-class mode (BASELINE config 5): K > 1 segmentation classes,
+    # class 0 the background; the composite applies one effect a class
+    # ({"keep": True}, {"blur": sigma}, {"tint": rgb, "strength": s},
+    # {"color": rgb}), K of them
+    num_classes: int = 1
+    class_effects: tuple = ()
+    upsample_method: str = "half_pixel"  # the port serves 'half_pixel' only
+    # the port serves the packed layout ('s2d') and the int8 matting graph
+    # only; the reference's defaults select its float natural-layout path
+    frame_layout: str = "natural"
+    matting_precision: str = "bf16"

@@ -1,6 +1,8 @@
-"""The per-batch serving step (port of the single-class branch of
-``runtime/pipeline.py::make_step``) for the ``fast_int8_pico`` and
-``fast_int8_micro`` presets, face path on or off:
+"""The per-batch serving steps (port of ``runtime/pipeline.py::make_step``):
+the single-class step of the ``fast_int8_pico`` and ``fast_int8_micro``
+presets, face path on or off, and the multi-class step of
+``multiclass_fast_pico`` and ``multiclass_fast`` (:func:`make_multiclass_step`).
+The single-class step:
 
   packed u8 frames [S, H/b, W/b, b*b*3]
     -> int8 MatteNetHD (bf16 stem, pico or micro trunk, x4 upsample,
@@ -32,7 +34,9 @@ from video_stream_segmenetation_tpu_torch.ops.geometry import (
 )
 from video_stream_segmenetation_tpu_torch.ops.layout import (
     alpha_composite_s2d,
+    effect_algebra,
     guide_from_s2d,
+    multiclass_composite_s2d,
 )
 from video_stream_segmenetation_tpu_torch.ops.prior import face_prior_params
 from video_stream_segmenetation_tpu_torch.ops.resize import (
@@ -41,6 +45,8 @@ from video_stream_segmenetation_tpu_torch.ops.resize import (
 )
 from video_stream_segmenetation_tpu_torch.ops.temporal import affine_lowpass
 from video_stream_segmenetation_tpu_torch.runtime.config import (
+    EMA_ADAPT_T0,
+    EMA_ADAPT_T1,
     PipelineKnobs,
     PipelineStatics,
 )
@@ -48,6 +54,9 @@ from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
 
 # (field, the only value the port serves) -- anything else is refused
 _SERVED = (
+    ("frame_layout", "s2d"),
+    ("matting_precision", "int8"),
+    ("upsample_method", "half_pixel"),
     ("background", "image"),
     ("face_tracking", "landmarks"),
     ("refine_alpha_src", "full"),
@@ -62,14 +71,25 @@ _SERVED_FACE = (
 
 
 def check_statics(statics: PipelineStatics) -> None:
-    """Refuse what the port's step does not serve."""
-    served = _SERVED + (_SERVED_FACE if statics.face_path else ())
+    """Refuse what the port's steps do not serve."""
+    multiclass = statics.num_classes > 1
+    if multiclass:
+        served = _SERVED + (("face_path", False),)
+    else:
+        served = _SERVED + (_SERVED_FACE if statics.face_path else ())
     for field, want in served:
         got = getattr(statics, field)
         if got != want:
             raise NotImplementedError(
-                f"{field}={got!r}: the torch port serves {field}={want!r} only")
-    for field, allowed in (("matting_decoder", ("pico", "micro")),
+                f"{field}={got!r}: the torch port serves {field}={want!r} only"
+                + (f" with num_classes={statics.num_classes}" if multiclass else ""))
+    decoders = ("pico", "nano") if multiclass else ("pico", "micro")
+    if multiclass:
+        if len(statics.class_effects) != statics.num_classes:
+            raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
+                             f"{statics.num_classes} classes")
+        effect_algebra(statics.class_effects)
+    for field, allowed in (("matting_decoder", decoders),
                            ("prior_impl", ("auto",)),
                            ("refined_dtype", ("f32", "bf16"))):
         got = getattr(statics, field)
@@ -165,9 +185,68 @@ def face_subpath_compact(models: FaceModels, guide_u8: torch.Tensor,
     return tuple(scatter(v) for v in outs)
 
 
+def simplex_ema(ca: torch.Tensor, prev: torch.Tensor, knobs: PipelineKnobs,
+                initialized: torch.Tensor) -> torch.Tensor:
+    """The motion-adaptive EMA of the class maps ``ca [S, h, w, K]`` against
+    the previous blend ``prev``, renormalised onto the simplex: the EMA
+    weight shrinks where the maps moved (m: the largest class change, so
+    a hand-off between classes counts as motion); a stream not yet
+    initialized takes ``ca``."""
+    kk = knobs.ema[:, None, None, None]
+    ad = knobs.ema_adapt[:, None, None, None]
+    m = torch.clamp((torch.amax(torch.abs(ca - prev), dim=-1, keepdim=True)
+                     - EMA_ADAPT_T0) * (1.0 / (EMA_ADAPT_T1 - EMA_ADAPT_T0)), 0.0, 1.0)
+    ke = kk * (1.0 - ad * m)
+    blended = torch.where(initialized[:, None, None, None], ke * prev + (1 - ke) * ca, ca)
+    return blended / torch.clamp(blended.sum(-1, keepdim=True), min=1e-6)
+
+
+def make_multiclass_step(model, statics: PipelineStatics):
+    """The multi-class step (BASELINE config 5; the s2d branch of the
+    reference's ``make_multiclass_step``): K-class softmax maps -> the
+    motion-adaptive EMA on the class simplex, renormalised -> the packed
+    per-class composite.  The single-matte stages (morphology, prior,
+    bilateral, face path) are bypassed, as in the reference.  Same
+    signature as :func:`make_step`'s step; ``outputs``: ``frame`` (packed
+    u8), ``alpha`` (class 1's map ``[S, mh, mw]``, as the reference),
+    ``class_alpha`` ``[S, mh, mw, K]``, ``det_score`` and ``face_applied``
+    (zeros)."""
+    fh, fw = statics.frame_hw
+    blk = statics.s2d_block
+
+    def step(state: StreamState, frames_p, backgrounds_p, knobs: PipelineKnobs,
+             face_gate):
+        s = frames_p.shape[0]
+        dev = frames_p.device
+        ca = model(frames_p)["alpha"].to(torch.float32)  # [S, mh, mw, K]
+        blended = simplex_ema(ca, state.rec, knobs, state.initialized)
+        out_u8 = multiclass_composite_s2d(frames_p, blended, statics.class_effects,
+                                          (fh, fw), blk, method=statics.upsample_method)
+        # class 1 alone, as the reference keeps it
+        alpha = blended[..., 1:2].sum(-1)
+        new_state = dataclasses.replace(
+            state,
+            prev_alpha=alpha,
+            initialized=torch.ones_like(state.initialized),
+            frame_idx=state.frame_idx + 1,
+            rec=blended,
+        )
+        outputs = {
+            "frame": out_u8,
+            "alpha": alpha,
+            "class_alpha": blended,
+            "det_score": torch.zeros((s,), dtype=torch.float32, device=dev),
+            "face_applied": torch.zeros((s,), dtype=torch.bool, device=dev),
+        }
+        return new_state, outputs
+
+    return step
+
+
 def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
     """step(state, frames_p, backgrounds_p, knobs, face_gate) -> (new_state,
-    outputs).
+    outputs); with ``statics.num_classes > 1`` the step of
+    :func:`make_multiclass_step`.
 
     frames_p ``[S, H/b, W/b, b*b*3]`` u8; backgrounds_p the same shape or
     one row to broadcast; face_gate ``[S]`` bool (the engine's min-interval
@@ -175,6 +254,8 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     bf16 or f32 by ``refined_dtype``), ``det_score``, ``face_applied``,
     ``face_prior_params`` and ``face_has_prior``."""
     check_statics(statics)
+    if statics.num_classes > 1:
+        return make_multiclass_step(model, statics)
     if statics.face_path and face_models is None:
         raise ValueError("make_step: the face path needs face_models")
     mh, mw = statics.mask_hw

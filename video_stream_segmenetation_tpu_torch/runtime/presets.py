@@ -1,13 +1,16 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
-``fast_int8_pico`` and ``fast_int8_micro`` are ported, as the reference
-defines them; ``preset(name, **overrides)`` takes overrides the way the
-reference's does (``face_path=False``, ``frame_hw``, ``mask_hw``, ...).
-The rest of each reference preset -- native int8 matting over s2d-packed
-frames, the nearest-u8 planar guide, the separable warp, the matrix-form
-ROI crop and letterbox resize (``crop_impl='mxu'``,
-``resize_impl='mxu'``) -- is what the port's step does
-unconditionally.
+``fast_int8_pico``, ``fast_int8_micro``, ``multiclass_fast_pico`` and
+``multiclass_fast`` are ported, as the reference defines them;
+``preset(name, **overrides)`` takes overrides the way the reference's
+does (``face_path=False``, ``frame_hw``, ``mask_hw``, ...).  The
+reference's natural-layout ``multiclass`` preset is listed so that it is
+refused by name (runtime/pipeline.py::check_statics: the float MatteNet
+over resized frames is not ported).  The rest of each reference preset
+-- native int8 matting over s2d-packed frames, the nearest-u8 planar
+guide, the separable warp, the matrix-form ROI crop and letterbox resize
+(``crop_impl='mxu'``, ``resize_impl='mxu'``) -- is what the port's step
+does unconditionally.
 """
 
 from __future__ import annotations
@@ -19,6 +22,22 @@ _FAST_INT8 = dict(
     face_compact=True,
     s2d_block=10,
     face_input="guide",
+    frame_layout="s2d",
+    matting_precision="int8",
+)
+
+# BASELINE config 5: background blurred, person kept, two tinted classes
+# (the reference's runtime/presets.py:219-229); the simplex EMA at half
+# strength
+_MULTICLASS = dict(
+    ema_adapt_default=0.5,
+    num_classes=4,
+    class_effects=(
+        {"blur": 8.0},
+        {"keep": True},
+        {"tint": (0.9, 0.7, 0.3), "strength": 0.3},
+        {"tint": (0.3, 0.5, 0.9), "strength": 0.3},
+    ),
 )
 
 _PRESETS = {
@@ -31,6 +50,19 @@ _PRESETS = {
     # retrained at 128/128
     "fast_int8_pico": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
                            fd_size=128, lmk_size=128),
+    # natural layout, float MatteNet (:219-229): refused by the port
+    "multiclass": dict(_MULTICLASS),
+    # plan-E nano trunk (192/256) with K=4 class heads, the class maps
+    # upsampled x4 to the 288x512 mask (:236-255; checkpoint
+    # mattenet_hd10_mc)
+    "multiclass_fast": dict(_MULTICLASS, frame_layout="s2d", s2d_block=10,
+                            matting_precision="int8", matting_decoder="nano",
+                            face_path=False),
+    # the pico trunk with K=4 heads, served at the 72x128 head grid
+    # (head_upsample=1; :259-282; checkpoint mattenet_hd10_mc_pico)
+    "multiclass_fast_pico": dict(_MULTICLASS, frame_layout="s2d", s2d_block=10,
+                                 mask_hw=(72, 128), matting_precision="int8",
+                                 matting_decoder="pico", face_path=False),
 }
 
 

@@ -17,15 +17,20 @@ class StreamState:
     has_affine: torch.Tensor  # [S] bool
     initialized: torch.Tensor  # [S] bool
     frame_idx: torch.Tensor  # [S] int32
+    # multi-class mode: the smoothed class maps [S, h, w, K] f32 (an empty
+    # [S, 0] tensor with one class; the single-class step never reads it)
+    rec: torch.Tensor | None = None
 
     @property
     def num_streams(self) -> int:
         return self.prev_alpha.shape[0]
 
 
-def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu") -> StreamState:
+def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu",
+               num_classes: int = 1) -> StreamState:
     h, w = mask_hw
     s = num_streams
+    rec_shape = (s, h, w, num_classes) if num_classes > 1 else (s, 0)
     return StreamState(
         prev_alpha=torch.zeros((s, h, w), dtype=torch.float32, device=device),
         affine=torch.tensor(IDENTITY_AFFINE, dtype=torch.float32, device=device)
@@ -33,6 +38,7 @@ def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu") -> Stre
         has_affine=torch.zeros((s,), dtype=torch.bool, device=device),
         initialized=torch.zeros((s,), dtype=torch.bool, device=device),
         frame_idx=torch.zeros((s,), dtype=torch.int32, device=device),
+        rec=torch.zeros(rec_shape, dtype=torch.float32, device=device),
     )
 
 
@@ -45,6 +51,8 @@ def reset_streams(state: StreamState, mask: torch.Tensor) -> None:
     state.has_affine[mask] = False
     state.initialized[mask] = False
     state.frame_idx[mask] = 0
+    if state.rec is not None:
+        state.rec[mask] = 0.0
 
 
 def reset_stream(state: StreamState, s: int) -> None:

@@ -14,6 +14,11 @@ frames alone).
 
 Unlike the reference, a failed step raises (after recording the failure
 in ``health``): there is no catch-all that serves passthrough frames.
+
+Each step (and each background resize) runs under
+runtime/precision.py::pinned: TF32 and cuBLAS's bf16 split-K reductions
+off, the caller's flags restored after, so what the engine serves does
+not depend on the host process's global precision flags.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from video_stream_segmenetation_tpu_torch.runtime.pipeline import (
     check_statics,
     make_step,
 )
+from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.runtime.presets import preset
 from video_stream_segmenetation_tpu_torch.runtime.state import (
     init_state,
@@ -75,9 +81,9 @@ class Engine:
                  params: dict | None = None, seed: int = 0, device="cuda",
                  face_params: dict | None = None):
         """``params``: the int8 serving dict of ``statics.matting_decoder``'s
-        plan (models/quantized.py ``quantize_mattenet_hd`` or bridge.py);
-        None quantizes a float tree made from ``seed``
-        (models/mattenet_hd.py).  ``face_params``: ``{"face": FaceFinder
+        plan with ``statics.num_classes`` head classes (models/quantized.py
+        ``quantize_mattenet_hd`` or bridge.py); None quantizes a float tree
+        made from ``seed`` (models/mattenet_hd.py).  ``face_params``: ``{"face": FaceFinder
         tree, "lmk": LandmarkNet tree}`` (flax-shaped float trees, e.g.
         bridge.py::trained_weights); None makes both from ``seed``."""
         self.device = resolve_device(device)
@@ -95,12 +101,18 @@ class Engine:
             raise ValueError(f"mask_hw {st.mask_hw} must be one integer multiple "
                              f"of the stem grid {(hp, wp)}")
         if params is None:
-            params = quantize_mattenet_hd(init_params(st.matting_decoder, seed, blk), blk,
-                                          st.matting_decoder)
+            params = quantize_mattenet_hd(
+                init_params(st.matting_decoder, seed, blk, st.num_classes), blk,
+                st.matting_decoder)
+        # the head grid is the stem grid; mask_hw = uf x that (uf = 1: the
+        # class maps are served at the head grid, as multiclass_fast_pico)
         self.model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device)
         if self.model.decoder != st.matting_decoder:
             raise ValueError(f"params are the {self.model.decoder} plan's; statics ask "
                              f"for matting_decoder={st.matting_decoder!r}")
+        if self.model.num_classes != st.num_classes:
+            raise ValueError(f"params have {self.model.num_classes} classes; statics ask "
+                             f"for num_classes={st.num_classes}")
         self.face_models = None
         if st.face_path:
             if face_params is None:
@@ -110,7 +122,8 @@ class Engine:
                 face=FaceFinder(face_params["face"], st.fd_size, device=self.device),
                 lmk=LandmarkNet(face_params["lmk"], device=self.device))
         self._step = make_step(self.model, st, self.face_models)
-        self.state = init_state(num_streams, (mh, mw), device=self.device)
+        self.state = init_state(num_streams, (mh, mw), device=self.device,
+                                num_classes=st.num_classes)
         self.knobs = default_knobs(num_streams, ema_adapt=st.ema_adapt_default,
                                    device=self.device)
         # backgrounds are kept packed u8, ready for the packed composite
@@ -172,8 +185,9 @@ class Engine:
         if tuple(img.shape[:2]) != (fh, fw):
             a_h = interp_matrix(fh, img.shape[0], "half_pixel", device=self.device)
             a_w = interp_matrix(fw, img.shape[1], "half_pixel", device=self.device)
-            img = torch.einsum("oh,hwc->owc", a_h, img)
-            img = torch.einsum("pw,hwc->hpc", a_w, img)
+            with pinned():
+                img = torch.einsum("oh,hwc->owc", a_h, img)
+                img = torch.einsum("pw,hwc->hpc", a_w, img)
         img_u8 = torch.clamp(torch.floor(img * 255.0 + 0.5), 0, 255).to(torch.uint8)
         self.backgrounds[slot] = space_to_depth(img_u8, self.statics.s2d_block)
 
@@ -190,7 +204,10 @@ class Engine:
         ``[S, H, W, 3]``), ``alpha`` (``[S, mh, mw]``, bf16 or f32 by
         ``refined_dtype``), ``metrics`` and the step's face outputs
         (``face_applied``, ``det_score``, ``face_prior_params``,
-        ``face_has_prior``), as tensors on the engine's device."""
+        ``face_has_prior``), as tensors on the engine's device.  With K > 1
+        classes: ``alpha`` is class 1's map (f32), ``class_alpha`` the
+        smoothed class maps ``[S, mh, mw, K]``, and ``det_score`` and
+        ``face_applied`` are zeros."""
         t0 = time.perf_counter()
         self._apply_staged()
         now = time.monotonic()
@@ -203,8 +220,9 @@ class Engine:
         frames_p = space_to_depth(frames_t, self.statics.s2d_block).contiguous()
         t1 = time.perf_counter()
         try:
-            new_state, out = self._step(self.state, frames_p, self.backgrounds, self.knobs,
-                                        gate)
+            with pinned():
+                new_state, out = self._step(self.state, frames_p, self.backgrounds,
+                                            self.knobs, gate)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:
