@@ -15,8 +15,9 @@ Phases, each announced by one line on stdout:
      its one-class head, the trunk with its K=4 head at the pico and the nano
      widths (trained multi-class weights, exact), the fused temporal refine
      (bf16 and f32 refined alpha), the int8 decoder level at micro's u2 and
-     u1 levels;
-  4-8. serve: Engine(64, ...) answers 8 steps of 720p frames in five
+     u1 levels, the fused 3x3 conv in its four forms (act or not, residual
+     or not) at plan B's layer shapes, the u1-out trunk at pico widths;
+  4-12. serve: Engine(64, ...) answers 8 steps of 720p frames in nine
      phases, each with every launch count set to 0 just before it and read
      just after:
        4. fast_int8_pico with the face path off, seeded weights, synthetic
@@ -30,13 +31,21 @@ Phases, each announced by one line on stdout:
           pico trunk) and
        8. multiclass_fast (K=4 upsampled to 288x512, the nano trunk), as
           their presets stand, trained weights, the same frames;
+       9. fast_int8 (plan B) and
+      10. fast_int8_lite (plan C) as their presets stand (fd 256 / lmk 192,
+          f32 refined alpha), trained weights, the same frames;
+      11. fast_int8 with int8_conv_impl='pallas' (4 conv kernel launches a
+          step);
+      12. fast_int8_pico with int8_head_impl='bf16' (the u1-out trunk and
+          the bf16 head, no int8-head trunk launch);
      each checks shapes, dtypes, value ranges, the alpha against the frames'
-     ground truth (phases 5-8) or the ellipse (phase 4), that each kernel of
-     the phase ran its expected number of times, in phases 5-6 that the
-     face path was applied to at least one stream, and in phases 7-8 that
-     class_alpha sums to 1 within 1e-3 and that the foreground IoU is at
-     most 0.02 below the reference's; each prints its median step time and
-     the peak device memory.
+     ground truth (phases 5-12) or the ellipse (phase 4), that each counted
+     wrapper ran its expected number of times (every other one none), with
+     the face path on that it was applied to at least one stream, in phases
+     7-8 that class_alpha sums to 1 within 1e-3, in phases 7-12 that the
+     IoU is at most 0.02 below the reference engine's, and in phases 5-12
+     that the served trunk equals its plain version on two streams; each
+     prints its median step time and the peak device memory.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result line {"ok": true, "device":
 {...}}.  Any failure raises and exits non-zero; without a card it exits
@@ -68,6 +77,8 @@ PREV_TOL = 2e-5  # new_prev, f32, same operations
 REFINED_TOL = 4e-3  # bf16 refined alpha: one bf16 step near 1 plus exp/pow ulps
 REFINED_F32_TOL = 2e-5  # f32 refined alpha: same operations, exp/pow ulps
 DECODER_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue order
+CONV_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue
+U1_TOL = 0  # u1 s8: exact s32 sums, the same epilogues, SE in float64 on both sides
 
 
 def say(*parts) -> None:
@@ -88,9 +99,9 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def trunk_macs(x0_shape, tp) -> int:
-    """Multiply-adds of one trunk call, from the shapes (the SE's dense
-    layers included)."""
+def trunk_macs(x0_shape, tp, head: bool = True) -> int:
+    """Multiply-adds of one pico/nano trunk call, from the shapes (the SE's
+    dense layers included; the alpha head's with ``head``)."""
     s, h, w, _ = x0_shape
     total = 0
 
@@ -104,8 +115,16 @@ def trunk_macs(x0_shape, tp) -> int:
     total += tp["se"]["k0"].numel() + tp["se"]["k1"].numel()
     total += conv(h3, w3, tp["u2red_up"]) + conv(h2, w2, tp["u2red_skip"])
     total += conv(h2, w2, tp["u1red_up"]) + conv(h, w, tp["u1red_skip"])
-    total += conv(h, w, tp["alpha"])
+    if head:
+        total += conv(h, w, tp["alpha"])
     return s * total
+
+
+def weight_bytes(tp) -> int:
+    """Bytes of the int8 trunk's weights (the bf16 head's float kernel
+    apart)."""
+    return sum(t.numel() * t.element_size() for k, layer in tp.items() if k != "alpha_f"
+               for t in layer.values())
 
 
 def refine_ops(table, hw) -> int:
@@ -149,9 +168,7 @@ def _trunk_entry(name: str, x0, tp, tol: float) -> dict:
     ms = cuda_time_ms(lambda: TK.fused_nano_trunk_alpha(x0, tp), 10)
     plain_ms = cuda_time_ms(lambda: Q.xla_trunk_alpha(x0, tp), 2)
     macs = trunk_macs(tuple(x0.shape), tp)
-    weights = sum(t.numel() * t.element_size() for k, layer in tp.items()
-                  for t in layer.values())
-    bytes_moved = x0.numel() + weights + got.numel() * 4
+    bytes_moved = x0.numel() + weight_bytes(tp) + got.numel() * 4
     bound_ms, bound_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
     say(f"  {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {macs / S / 1e9:.3f} G MAC a stream)")
@@ -323,6 +340,116 @@ def check_decoder(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+# plan B's 3x3 stride-1 layers at S=64, 720p: (name, the stem-grid shift
+# of its grid, dilation, routed by int8_conv_impl='pallas'); ctx4 (no act
+# in the trunk, dilation 4) is checked in the kernel's four forms only
+CONV_LAYERS = (("b1/c0", 0, 1, True), ("d2b/c0", 1, 1, True), ("d3b/c0", 2, 1, True),
+               ("ctx2", 2, 2, True), ("ctx4", 2, 4, False))
+
+
+def check_conv(dev) -> dict:
+    """conv3x3_i8_fused against its plain version in its four forms (act
+    or not, residual or not) at plan B's layers with the trained weights:
+    72x128x128 (b1), 36x64x192 (d2b), 18x32x256 (d3b; ctx2 at dilation 2,
+    ctx4 at 4), s8 activations on the relu6 lattice.  Times and bound are
+    those of the four layers the 'pallas' route serves, in their served
+    form (act, no residual)."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+
+    tp = Q.trunk_params(bridge.load_export(bridge.WEIGHTS_DIR / "mattenet_hd10.npz"), dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hp, wp = FRAME_HW[0] // 10, FRAME_HW[1] // 10
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    for name, shift, dil, routed in CONV_LAYERS:
+        pfx, _, sub = name.partition("/")
+        layer = tp[pfx][sub] if sub else tp[pfx]
+        wq = layer["w"].permute(1, 2, 3, 0).contiguous()
+        cout, cin = wq.shape[-1], wq.shape[2]
+        grid = (hp >> shift, wp >> shift)
+        x = torch.randint(0, 128, (S, *grid, cin), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        res = torch.randint(0, 128, (S, *grid, cout), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        errs = []
+        for r in (None, res):
+            for act in (True, False):
+                args = (x, wq, layer["mult"], layer["bias"], r, act, dil)
+                got = TC.conv3x3_i8_fused(*args)
+                want = TC.conv3x3_i8_plain(*args)
+                torch.cuda.synchronize()
+                errs.append((got.int() - want.int()).abs().max().item()
+                            if got.dtype == want.dtype == torch.int8 else math.inf)
+        err = max(errs)
+        say(f"  conv3x3_i8_fused {name}: x {tuple(x.shape)} -> {cout} channels, dilation "
+            f"{dil}; max_abs_err over the four forms {err:g} (tolerance {CONV_TOL})")
+        if err > CONV_TOL:
+            raise AssertionError(f"conv kernel disagrees with its plain version at {name}: "
+                                 f"{errs}")
+        total["err"] = max(total["err"], err)
+        if not routed:
+            continue
+        ms = cuda_time_ms(lambda: TC.conv3x3_i8_fused(x, wq, layer["mult"], layer["bias"],
+                                                      dilation=dil), 10)
+        plain_ms = cuda_time_ms(lambda: TC.conv3x3_i8_plain(x, wq, layer["mult"],
+                                                            layer["bias"], dilation=dil), 2)
+        macs = x.numel() * 9 * cout
+        bytes_moved = x.numel() + x.numel() // cin * cout + wq.numel() + 8 * cout
+        b_ms, b_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
+        say(f"  conv3x3_i8_fused {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {macs / 1e9:.2f} G MAC, {bytes_moved / 1e6:.1f} MB)")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", bytes_moved),
+                     ("macs", macs)):
+            total[k] += v
+    bound_ms, bound_by = bound(total["bytes"], 2 * total["macs"], INT8_OPS_PER_S)
+    say(f"  conv3x3_i8_fused, plan B's four routed layers: {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": "conv3x3_i8_fused", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/conv_int8.py:116",
+            "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_u1_trunk(dev) -> dict:
+    """The trunk kernel's u1-out form (fused_nano_trunk) at the pico widths,
+    S=64, 720p (seeded weights, random s8 stem output): u1 s8 against the
+    plain trunk's, then times and the bound."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_pico_params
+
+    blk = 10
+    tp = Q.trunk_params(Q.quantize_mattenet_hd(init_pico_params(0, blk), blk), dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.randint(0, 128, (S, FRAME_HW[0] // blk, FRAME_HW[1] // blk, 128),
+                       generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    got = TK.fused_nano_trunk(x0, tp)
+    want = Q.xla_trunk(x0, tp)
+    torch.cuda.synchronize()
+    err = ((got.int() - want.int()).abs().max().item()
+           if got.shape == want.shape and got.dtype == torch.int8 else math.inf)
+    hist = torch.bincount(want.flatten().to(torch.int64), minlength=128)
+    say(f"  trunk_int8_u1: u1 {tuple(got.shape)} {got.dtype} max_abs_err {err:g} "
+        f"(tolerance {U1_TOL}); u1 at 0: {hist[0].item() / want.numel():.3f}, at 127: "
+        f"{hist[127].item() / want.numel():.3f}")
+    if err > U1_TOL:
+        raise AssertionError(f"u1-out trunk disagrees with its plain version: {err}")
+    ms = cuda_time_ms(lambda: TK.fused_nano_trunk(x0, tp), 10)
+    plain_ms = cuda_time_ms(lambda: Q.xla_trunk(x0, tp), 2)
+    macs = trunk_macs(tuple(x0.shape), tp, head=False)
+    bytes_moved = x0.numel() + weight_bytes(tp) + got.numel()
+    bound_ms, bound_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
+    say(f"  trunk_int8_u1: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {macs / S / 1e9:.3f} G MAC a stream)")
+    return {"name": "trunk_int8_u1", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/trunk_int8.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/trunk_int8.py:297",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def synthetic_frames(rng, base, t):
     """Noise background with a bright ellipse whose centre moves with t;
     returns (frames, ellipse mask at frame resolution)."""
@@ -335,54 +462,69 @@ def synthetic_frames(rng, base, t):
     return frames, inside
 
 
-# The reference's foreground IoU (1 - class_alpha[..., 0] > 0.5 against
-# the ground truth) of the multi-class presets on the committed frames at
-# 720p, the least over its steps, from its JAX Engine on the CPU
-# (tests/test_torch_multiclass.py::test_trained_engine_free_running_iou);
-# a multi-class phase fails more than IOU_SLACK below it.
-REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980}
+# The reference engine's IoU on the committed frames at 720p, the least
+# over its steps, from its JAX Engine on the CPU: the foreground (1 -
+# class_alpha[..., 0] > 0.5) of the multi-class presets
+# (tests/test_torch_multiclass.py::test_trained_engine_free_running_iou),
+# the alpha > 0.5 of plans B and C and of pico with the bf16 head
+# (tests/test_torch_plans_720p.py::test_trained_engine_iou_720p); a phase fails
+# more than IOU_SLACK below it.  int8_conv_impl='pallas' computes what
+# 'xla' does (tests/test_torch_plans.py), so it has fast_int8's bar.
+REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980,
+                 "fast_int8": 0.6216, "fast_int8_lite": 0.5755,
+                 "fast_int8_pico_bf16_head": 0.8524}
 IOU_SLACK = 0.02
 
 # serve phases: (label, preset, overrides, trained weights and frames,
-# launches a step of each counted wrapper, the least IoU of the served
-# alpha > 0.5 (multi-class: the foreground) against the frames' ground
-# truth, the kernel entry the trunk counter's launches go to).  The
-# trained micro checkpoint finds little of this person (served IoU about
-# 0.23 on the card, 0.25 from the reference's own engine on the CPU,
-# tests/test_torch_micro.py), so micro's IoU is printed, not held to a
-# floor; its served trunk is held to its plain version instead, as every
-# trained phase's is.
-_NO_REFINE = {"refine_fused": 0, "decoder_int8": 0, "micro_trunk": 0}
+# launches a step of each counted wrapper that runs (every other one must
+# not), the least IoU of the served alpha > 0.5 (multi-class: the
+# foreground) against the frames' ground truth, the kernel entry the
+# trunk_int8 counter's launches go to).  The trained micro checkpoint
+# finds little of this person (served IoU about 0.23 on the card, 0.25
+# from the reference's own engine on the CPU, tests/test_torch_micro.py),
+# so micro's IoU is printed, not held to a floor; its served trunk is held
+# to its plain version instead, as every trained phase's is.
 PHASES = (
     ("fast_int8_pico, face_path=False", "fast_int8_pico", {"face_path": False}, False,
-     {"trunk_int8": 1, "refine_fused": 1, "decoder_int8": 0, "micro_trunk": 0}, None,
-     "trunk_int8"),
+     {"trunk_int8": 1, "refine_fused": 1}, None, "trunk_int8"),
     ("fast_int8_pico", "fast_int8_pico", {}, True,
-     {"trunk_int8": 1, "refine_fused": 1, "decoder_int8": 0, "micro_trunk": 0}, 0.5,
-     "trunk_int8"),
+     {"trunk_int8": 1, "refine_fused": 1}, 0.5, "trunk_int8"),
     ("fast_int8_micro", "fast_int8_micro", {}, True,
-     {"trunk_int8": 0, "refine_fused": 1, "decoder_int8": 2, "micro_trunk": 1}, None,
-     "trunk_int8"),
-    ("multiclass_fast_pico", "multiclass_fast_pico", {}, True,
-     {"trunk_int8": 1, **_NO_REFINE},
+     {"micro_trunk": 1, "refine_fused": 1, "decoder_int8": 2}, None, None),
+    ("multiclass_fast_pico", "multiclass_fast_pico", {}, True, {"trunk_int8": 1},
      REFERENCE_IOU["multiclass_fast_pico"] - IOU_SLACK, "trunk_int8_k4_pico"),
-    ("multiclass_fast", "multiclass_fast", {}, True,
-     {"trunk_int8": 1, **_NO_REFINE},
+    ("multiclass_fast", "multiclass_fast", {}, True, {"trunk_int8": 1},
      REFERENCE_IOU["multiclass_fast"] - IOU_SLACK, "trunk_int8_k4_nano"),
+    ("fast_int8", "fast_int8", {}, True, {"full_trunk": 1, "refine_fused": 1},
+     REFERENCE_IOU["fast_int8"] - IOU_SLACK, None),
+    ("fast_int8_lite", "fast_int8_lite", {}, True,
+     {"light_trunk": 1, "refine_fused": 1, "decoder_int8": 2},
+     REFERENCE_IOU["fast_int8_lite"] - IOU_SLACK, None),
+    ("fast_int8, int8_conv_impl='pallas'", "fast_int8", {"int8_conv_impl": "pallas"}, True,
+     {"full_trunk": 1, "refine_fused": 1, "conv3x3_i8_fused": 4},
+     REFERENCE_IOU["fast_int8"] - IOU_SLACK, None),
+    ("fast_int8_pico, int8_head_impl='bf16'", "fast_int8_pico", {"int8_head_impl": "bf16"},
+     True, {"trunk_int8_u1": 1, "refine_fused": 1},
+     REFERENCE_IOU["fast_int8_pico_bf16_head"] - IOU_SLACK, None),
 )
 
 
 def _counters():
     from video_stream_segmenetation_tpu_torch.kernels import (
+        conv_int8,
         decoder_int8,
         refine_fused,
         trunk_int8,
     )
 
     return {"trunk_int8": trunk_int8.fused_nano_trunk_alpha,
+            "trunk_int8_u1": trunk_int8.fused_nano_trunk,
+            "micro_trunk": trunk_int8.micro_trunk_alpha,
+            "full_trunk": trunk_int8.full_trunk_alpha,
+            "light_trunk": trunk_int8.light_trunk_alpha,
             "refine_fused": refine_fused.fused_temporal_refine,
             "decoder_int8": decoder_int8.fused_decoder_level,
-            "micro_trunk": trunk_int8.micro_trunk_alpha}
+            "conv3x3_i8_fused": conv_int8.conv3x3_i8_fused}
 
 
 def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
@@ -490,20 +632,33 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
 
 
 def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
-    """Max |logits| difference between the model's trunk (the kernels on a
-    card) and its plain version, on the stem output of ``frames_u8``."""
+    """Max difference between the model's trunk (the kernels on a card) and
+    its plain version, on the stem output of ``frames_u8``: the logits
+    with the int8 head; u1 with the bf16 head, which is no kernel of the
+    port's (PyTorch's bf16 convolution, as the reference leaves it to
+    XLA)."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
     from video_stream_segmenetation_tpu_torch.models import quantized as Q
     from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
 
     dev = model.stem_w.device
     fp = space_to_depth(torch.as_tensor(frames_u8, device=dev), block).contiguous()
     x0 = model.stem(fp)
-    got = model.trunk_logits(x0)
-    plain = Q.xla_micro_trunk_alpha if model.decoder == "micro" else Q.xla_trunk_alpha
-    want = plain(x0, model.trunk)
+    tp = model.trunk
+    plain_u1 = Q.PLAIN_TRUNKS[model.decoder](x0, tp)
+    if model.head_impl == "bf16":
+        if model.decoder in ("pico", "nano"):
+            got = TK.fused_nano_trunk(x0, tp)
+        else:
+            got = TK.PLAN_TRUNKS[model.decoder](x0, tp, conv_impl=model.conv_impl,
+                                                head=False)
+        want = plain_u1
+    else:
+        got = model.trunk_logits(x0)
+        want = Q.alpha_head(plain_u1, tp["alpha"])
     if got.shape != want.shape:
         return math.inf
-    return (got - want).abs().max().item()
+    return (got.float() - want.float()).abs().max().item()
 
 
 def main() -> int:
@@ -531,7 +686,8 @@ def main() -> int:
                     for k, v in info["kernels"].items()))
 
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
-    kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev)]
+    kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
+               check_u1_trunk(dev)]
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -542,14 +698,14 @@ def main() -> int:
         say(f"[{4 + i}/{steps} serve] Engine({S}, {label}), {SERVE_STEPS} steps, "
             + ("trained weights, committed frames" if trained else "seeded weights"))
         res = serve("cuda", S, SERVE_STEPS, preset_name, overrides, trained, min_iou)
-        for counter, per in per_step.items():
-            n, want = res["launches"][counter], per * SERVE_STEPS
+        for counter, n in res["launches"].items():
+            want = per_step.get(counter, 0) * SERVE_STEPS
             if n != want:
                 raise AssertionError(f"{label}: {counter} launched {n} times in "
                                      f"{SERVE_STEPS} steps, expected {want}")
-        for counter, n in res["launches"].items():
-            if counter in ("trunk_int8", "refine_fused", "decoder_int8"):
-                by_name[trunk_entry if counter == "trunk_int8" else counter]["launches"] += n
+            entry = trunk_entry if counter == "trunk_int8" else counter
+            if entry in by_name:
+                by_name[entry]["launches"] += n
         med = statistics.median(res["times_ms"])
         iou_name = "foreground IoU" if "simplex_err" in res else "alpha IoU"
         quality = (f"{iou_name} vs ground truth {res['iou']:.4f}"

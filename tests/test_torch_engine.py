@@ -126,11 +126,12 @@ def test_engine_refuses_unported_statics():
 
 @pytest.mark.parametrize("override", [
     {"affine_mode": "reference"}, {"prior_impl": "plane"}, {"refine_alpha_src": "lowres"},
-    {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"}])
+    {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"},
+    {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}])
 def test_engine_refuses_unserved_options(override):
-    """Both presets are served as they stand; any other value of a static
+    """The presets are served as they stand; any other value of a static
     the step reads is refused, not silently served another way."""
-    for name in ("fast_int8_pico", "fast_int8_micro"):
+    for name in ("fast_int8_pico", "fast_int8_micro", "fast_int8", "fast_int8_lite"):
         with pytest.raises(NotImplementedError, match=next(iter(override))):
             Engine(1, preset(name, **override, **FACE_GEOM), device="cpu")
 
@@ -172,7 +173,7 @@ def test_engine_rejects_misshaped_frames():
         eng.process(np.zeros((2, 80, 150, 3), np.uint8))
 
 
-# ---- the face path on: both presets as they stand ---------------------------
+# ---- the face path on: the presets as they stand ---------------------------
 
 FACE_S, FACE_T = 2, 8
 FACE_GEOM = dict(frame_hw=(80, 160), mask_hw=(32, 64), fd_size=64, lmk_size=48)
@@ -183,6 +184,12 @@ FACE_RUNS = {
                        ("checkpoints/facefinder_128", "checkpoints/landmarknet_128")),
     "fast_int8_micro": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10_micro",
                         ("checkpoints/facefinder", "checkpoints/landmarknet")),
+    # plans B and C: their decoder levels as the TPU runs them (plan C's
+    # through the Pallas decoder kernel; plan B has none)
+    "fast_int8": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10",
+                  ("checkpoints/facefinder", "checkpoints/landmarknet")),
+    "fast_int8_lite": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10_lite",
+                       ("checkpoints/facefinder", "checkpoints/landmarknet")),
 }
 
 

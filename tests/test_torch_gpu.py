@@ -285,3 +285,115 @@ def test_served_step_does_not_depend_on_precision_flags(card):
         _set_precision_flags(*saved)
     assert torch.equal(strict[0], loose[0])
     assert torch.equal(strict[1], loose[1])
+
+
+# ---- plans B and C, the conv kernel, the u1-out trunk ----------------------
+
+
+def _conv_case(device, cin, cout, hw, seed=4):
+    g = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    x = t(g.integers(0, 128, (2, *hw, cin), dtype=np.int8))
+    wq = t(g.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+    mult = t((g.random(cout) * 2e-2).astype(np.float32))
+    bias = t((g.random(cout) - 0.5).astype(np.float32))
+    res = t(g.integers(0, 128, (2, *hw, cout), dtype=np.int8))
+    return x, wq, mult, bias, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dilation,cin,cout,hw", [
+    (1, 128, 128, (72, 128)), (1, 192, 192, (36, 64)), (2, 256, 256, (18, 32)),
+    (4, 256, 256, (18, 32)), (3, 64, 100, (5, 7))],
+    ids=["d1-72x128", "d1-36x64", "d2-18x32", "d4-18x32", "d3-ragged"])
+@pytest.mark.parametrize("act", [True, False], ids=["act", "noact"])
+@pytest.mark.parametrize("residual", [False, True], ids=["nores", "res"])
+def test_conv3x3_kernel_matches_plain(card, residual, act, dilation, cin, cout, hw):
+    """conv3x3_i8_fused's four forms at plan B's layer shapes and a ragged
+    one (output channels not a multiple of the 64-channel tile, pixels not
+    a multiple of 64): bit for bit the plain version."""
+    from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
+
+    x, wq, mult, bias, res = _conv_case(card, cin, cout, hw)
+    r = res if residual else None
+    n = TC.conv3x3_i8_fused.launches
+    got = TC.conv3x3_i8_fused(x, wq, mult, bias, r, act=act, dilation=dilation)
+    want = TC.conv3x3_i8_plain(x, wq, mult, bias, r, act=act, dilation=dilation)
+    torch.cuda.synchronize()
+    assert TC.conv3x3_i8_fused.launches == n + 1
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["pico", "nano"])
+def test_u1_trunk_kernel_matches_plain(card, plan):
+    """fused_nano_trunk (u1 out, no head) at the 72x128 stem grid: u1 s8
+    bit for bit the plain trunk's; one count, none in the head form's."""
+    tp = _k_trunk(card, plan, 1)
+    x0 = torch.as_tensor(np.random.default_rng(5).integers(0, 128, (2, 72, 128, 128),
+                                                            dtype=np.int8), device=card)
+    n, n_alpha = TK.fused_nano_trunk.launches, TK.fused_nano_trunk_alpha.launches
+    got = TK.fused_nano_trunk(x0, tp)
+    want = Q.xla_trunk(x0, tp)
+    torch.cuda.synchronize()
+    assert TK.fused_nano_trunk.launches == n + 1
+    assert TK.fused_nano_trunk_alpha.launches == n_alpha
+    assert got.shape == (2, 72, 128, 128) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("conv_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("plan", ["full", "light", "micro"])
+def test_plan_trunk_kernels_match_plain(card, plan, conv_impl):
+    """Plans B, C and micro on the card at the 72x128 stem grid, seeded
+    weights: u1 bit for bit the plain trunk's, the logits within 1e-5 (the
+    same bound as the other trunks'); with 'pallas' the routed convs launch
+    the conv kernel (B: 4, C: 5, micro: 2 a call), with 'xla' never."""
+    from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
+    from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
+
+    tp = _k_trunk(card, plan, 1)
+    x0 = torch.as_tensor(np.random.default_rng(6).integers(0, 128, (2, 72, 128, 128),
+                                                            dtype=np.int8), device=card)
+    fn = TK.PLAN_TRUNKS[plan]
+    n_c, n_d, n_t = TC.conv3x3_i8_fused.launches, DK.fused_decoder_level.launches, \
+        fn.launches
+    u1 = fn(x0, tp, conv_impl=conv_impl, head=False)
+    logits = fn(x0, tp, conv_impl=conv_impl)
+    plain_u1 = Q.PLAIN_TRUNKS[plan](x0, tp)
+    want = Q.alpha_head(plain_u1, tp["alpha"])
+    torch.cuda.synchronize()
+    routed = {"full": 4, "light": 5, "micro": 2}[plan] if conv_impl == "pallas" else 0
+    assert TC.conv3x3_i8_fused.launches == n_c + 2 * routed
+    assert DK.fused_decoder_level.launches == n_d + (0 if plan == "full" else 4)
+    assert fn.launches == n_t + 2
+    assert torch.equal(u1, plain_u1)
+    assert (logits - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,over,counter,per_step", [
+    ("fast_int8", {"int8_conv_impl": "pallas"}, "conv", 4),
+    ("fast_int8_lite", {"int8_conv_impl": "pallas"}, "conv", 5),
+    ("fast_int8", {}, "full", 1),
+    ("fast_int8_pico", {"int8_head_impl": "bf16"}, "u1", 1)])
+def test_plan_engines_on_card_run_their_kernels(card, name, over, counter, per_step):
+    """The new presets and switches through Engine.process on the card
+    (small geometry, seeded weights): each step launches the routed
+    kernels as many times as the plan has routed layers, and the bf16 head
+    runs on the u1-out trunk with no int8-head trunk launch."""
+    from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
+
+    eng = Engine(2, preset(name, frame_hw=(160, 320), mask_hw=(64, 128), **over), seed=0)
+    eng.admit_all()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 160, 320, 3), dtype=np.uint8)
+    counters = {"conv": TC.conv3x3_i8_fused, "full": TK.full_trunk_alpha,
+                "u1": TK.fused_nano_trunk, "alpha": TK.fused_nano_trunk_alpha}
+    before = {k: c.launches for k, c in counters.items()}
+    for _ in range(2):
+        out = eng.process(frames)
+    assert counters[counter].launches == before[counter] + 2 * per_step
+    if counter == "u1":
+        assert TK.fused_nano_trunk_alpha.launches == before["alpha"]
+    assert out["frame"].shape == (2, 160, 320, 3)
+    assert bool(torch.isfinite(out["alpha"].float()).all())

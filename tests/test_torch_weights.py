@@ -31,7 +31,8 @@ from video_stream_segmenetation_tpu_torch.models import quantized as TQ
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints"
 # (checkpoint name, plan, classes)
 TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1),
-          ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4))
+          ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4),
+          ("mattenet_hd10", "full", 1), ("mattenet_hd10_lite", "light", 1))
 FACE = ("facefinder", "facefinder_128", "landmarknet", "landmarknet_128")
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
@@ -88,7 +89,8 @@ def test_loaded_exports_are_served_trees():
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
 
     for name, plan, k in (("fast_int8_micro", "micro", 1), ("fast_int8_pico", "pico", 1),
-                          ("multiclass_fast_pico", "pico", 4), ("multiclass_fast", "nano", 4)):
+                          ("multiclass_fast_pico", "pico", 4), ("multiclass_fast", "nano", 4),
+                          ("fast_int8", "full", 1), ("fast_int8_lite", "light", 1)):
         w = bridge.trained_weights(preset(name))
         assert w["params"]["d2dn"]["wq"].dtype == np.int8
         assert TQ.plan_of(w["params"]) == plan and TQ.num_classes_of(w["params"]) == k

@@ -33,9 +33,9 @@ WEIGHTS_DIR = Path(__file__).resolve().parent / "weights"
 # separates the levels of a nested dict in an export's array names (the
 # serving dict's own keys hold '/')
 SEP = ":"
-# quantized-dict entries the port does not serve: the det/sem heads and
+# quantized-dict entries the port does not serve: the int8 det head and
 # the int8-stem variant
-_UNSERVED = {"det", "sem", "alpha", "det_q", "stem_wq", "stem_mult", "stem_b2"}
+_UNSERVED = {"det_q", "stem_wq", "stem_mult", "stem_b2"}
 
 
 def _numpy_tree(tree):
@@ -52,9 +52,9 @@ def params_from_jax(float_tree: dict, stem_stride: int = 10,
 
 
 def load_quantized(q: dict) -> dict:
-    """The reference's quantized dict of the pico, nano or micro plan (numpy
-    leaves; ``stem_w`` may be a bfloat16 array) -> the port's serving dict:
-    every int8 conv (``wq`` s8, ``mult``, ``bias`` f32) and SE dense layer
+    """The reference's quantized dict of any plan (numpy leaves; ``stem_w``
+    may be a bfloat16 array) -> the port's serving dict: every int8 conv
+    (``wq`` s8, ``mult``, ``bias`` f32), SE dense layer and float head
     (``kernel``, ``bias`` f32) it serves; the rest is dropped."""
     out = {
         "stem_w": np.asarray(q["stem_w"]).astype(np.float32),
@@ -108,20 +108,21 @@ def load_export(path) -> dict:
     return out
 
 
-# the K=4 multi-class checkpoints by plan (the reference's names)
+# the checkpoints by plan (the reference's names), one class and K=4
+EXPORTS = {"full": "mattenet_hd10", "light": "mattenet_hd10_lite",
+           "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico"}
 MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc"}
 
 
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     """The committed trained weights of a preset: ``{"params": the int8
-    serving dict of statics.matting_decoder ('mattenet_hd10_<plan>' for one
+    serving dict of statics.matting_decoder (``EXPORTS[plan]`` for one
     class, ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face",
     "lmk"}}`` (face models keyed by geometry as the reference's
     checkpoints are: no suffix at fd 256 / lmk 192, else '_<size>')."""
     d = Path(weights_dir)
     plan = statics.matting_decoder
-    matting = (f"mattenet_hd10_{plan}" if statics.num_classes == 1
-               else MULTICLASS_EXPORTS[plan])
+    matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]
     fd_suf = "" if statics.fd_size == 256 else f"_{statics.fd_size}"
     lmk_suf = "" if statics.lmk_size == 192 else f"_{statics.lmk_size}"
     return {

@@ -1,8 +1,9 @@
 // int8 pico/nano trunk for Hopper (sm_90a): the port of the Pallas
 // megakernel video_stream_segmenetation_tpu/kernels/trunk_int8.py (body
 // _kernel, pallas_call in _run) in its one-class form
-// fused_nano_trunk_alpha_rowfold and its K-class form
-// fused_nano_trunk_alpha_q / fused_nano_trunk_alpha.
+// fused_nano_trunk_alpha_rowfold, its K-class form
+// fused_nano_trunk_alpha_q / fused_nano_trunk_alpha and its u1-out form
+// fused_nano_trunk (head=False: the same launches without the head).
 //
 // What bounds it on an H100: about 1.44 G multiply-adds a stream at the
 // 720p pico shapes (x0 [72,128,128] s8; about 2.6 G at the nano widths
@@ -22,16 +23,24 @@
 //     with __dp4a (s8 x s8 -> s32, exact).  The epilogue is the reference's:
 //     y = acc * mult + bias in f32 (built with --fmad=false, so no fused
 //     multiply-add changes the rounding), then one of
-//       mode 0: s8 = round(clip(up + y, 0, 6) * 127/6), with `up` the f32
-//               up-path conv at half resolution broadcast by nearest x2
-//               (the split 1x1 convs of u2red/u1red) or absent,
-//       mode 1: f32 y (the up-path 1x1 convs),
+//       mode 0: s8 = round(clip(up + y [+ res * 6/127], 0, 6) * 127/6),
+//               with `up` an f32 addend (the up-path half of a split
+//               decoder conv) at half resolution broadcast by nearest x2
+//               (up_shift 1: u2red/u1red) or at the output's own
+//               (up_shift 0: plan B's 3x3 u2/u1), or absent, and `res`
+//               the s8 residual of plan B's b1 block, or absent,
+//       mode 1: f32 y (the up-path convs),
 //       mode 2: f32 clip(y + res * 6/127, 0, 6) (ctx + residual, relu6).
+//     With in_shift 1 the input is read through a nearest x2 upsample:
+//     the tensor is [S, H/2, W/2, Cin] and the conv runs on the H x W grid
+//     (plan B's up-path 3x3 convs over nearest_x2 of the level below).
 //   * vst_se_requant: one block a stream; the SE mean over the stream's
 //     grid and both dense layers in double, sigmoid, gate, an optional
 //     residual (res * 6/127, the micro trunk's _Block), requant to s8.
-// The same kernels run the micro trunk's convolutions (models/quantized.py
-// micro plan), whose decoder levels are csrc/decoder_int8.cu.
+// The same kernels run the convolutions of the micro, light (plan C) and
+// full (plan B) trunks (models/quantized.py), whose 1x1 decoder levels
+// are csrc/decoder_int8.cu and whose routed 3x3 convs, with
+// int8_conv_impl='pallas', are csrc/conv_int8.cu.
 //   * vst_alpha_head_i8: the 3x3 int8 alpha head with K output channels
 //     (1 <= K <= ALPHA_HEAD_MAX_K; the served presets use K = 1 and the
 //     multi-class K = 4), one thread a (pixel, class), classes fastest so
@@ -65,7 +74,7 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const int8_t* __restrict__ res, const float* __restrict__ up,
                void* __restrict__ out, int S, int H, int W, int Cin, int Ho,
                int Wo, int Cout, int KH, int KW, int stride, int dil,
-               int pad_t, int pad_l, int mode) {
+               int pad_t, int pad_l, int mode, int in_shift, int up_shift) {
   __shared__ int As[BM * LDS];
   __shared__ int Bs[BN * LDS];
   const int tid = threadIdx.x;
@@ -75,6 +84,7 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int taps = KH * KW;
+  const int Hin = H >> in_shift, Win = W >> in_shift;  // the tensor's grid
 
   // the two A words and two B words this thread stages each K step
   int a_pix[2], a_word[2], a_s[2], a_oy[2], a_ox[2];
@@ -104,8 +114,8 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int iy = a_oy[t] * stride - pad_t + r * dil;
         const int ix = a_ox[t] * stride - pad_l + q * dil;
         if (a_ok[t] && iy >= 0 && iy < H && ix >= 0 && ix < W) {
-          const size_t off =
-              (((size_t)a_s[t] * H + iy) * W + ix) * Cin + c0 + 4 * a_word[t];
+          const size_t off = (((size_t)a_s[t] * Hin + (iy >> in_shift)) * Win +
+                              (ix >> in_shift)) * Cin + c0 + 4 * a_word[t];
           v = __ldg(reinterpret_cast<const int*>(x + off));
         }
         As[a_pix[t] * LDS + a_word[t]] = v;
@@ -148,11 +158,12 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const size_t o = (size_t)m * Cout + n;
       if (mode == 0) {
         if (up != nullptr) {
-          const int hh = Ho >> 1, wh = Wo >> 1;
-          const size_t u =
-              (((size_t)s * hh + (oy >> 1)) * wh + (ox >> 1)) * Cout + n;
+          const int hh = Ho >> up_shift, wh = Wo >> up_shift;
+          const size_t u = (((size_t)s * hh + (oy >> up_shift)) * wh +
+                            (ox >> up_shift)) * Cout + n;
           y = up[u] + y;
         }
+        if (res != nullptr) y = y + (float)res[o] * ACT_SCALE;
         reinterpret_cast<int8_t*>(out)[o] = requant(y);
       } else if (mode == 1) {
         reinterpret_cast<float*>(out)[o] = y;
@@ -241,13 +252,14 @@ extern "C" int vst_conv_i8(const void* x, const void* w, const void* mult,
                            void* out, int S, int H, int W, int Cin, int Ho,
                            int Wo, int Cout, int KH, int KW, int stride,
                            int dil, int pad_t, int pad_l, int mode,
-                           void* stream) {
+                           int in_shift, int up_shift, void* stream) {
   const long long M = (long long)S * Ho * Wo;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
   conv_i8_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)mult,
       (const float*)bias, (const int8_t*)res, (const float*)up, out, S, H, W,
-      Cin, Ho, Wo, Cout, KH, KW, stride, dil, pad_t, pad_l, mode);
+      Cin, Ho, Wo, Cout, KH, KW, stride, dil, pad_t, pad_l, mode, in_shift,
+      up_shift);
   return (int)cudaGetLastError();
 }
 

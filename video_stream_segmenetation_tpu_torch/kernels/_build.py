@@ -38,7 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (every one returns a cudaError_t)
 SIGNATURES = {
-    "vst_conv_i8": [_P] * 7 + [_I] * 14 + [_P],
+    "vst_conv_i8": [_P] * 7 + [_I] * 16 + [_P],
+    "vst_conv3x3_i8_fused": [_P] * 6 + [_I] * 7 + [_P],
     "vst_se_requant": [_P] * 7 + [_I] * 4 + [_P],
     "vst_alpha_head_i8": [_P] * 5 + [_I] * 5 + [_P],
     "vst_temporal_refine": [_P] * 8 + [_I] * 5 + [_P],

@@ -1,18 +1,19 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro|mc_pico|mc ...]
+        [--config pico_noface|pico|micro|mc_pico|mc|full|lite ...]
 
-For each configuration (default: all five) it builds Engine(S, preset):
+For each configuration (default: all seven) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
-weights, ``pico``, ``micro``, ``mc_pico`` and ``mc`` are fast_int8_pico,
-fast_int8_micro, multiclass_fast_pico and multiclass_fast as their
-presets stand with the committed trained weights and frames.  It warms
-the engine up, then
+weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full`` and ``lite``
+are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
+multiclass_fast, fast_int8 and fast_int8_lite as their presets stand with
+the committed trained weights and frames.  It warms the engine up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
     the trunk -- for micro its convolutions and its decoder levels plus
-    head apart, and each kernel of the latter by torch.profiler --,
+    head apart; the kernels of micro's decoder and of the full and light
+    trunks one by one by torch.profiler --,
     upsample, guide, face subpath, refine kernel, packed composite,
     unpack; for the multi-class presets: the K=4 trunk, the per-class
     upsample and softmax, the simplex EMA, the per-class composite and its
@@ -38,6 +39,8 @@ CONFIGS = {
     "micro": ("fast_int8_micro", {}, True),
     "mc_pico": ("multiclass_fast_pico", {}, True),
     "mc": ("multiclass_fast", {}, True),
+    "full": ("fast_int8", {}, True),
+    "lite": ("fast_int8_lite", {}, True),
 }
 # a stage timed apart that another stage's time already holds
 INSIDE = "  (inside the composite) "
@@ -72,10 +75,15 @@ def _kernel_ms(fn):
 def _trunk_stages(model, x0, stages):
     """Time the served trunk.  Micro's is timed as the two functions
     ``micro_trunk_alpha`` runs (its convolutions, then its decoder levels
-    and head), and the second's kernels are listed one by one.  Returns
-    (logits, that list)."""
+    and head), and the second's kernels are listed one by one; so are the
+    full and light trunks' kernels.  Returns (logits, that list)."""
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
+    if model.decoder in ("full", "light"):
+        label = {"full": "full trunk (plan B): convs, SEs, split 3x3 decoder, head",
+                 "light": "light trunk (plan C): convs, SEs, decoder levels, head"}
+        stages[label[model.decoder]], logits = _event_ms(lambda: model.trunk_logits(x0))
+        return logits, _kernel_ms(lambda: model.trunk_logits(x0))
     if model.decoder != "micro":
         head = f", K={model.num_classes} head" if model.num_classes > 1 else ""
         stages[f"{model.decoder} trunk kernel (11 launches{head})"], logits = _event_ms(
@@ -124,7 +132,7 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
         stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
         stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(
             lambda: eng.model.stem(fp))
-        logits, decoder_kernels = _trunk_stages(eng.model, x0, stages)
+        logits, trunk_kernels = _trunk_stages(eng.model, x0, stages)
         if st.num_classes > 1:
             _multiclass_stages(eng, logits, fp, stages)
         else:
@@ -135,8 +143,9 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     for k, v in stages.items():
         print(f"  {k:56s} {v:8.3f} ms  {100 * v / total:5.1f} %")
     print(f"  {'sum':56s} {total:8.3f} ms")
-    for i, (kernel, ms) in enumerate(decoder_kernels):
-        print(f"    micro_decoder launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
+    what = "micro_decoder" if eng.model.decoder == "micro" else "trunk"
+    for i, (kernel, ms) in enumerate(trunk_kernels):
+        print(f"    {what} launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
               "(torch.profiler, one call)")
     _profile_steps(eng, frames, steps, config)
     del eng

@@ -108,7 +108,9 @@ class PipelineStatics:
     # one the port serves) or 'frames'
     face_input: str = "frames"
     s2d_block: int = 5
-    matting_decoder: str = "full"  # the port serves 'pico' and 'micro'
+    # the port serves 'pico', 'micro', 'light' and 'full' with one class,
+    # 'pico' and 'nano' with K
+    matting_decoder: str = "full"
     prior_impl: str = "auto"  # 'auto' = analytic; the port refuses 'plane'
     refine_alpha_src: str = "full"  # the port refuses 'lowres'
     guide_kernel_unfold: bool = False  # the port refuses True
@@ -124,3 +126,10 @@ class PipelineStatics:
     # only; the reference's defaults select its float natural-layout path
     frame_layout: str = "natural"
     matting_precision: str = "bf16"
+    # the int8 graph's lowerings (models/quantized.py::QuantizedMatteNetHD):
+    # 'xla' | 'pallas' -- with 'pallas' the micro, light and full trunks'
+    # 3x3 stride-1 requant convs run through kernels/conv_int8.py
+    int8_conv_impl: str = "xla"
+    # 'int8' | 'bf16' -- the alpha head: int8 on u1 (in the trunk kernel),
+    # or u1 out of the trunk and a bf16 conv with the float head
+    int8_head_impl: str = "int8"

@@ -1,12 +1,13 @@
 """The per-batch serving steps (port of ``runtime/pipeline.py::make_step``):
-the single-class step of the ``fast_int8_pico`` and ``fast_int8_micro``
-presets, face path on or off, and the multi-class step of
-``multiclass_fast_pico`` and ``multiclass_fast`` (:func:`make_multiclass_step`).
-The single-class step:
+the single-class step of the ``fast_int8``, ``fast_int8_lite``,
+``fast_int8_pico`` and ``fast_int8_micro`` presets, face path on or off,
+and the multi-class step of ``multiclass_fast_pico`` and
+``multiclass_fast`` (:func:`make_multiclass_step`).  The single-class
+step:
 
   packed u8 frames [S, H/b, W/b, b*b*3]
-    -> int8 MatteNetHD (bf16 stem, pico or micro trunk, x4 upsample,
-       sigmoid)
+    -> int8 MatteNetHD (bf16 stem, the full, light, pico or micro trunk,
+       int8 or bf16 alpha head, x4 upsample, sigmoid)
     -> planar u8 guide (lane selection of the packed frames)
     -> face subpath on the guide, compacted to the <= K streams whose
        cadence fires: letterbox -> FaceFinder -> best box -> prior
@@ -83,7 +84,7 @@ def check_statics(statics: PipelineStatics) -> None:
             raise NotImplementedError(
                 f"{field}={got!r}: the torch port serves {field}={want!r} only"
                 + (f" with num_classes={statics.num_classes}" if multiclass else ""))
-    decoders = ("pico", "nano") if multiclass else ("pico", "micro")
+    decoders = ("pico", "nano") if multiclass else ("pico", "micro", "light", "full")
     if multiclass:
         if len(statics.class_effects) != statics.num_classes:
             raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
@@ -91,6 +92,8 @@ def check_statics(statics: PipelineStatics) -> None:
         effect_algebra(statics.class_effects)
     for field, allowed in (("matting_decoder", decoders),
                            ("prior_impl", ("auto",)),
+                           ("int8_conv_impl", ("xla", "pallas")),
+                           ("int8_head_impl", ("int8", "bf16")),
                            ("refined_dtype", ("f32", "bf16"))):
         got = getattr(statics, field)
         if got not in allowed:

@@ -1,7 +1,8 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
-``fast_int8_pico``, ``fast_int8_micro``, ``multiclass_fast_pico`` and
-``multiclass_fast`` are ported, as the reference defines them;
+``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_micro``,
+``multiclass_fast_pico`` and ``multiclass_fast`` are ported, as the
+reference defines them;
 ``preset(name, **overrides)`` takes overrides the way the reference's
 does (``face_path=False``, ``frame_hw``, ``mask_hw``, ...).  The
 reference's natural-layout ``multiclass`` preset is listed so that it is
@@ -41,6 +42,14 @@ _MULTICLASS = dict(
 )
 
 _PRESETS = {
+    # plan-B trunk (the reference's runtime/presets.py:38-50, its "bench.py
+    # headline configuration"): a residual b1 block at the stem grid, 2/4
+    # dilation context, 3x3 decoder convs over the concat; face models at
+    # 256/192, f32 refined alpha
+    "fast_int8": dict(_FAST_INT8),
+    # plan-C lite trunk (:53-66): one 3x3 b1 conv, 1x1-reduce decoder with
+    # one 3x3 at the /2 level
+    "fast_int8_lite": dict(_FAST_INT8, matting_decoder="light"),
     # plan-D micro trunk (the reference's runtime/presets.py:71-84):
     # residual blocks at 192/256, one dilation-3 context conv, 1x1-only
     # decoder; the face models at the reference geometry 256/192 and an

@@ -106,7 +106,9 @@ class Engine:
                 st.matting_decoder)
         # the head grid is the stem grid; mask_hw = uf x that (uf = 1: the
         # class maps are served at the head grid, as multiclass_fast_pico)
-        self.model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device)
+        self.model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device,
+                                         conv_impl=st.int8_conv_impl,
+                                         head_impl=st.int8_head_impl)
         if self.model.decoder != st.matting_decoder:
             raise ValueError(f"params are the {self.model.decoder} plan's; statics ask "
                              f"for matting_decoder={st.matting_decoder!r}")
