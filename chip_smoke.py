@@ -16,7 +16,9 @@ Phases, each announced by one line on stdout:
      widths (trained multi-class weights, exact), the fused temporal refine
      (bf16 and f32 refined alpha), the int8 decoder level at micro's u2 and
      u1 levels, the fused 3x3 conv in its four forms (act or not, residual
-     or not) at plan B's layer shapes, the u1-out trunk at pico widths;
+     or not) at plan B's layer shapes, the u1-out trunk at pico widths, the
+     natural layout's fused composite (720p, 288x512 alpha), the
+     plane-prior temporal refine and fused_refine (f32 out);
   4-12. serve: Engine(64, ...) answers 8 steps of 720p frames in nine
      phases, each with every launch count set to 0 just before it and read
      just after:
@@ -79,6 +81,7 @@ REFINED_F32_TOL = 2e-5  # f32 refined alpha: same operations, exp/pow ulps
 DECODER_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue order
 CONV_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue
 U1_TOL = 0  # u1 s8: exact s32 sums, the same epilogues, SE in float64 on both sides
+COMPOSITE_TOL = 0  # u8 out: f64 row sums, bf16 rows, exact bf16 products, same blend
 
 
 def say(*parts) -> None:
@@ -211,19 +214,19 @@ def check_trunk(dev) -> list[dict]:
     return entries
 
 
-def check_refine(dev) -> dict:
-    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
-    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+def _refine_inputs(dev, seed):
+    """Seeded refine inputs at S=64, 288x512: alpha, prev, the planar u8
+    guide, a scale-and-translate affine per stream (some rows and columns
+    out of range), flags mixed over the streams, the knobs."""
     from video_stream_segmenetation_tpu_torch.runtime.config import default_knobs
 
     h, w = 288, 512
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     alpha = torch.rand((S, h, w), generator=gen, device=dev)
     prev = torch.rand((S, h, w), generator=gen, device=dev)
     guide = torch.randint(0, 256, (S, 3, h, w), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
     i = torch.arange(S, device=dev, dtype=torch.float32)
-    # non-identity scale + translate, some rows/columns out of range
     affine = torch.stack([1.0 + 0.002 * i, torch.zeros_like(i), 3.0 - 0.5 * i,
                           torch.zeros_like(i), 0.99 + 0.001 * i, -2.0 + 0.25 * i], 1)
     initialized = (torch.arange(S, device=dev) % 4) != 0
@@ -232,6 +235,16 @@ def check_refine(dev) -> dict:
     prior_params = torch.stack([200.0 + i, 120.0 + 0.5 * i, 60.0 + 0 * i, 80.0 + 0 * i], 1)
     knobs = default_knobs(S, ema_adapt=1.0, device=dev)
     knobs.use_bilateral = (torch.arange(S, device=dev) % 2) == 1
+    return alpha, prev, guide, affine, initialized, use_warp, has_prior, prior_params, knobs
+
+
+def check_refine(dev) -> dict:
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+
+    (alpha, prev, guide, affine, initialized, use_warp, has_prior, prior_params,
+     knobs) = _refine_inputs(dev, 2)
+    h, w = alpha.shape[-2:]
     yi, xi = separable_warp_indices(affine, (h, w))
     table = TR.scalar_table(knobs, use_warp, initialized, 0.3, prior_params, has_prior)
     got_prev, got = TR.fused_temporal_refine(alpha, prev, affine, use_warp, initialized,
@@ -450,6 +463,134 @@ def check_u1_trunk(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def check_refine_plane(dev) -> dict:
+    """The plane-prior form of the temporal refine (prior_impl='plane'), f32
+    refined alpha as active serves it: the prior plane rendered from the
+    same scalars, zero where a stream has none."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.prior import prior_plane_from_params
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+
+    (alpha, prev, guide, affine, initialized, use_warp, has_prior, prior_params,
+     knobs) = _refine_inputs(dev, 6)
+    h, w = alpha.shape[-2:]
+    plane = torch.where(has_prior[:, None, None], prior_plane_from_params(prior_params, (h, w)),
+                        torch.zeros((), device=dev)).contiguous()
+    f32 = torch.float32
+    yi, xi = separable_warp_indices(affine, (h, w))
+    table = TR.scalar_table(knobs, use_warp, initialized, 0.3, torch.zeros_like(prior_params),
+                            has_prior)
+    got_prev, got = TR.fused_temporal_refine_plane(alpha, prev, affine, use_warp, initialized,
+                                                   0.3, guide, plane, has_prior, knobs,
+                                                   out_dtype=f32)
+    want_prev, want = TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table, f32,
+                                                     plane)
+    torch.cuda.synchronize()
+    err_prev = (got_prev - want_prev).abs().max().item()
+    err = (got - want).abs().max().item()
+    say(f"  refine_fused_plane: new_prev max_abs_err {err_prev:.3e} (tolerance {PREV_TOL:g}), "
+        f"refined {got.dtype} max_abs_err {err:.3e} (tolerance {REFINED_F32_TOL:g}); refined "
+        f"mean {want.mean().item():.4f}")
+    if got.dtype != f32 or not (err_prev <= PREV_TOL and err <= REFINED_F32_TOL):
+        raise AssertionError(f"plane-prior refine kernel disagrees with its plain version: "
+                             f"{err_prev}, {err}")
+    ms = cuda_time_ms(lambda: TR._launch(alpha, prev, yi, xi, guide, table, f32, plane), 20)
+    plain_ms = cuda_time_ms(lambda: TR.fused_temporal_refine_plain(
+        alpha, prev, yi, xi, guide, table, f32, plane), 3)
+    px = S * h * w
+    bytes_moved = (px * (4 + 4 + 3 + 4 + 4 + 4) + yi.numel() * 4 + xi.numel() * 4
+                   + table.numel() * 4)
+    bound_ms, bound_by = bound(bytes_moved, refine_ops(table, (h, w)), F32_OPS_PER_S)
+    say(f"  refine_fused_plane: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bytes_moved / px:.1f} B a pixel)")
+    return {"name": "refine_fused_plane", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/refine_fused.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/refine_fused.py:207",
+            "max_abs_err": max(err, err_prev), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_fused_refine(dev) -> dict:
+    """fused_refine (stages 5/7/8/9 on an alpha already warped and smoothed,
+    the prior plane, f32 out), as warp_impl='exact' serves it."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.prior import prior_plane_from_params
+
+    alpha, _, guide, _, _, _, has_prior, prior_params, knobs = _refine_inputs(dev, 7)
+    h, w = alpha.shape[-2:]
+    plane = torch.where(has_prior[:, None, None], prior_plane_from_params(prior_params, (h, w)),
+                        torch.zeros((), device=dev)).contiguous()
+    table = TR.refine_table(knobs, has_prior)
+    got = TR.fused_refine(alpha, guide, plane, has_prior, knobs)
+    want = TR.fused_refine_plain(alpha, guide, plane, table)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    say(f"  fused_refine: refined {got.dtype} max_abs_err {err:.3e} (tolerance "
+        f"{REFINED_F32_TOL:g}); refined mean {want.mean().item():.4f}")
+    if got.dtype != torch.float32 or not err <= REFINED_F32_TOL:
+        raise AssertionError(f"fused_refine kernel disagrees with its plain version: {err}")
+    ms = cuda_time_ms(lambda: TR.fused_refine(alpha, guide, plane, has_prior, knobs), 20)
+    plain_ms = cuda_time_ms(lambda: TR.fused_refine_plain(alpha, guide, plane, table), 3)
+    px = S * h * w
+    bytes_moved = px * (4 + 3 + 4 + 4) + table.numel() * 4
+    # without the EMA's 10 operations a pixel (the warp's are off in this
+    # table)
+    ops = refine_ops(table, (h, w)) - 10 * px
+    bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
+    say(f"  fused_refine: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bytes_moved / px:.1f} B a pixel)")
+    return {"name": "fused_refine", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/refine_fused.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/refine_fused.py:522",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_composite(dev) -> dict:
+    """The natural layout's fused composite at S=64, 720p, a 288x512 alpha
+    (random, with rows of 0 and 1), random frames and backgrounds, against
+    its plain version (the matrix form, TF32 off)."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    fh, fw = FRAME_HW
+    mh, mw = 288, 512
+    gen = torch.Generator(device=dev).manual_seed(8)
+    frames = torch.randint(0, 256, (S, fh, fw, 3), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    bg = torch.randint(0, 256, (S, fh, fw, 3), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    alpha = torch.rand((S, mh, mw), generator=gen, device=dev)
+    alpha[::3, :40] = 0.0
+    alpha[1::3, -40:] = 1.0
+    got = KC.fused_composite(frames, alpha, bg)
+    with pinned():
+        want = KC.fused_composite_plain(frames, alpha, bg)
+    torch.cuda.synchronize()
+    diff = (got.int() - want.int()).abs()
+    err = diff.max().item()
+    say(f"  composite_fused: frames {tuple(frames.shape)} alpha {tuple(alpha.shape)} "
+        f"max_abs_err {err} u8 steps (tolerance {COMPOSITE_TOL}), values apart "
+        f"{(diff > 0).sum().item()}")
+    if got.dtype != torch.uint8 or err > COMPOSITE_TOL:
+        raise AssertionError(f"composite kernel disagrees with its plain version: {err}")
+    ms = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg), 20)
+    with pinned():
+        plain_ms = cuda_time_ms(lambda: KC.fused_composite_plain(frames, alpha, bg), 3)
+    bytes_moved = 3 * frames.numel() + 4 * alpha.numel()
+    # a pixel: two vertical taps (f64) of its row value, two horizontal
+    # taps, the clip, and per channel the blend and the rounding (~6)
+    ops = S * fh * (mw * 3 + fw * (5 + 3 * 6))
+    bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
+    say(f"  composite_fused: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bytes_moved / 1e6:.1f} MB)")
+    return {"name": "composite_fused", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/composite_fused.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/composite_fused.py:84",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def synthetic_frames(rng, base, t):
     """Noise background with a bright ellipse whose centre moves with t;
     returns (frames, ellipse mask at frame resolution)."""
@@ -472,7 +613,11 @@ def synthetic_frames(rng, base, t):
 # 'xla' does (tests/test_torch_plans.py), so it has fast_int8's bar.
 REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980,
                  "fast_int8": 0.6216, "fast_int8_lite": 0.5755,
-                 "fast_int8_pico_bf16_head": 0.8524}
+                 "fast_int8_pico_bf16_head": 0.8524,
+                 # tests/test_torch_active_720p.py, 8 steps: the separable-warp
+                 # routes (the plane prior and the composites give its alpha)
+                 # and the exact warp
+                 "active": 0.5460, "active_exact_warp": 0.5429}
 IOU_SLACK = 0.02
 
 # serve phases: (label, preset, overrides, trained weights and frames,
@@ -506,11 +651,20 @@ PHASES = (
     ("fast_int8_pico, int8_head_impl='bf16'", "fast_int8_pico", {"int8_head_impl": "bf16"},
      True, {"trunk_int8_u1": 1, "refine_fused": 1},
      REFERENCE_IOU["fast_int8_pico_bf16_head"] - IOU_SLACK, None),
+    ("active", "active", {}, True, {"refine_fused": 1},
+     REFERENCE_IOU["active"] - IOU_SLACK, None),
+    ("active, use_fused_composite=True", "active", {"use_fused_composite": True}, True,
+     {"refine_fused": 1, "composite_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
+    ("active, prior_impl='plane'", "active", {"prior_impl": "plane"}, True,
+     {"refine_fused_plane": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
+    ("active, warp_impl='exact'", "active", {"warp_impl": "exact"}, True,
+     {"fused_refine": 1}, REFERENCE_IOU["active_exact_warp"] - IOU_SLACK, None),
 )
 
 
 def _counters():
     from video_stream_segmenetation_tpu_torch.kernels import (
+        composite_fused,
         conv_int8,
         decoder_int8,
         refine_fused,
@@ -523,6 +677,9 @@ def _counters():
             "full_trunk": trunk_int8.full_trunk_alpha,
             "light_trunk": trunk_int8.light_trunk_alpha,
             "refine_fused": refine_fused.fused_temporal_refine,
+            "refine_fused_plane": refine_fused.fused_temporal_refine_plane,
+            "fused_refine": refine_fused.fused_refine,
+            "composite_fused": composite_fused.fused_composite,
             "decoder_int8": decoder_int8.fused_decoder_level,
             "conv3x3_i8_fused": conv_int8.conv3x3_i8_fused}
 
@@ -615,10 +772,11 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
                                  f"< {min_iou}")
         if statics.face_path and res["applied"] == 0:
             raise AssertionError("the face path was applied to no stream")
-        res["trunk_err"] = trunk_vs_plain(eng.model, frames[:2], statics.s2d_block)
-        if not res["trunk_err"] <= TRUNK_TOL:
-            raise AssertionError(f"served trunk disagrees with its plain version: "
-                                 f"{res['trunk_err']}")
+        if statics.frame_layout == "s2d":
+            res["trunk_err"] = trunk_vs_plain(eng.model, frames[:2], statics.s2d_block)
+            if not res["trunk_err"] <= TRUNK_TOL:
+                raise AssertionError(f"served trunk disagrees with its plain version: "
+                                     f"{res['trunk_err']}")
     else:
         iy = (np.arange(mh) * fh) // mh
         ix = (np.arange(mw) * fw) // mw
@@ -687,7 +845,8 @@ def main() -> int:
 
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
     kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
-               check_u1_trunk(dev)]
+               check_u1_trunk(dev), check_composite(dev), check_refine_plane(dev),
+               check_fused_refine(dev)]
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -713,9 +872,9 @@ def main() -> int:
                    + (f", class_alpha sums to 1 within {res['simplex_err']:.2e}"
                       if "simplex_err" in res else "")
                    + f", face_applied on "
-                   f"{res['applied']} streams, mean det_score {res['det_score']:.4f}, "
-                   f"trunk vs plain on 2 streams {res['trunk_err']:.3e} (tolerance "
-                   f"{TRUNK_TOL:g})"
+                   f"{res['applied']} streams, mean det_score {res['det_score']:.4f}"
+                   + (f", trunk vs plain on 2 streams {res['trunk_err']:.3e} (tolerance "
+                      f"{TRUNK_TOL:g})" if "trunk_err" in res else "")
                    if trained else
                    f"alpha inside/outside the ellipse {res['alpha_in']:.4f}/"
                    f"{res['alpha_out']:.4f}")

@@ -125,9 +125,10 @@ def test_engine_refuses_unported_statics():
 
 
 @pytest.mark.parametrize("override", [
-    {"affine_mode": "reference"}, {"prior_impl": "plane"}, {"refine_alpha_src": "lowres"},
+    {"affine_mode": "reference"}, {"guide_kernel_unfold": True}, {"refine_alpha_src": "lowres"},
     {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"},
-    {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}])
+    {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}, {"warp_impl": "exact"},
+    {"matting_precision": "bf16"}])
 def test_engine_refuses_unserved_options(override):
     """The presets are served as they stand; any other value of a static
     the step reads is refused, not silently served another way."""
@@ -178,10 +179,16 @@ def test_engine_rejects_misshaped_frames():
 FACE_S, FACE_T = 2, 8
 FACE_GEOM = dict(frame_hw=(80, 160), mask_hw=(32, 64), fd_size=64, lmk_size=48)
 FACE_RUNS = {
-    # preset: (JAX overrides: the Pallas kernels 'auto' picks on the TPU,
-    # in interpret mode; matting checkpoint; face checkpoints)
+    # run: (JAX overrides: the Pallas kernels 'auto' picks on the TPU,
+    # in interpret mode; matting checkpoint; face checkpoints); a run's
+    # preset is its name up to a '+', the overrides of both engines after
+    # it (FACE_OVERRIDES)
     "fast_int8_pico": (dict(int8_decoder_impl="trunk"), PICO_CKPT,
                        ("checkpoints/facefinder_128", "checkpoints/landmarknet_128")),
+    # the plane-prior body of the fused temporal refine (prior_impl='plane')
+    "fast_int8_pico+plane": (dict(int8_decoder_impl="trunk", debug_face_outputs=True),
+                             PICO_CKPT,
+                             ("checkpoints/facefinder_128", "checkpoints/landmarknet_128")),
     "fast_int8_micro": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10_micro",
                         ("checkpoints/facefinder", "checkpoints/landmarknet")),
     # plans B and C: their decoder levels as the TPU runs them (plan C's
@@ -191,6 +198,9 @@ FACE_RUNS = {
     "fast_int8_lite": (dict(int8_decoder_impl="pallas"), "checkpoints/mattenet_hd10_lite",
                        ("checkpoints/facefinder", "checkpoints/landmarknet")),
 }
+
+
+FACE_OVERRIDES = {"plane": {"prior_impl": "plane"}}
 
 
 def _face_frames():
@@ -241,31 +251,35 @@ def face_engines(request):
     from video_stream_segmenetation_tpu_torch.runtime import pipeline as TPL
     from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
 
-    name = request.param
-    jover, ckpt, (fd, lm) = FACE_RUNS[name]
+    run = request.param
+    name, _, extra = run.partition("+")
+    over = FACE_OVERRIDES.get(extra, {})
+    jover, ckpt, (fd, lm) = FACE_RUNS[run]
     je = JaxEngine(num_streams=FACE_S, statics=jax_preset(
-        name, use_fused_refine=True, **jover, **FACE_GEOM), rng_seed=0, donate_state=False)
+        name, use_fused_refine=True, **jover, **over, **FACE_GEOM), rng_seed=0,
+        donate_state=False)
     je.load_matting_params(ckpt)
     je.load_face_params(fd, lm)
     npt = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     kw = dict(params=bridge.load_quantized(npt(je.bundle.matte_params)),
-              face_params={"face": bridge.face_tree(npt(je.bundle.face_params)),
-                           "lmk": bridge.face_tree(npt(je.bundle.lmk_params))},
+              face_params={"face": bridge.float_tree(npt(je.bundle.face_params)),
+                           "lmk": bridge.float_tree(npt(je.bundle.lmk_params))},
               device="cpu")
     frames = _face_frames()
     jouts = _drive(je, frames)
-    te = Engine(FACE_S, preset(name, **FACE_GEOM), **kw)
+    te = Engine(FACE_S, preset(name, **over, **FACE_GEOM), **kw)
     touts = _drive(te, frames)
 
     # teacher-forced: the JAX state before each step, the JAX step's prior
-    tf = Engine(FACE_S, preset(name, **FACE_GEOM), **kw)
+    tf = Engine(FACE_S, preset(name, **over, **FACE_GEOM), **kw)
     real = TPL.face_subpath_compact
     step_t = {}
 
     def forced_face(*args, **kwargs):
         prior, has_prior, aff, has_upd, score = real(*args, **kwargs)
         j = jouts[step_t["t"]]
-        return (torch.tensor(np.asarray(j["face_prior_params"])),
+        key = "face_prior_plane" if "face_prior_plane" in j else "face_prior_params"
+        return (torch.tensor(np.asarray(j[key])),
                 torch.tensor(np.asarray(j["face_has_prior"])), aff, has_upd, score)
 
     def set_state(t):
@@ -299,15 +313,18 @@ def test_face_decisions_match_jax_engine(face_engines):
 def test_face_outputs_match_jax_engine(face_engines):
     """det_score within 1e-2 (bf16 face models, scores clear of the 0.6
     threshold by 0.04 or more), the prior scalars within one mask pixel
-    (the floor/ceil box conversion), the merged affine within 0.3 mask
-    pixels in translation and 1e-2 in its linear part."""
+    (the floor/ceil box conversion; the plane run has no scalars, its
+    plane is held through the teacher-forced steps), the merged affine
+    within 0.3 mask pixels in translation and 1e-2 in its linear part."""
     name, jouts, touts, _ = face_engines
     for j, g in zip(jouts, touts):
         js = np.asarray(j["det_score"])
         assert np.all((js == 0) | (np.abs(js - 0.6) > 0.04))
         np.testing.assert_allclose(g["det_score"].numpy(), js, rtol=0, atol=1e-2)
-        np.testing.assert_allclose(g["face_prior_params"].numpy(),
-                                   np.asarray(j["face_prior_params"]), rtol=0, atol=1.0)
+        assert ("face_prior_params" in g) == ("face_prior_params" in j)
+        if "face_prior_params" in g:
+            np.testing.assert_allclose(g["face_prior_params"].numpy(),
+                                       np.asarray(j["face_prior_params"]), rtol=0, atol=1.0)
         ja, ga = j["state"]["affine"], g["state"]["affine"]
         np.testing.assert_allclose(ga[:, [2, 5]], ja[:, [2, 5]], rtol=0, atol=0.3)
         np.testing.assert_allclose(ga[:, [0, 1, 3, 4]], ja[:, [0, 1, 3, 4]], rtol=0,

@@ -171,7 +171,7 @@ def test_face_prior_params_match(rng):
 
 @pytest.fixture(scope="module")
 def face_trees():
-    return {name: bridge.face_tree(jax.tree_util.tree_map(
+    return {name: bridge.float_tree(jax.tree_util.tree_map(
         np.asarray, restore_params(f"checkpoints/{name}")))
         for name in ("facefinder_128", "landmarknet_128", "facefinder", "landmarknet")}
 

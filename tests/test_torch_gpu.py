@@ -397,3 +397,133 @@ def test_plan_engines_on_card_run_their_kernels(card, name, over, counter, per_s
         assert TK.fused_nano_trunk_alpha.launches == before["alpha"]
     assert out["frame"].shape == (2, 160, 320, 3)
     assert bool(torch.isfinite(out["alpha"].float()).all())
+
+
+# ---- active: the composite kernel, the plane-prior refine, fused_refine ------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,w,mh,mw,bg_rows", [
+    (2, 80, 160, 32, 64, 2), (2, 720, 1280, 288, 512, 2), (3, 50, 70, 21, 33, 1)],
+    ids=["80x160", "720p", "ragged-broadcast-bg"])
+def test_composite_kernel_matches_plain(card, s, h, w, mh, mw, bg_rows):
+    """The fused composite equals its plain version (the matrix form, TF32
+    off) bit for bit: 720p, a small frame, and a ragged one whose rows are
+    not a multiple of 16 bytes, with one background for every stream."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    g = np.random.default_rng(7)
+    frames = torch.as_tensor(g.integers(0, 256, (s, h, w, 3), dtype=np.uint8), device=card)
+    bg = torch.as_tensor(g.integers(0, 256, (bg_rows, h, w, 3), dtype=np.uint8), device=card)
+    alpha = torch.as_tensor(g.random((s, mh, mw), dtype=np.float32), device=card)
+    alpha[0, : mh // 4] = 0.0
+    alpha[-1, -(mh // 4):] = 1.0
+    n = KC.fused_composite.launches
+    got = KC.fused_composite(frames, alpha, bg)
+    with pinned():
+        want = KC.fused_composite_plain(frames, alpha, bg)
+    torch.cuda.synchronize()
+    assert KC.fused_composite.launches == n + 1
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+def _plane(pp, has_prior, hw):
+    from video_stream_segmenetation_tpu_torch.ops.prior import prior_plane_from_params
+
+    return torch.where(has_prior[:, None, None], prior_plane_from_params(pp, hw),
+                       torch.zeros((), device=pp.device)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(40, 72), (288, 512), (37, 61)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_plane_refine_kernel_matches_plain(card, hw, out_dtype):
+    """The plane-prior form of the temporal refine against its plain
+    version: new_prev within 2e-5, the refined alpha within 2e-5 (f32) or
+    4e-3 (bf16), as the analytic form is held; one count in its own
+    counter, none in the analytic form's."""
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+
+    alpha, prev, affine, use_warp, init, guide, pp, has_prior, knobs = _refine_inputs(
+        card, h=hw[0], w=hw[1])
+    pp = pp * torch.tensor([hw[1] / 72, hw[0] / 40, hw[1] / 72, hw[0] / 40], device=card)
+    plane = _plane(pp, has_prior, hw)
+    n, n_a = TR.fused_temporal_refine_plane.launches, TR.fused_temporal_refine.launches
+    got_prev, got = TR.fused_temporal_refine_plane(alpha, prev, affine, use_warp, init, 0.3,
+                                                   guide, plane, has_prior, knobs,
+                                                   out_dtype=out_dtype)
+    yi, xi = separable_warp_indices(affine, hw)
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, torch.zeros_like(pp), has_prior)
+    want_prev, want = TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table,
+                                                     out_dtype, plane)
+    torch.cuda.synchronize()
+    assert TR.fused_temporal_refine_plane.launches == n + 1
+    assert TR.fused_temporal_refine.launches == n_a
+    assert got.dtype == out_dtype
+    assert (got_prev - want_prev).abs().max().item() <= 2e-5
+    tol = 2e-5 if out_dtype == torch.float32 else 4e-3
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(40, 72), (288, 512), (37, 61)])
+def test_fused_refine_kernel_matches_plain(card, hw):
+    """fused_refine (stages 5/7/8/9, the prior plane, f32 out) within 2e-5
+    of its plain version (exp/pow ulps)."""
+    alpha, _, _, _, _, guide, pp, has_prior, knobs = _refine_inputs(card, h=hw[0], w=hw[1])
+    pp = pp * torch.tensor([hw[1] / 72, hw[0] / 40, hw[1] / 72, hw[0] / 40], device=card)
+    plane = _plane(pp, has_prior, hw)
+    n = TR.fused_refine.launches
+    got = TR.fused_refine(alpha, guide, plane, has_prior, knobs)
+    want = TR.fused_refine_plain(alpha, guide, plane, TR.refine_table(knobs, has_prior))
+    torch.cuda.synchronize()
+    assert TR.fused_refine.launches == n + 1
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over,counts", [
+    ({}, {"analytic": 1}), ({"use_fused_composite": True}, {"analytic": 1, "composite": 1}),
+    ({"prior_impl": "plane"}, {"plane": 1}), ({"warp_impl": "exact"}, {"refine": 1})])
+def test_active_engine_on_card_runs_its_kernels(card, over, counts):
+    """active's four routes through Engine.process on the card (seeded
+    weights, 160x320 frames): each step launches its route's kernels once,
+    the others never."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+
+    eng = Engine(2, preset("active", frame_hw=(160, 320), mask_hw=(64, 128), fd_size=128,
+                           lmk_size=128, **over), seed=0)
+    eng.admit_all()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 160, 320, 3), dtype=np.uint8)
+    counters = {"analytic": TR.fused_temporal_refine, "plane": TR.fused_temporal_refine_plane,
+                "refine": TR.fused_refine, "composite": KC.fused_composite}
+    before = {k: c.launches for k, c in counters.items()}
+    for _ in range(2):
+        out = eng.process(frames)
+    for k, c in counters.items():
+        assert c.launches == before[k] + 2 * counts.get(k, 0), k
+    assert out["frame"].shape == (2, 160, 320, 3) and out["frame"].is_cuda
+    assert out["alpha"].dtype == torch.float32
+    assert bool(torch.isfinite(out["alpha"]).all())
+
+
+def test_cpu_tensors_take_plain_versions_of_the_active_kernels():
+    """The composite, the plane-prior refine and fused_refine on CPU tensors:
+    their plain versions, no launch counted."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+
+    counters = (KC.fused_composite, TR.fused_temporal_refine_plane, TR.fused_refine)
+    before = [c.launches for c in counters]
+    alpha, prev, affine, use_warp, init, guide, pp, has_prior, knobs = _refine_inputs("cpu")
+    plane = _plane(pp, has_prior, (40, 72))
+    got = TR.fused_refine(alpha, guide, plane, has_prior, knobs)
+    assert torch.equal(got, TR.fused_refine_plain(alpha, guide, plane,
+                                                  TR.refine_table(knobs, has_prior)))
+    TR.fused_temporal_refine_plane(alpha, prev, affine, use_warp, init, 0.3, guide, plane,
+                                   has_prior, knobs)
+    frames = torch.zeros((4, 80, 144, 3), dtype=torch.uint8)
+    assert torch.equal(KC.fused_composite(frames, alpha, frames + 7),
+                       KC.fused_composite_plain(frames, alpha, frames + 7))
+    assert [c.launches for c in counters] == before

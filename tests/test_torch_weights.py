@@ -9,7 +9,8 @@ Regenerate them with
 
 :func:`export` restores each checkpoint with the JAX package, quantizes
 the matting trunks with the reference's ``quantize_mattenet_hd`` (the
-port's ``bridge.load_quantized`` keeps what it serves), and writes one
+port's ``bridge.load_quantized`` keeps what it serves), keeps the float
+trees (the natural layout's MatteNet, the face models), and writes one
 compressed ``.npz`` a tree (``bridge.save_export``), plus two 720p frames
 of ``utils/clips.py::articulated_clip(features=True)``.  The test below
 re-exports into a temporary directory and holds every array against the
@@ -33,7 +34,8 @@ CKPT = Path(__file__).resolve().parents[1] / "checkpoints"
 TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1),
           ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4),
           ("mattenet_hd10", "full", 1), ("mattenet_hd10_lite", "light", 1))
-FACE = ("facefinder", "facefinder_128", "landmarknet", "landmarknet_128")
+# float trees: the natural layout's MatteNet and the face models
+FLOAT = ("mattenet", "facefinder", "facefinder_128", "landmarknet", "landmarknet_128")
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
 FRAMES_CLIP = dict(n_frames=8, hw=(720, 1280), seed=2, features=True)
@@ -55,8 +57,8 @@ def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True) -> list[Path]:
         q = quantize_mattenet_hd(model, restore_params(str(CKPT / name)))
         bridge.save_export(out / f"{name}.npz", bridge.load_quantized(_numpy(q)))
         written.append(out / f"{name}.npz")
-    for name in FACE:
-        tree = bridge.face_tree(_numpy(restore_params(str(CKPT / name))))
+    for name in FLOAT:
+        tree = bridge.float_tree(_numpy(restore_params(str(CKPT / name))))
         bridge.save_export(out / f"{name}.npz", tree)
         written.append(out / f"{name}.npz")
     if frames:
@@ -74,7 +76,7 @@ def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True) -> list[Path]:
 
 def test_committed_exports_reproduce(tmp_path):
     files = export(tmp_path)
-    assert len(files) == len(TRUNKS) + len(FACE) + 1
+    assert len(files) == len(TRUNKS) + len(FLOAT) + 1
     for f in files:
         committed = bridge.WEIGHTS_DIR / f.name
         with np.load(f, allow_pickle=False) as a, np.load(committed, allow_pickle=False) as b:
@@ -97,6 +99,10 @@ def test_loaded_exports_are_served_trees():
         assert set(w["face_params"]) == {"face", "lmk"}
         assert w["face_params"]["face"]["params"]["ConvBN_0"]["Conv_0"]["kernel"].shape \
             == (3, 3, 3, 32)
+    w = bridge.trained_weights(preset("active"))
+    assert w["params"]["params"]["Conv_2"]["kernel"].shape == (1, 1, 16, 1)
+    assert w["params"]["params"]["MobileEncoder_0"]["ConvBN_0"]["Conv_0"]["kernel"].dtype \
+        == np.float32
     frames, alpha = bridge.load_frames()
     assert frames.shape == (2, 720, 1280, 3) and frames.dtype == np.uint8
     assert alpha.shape == (2, 288, 512) and 0 < alpha.mean() < 255

@@ -7,8 +7,10 @@ and never JAX or the reference package.  Hand-written CUDA kernels for
 Hopper (``csrc/``) replace the reference's Pallas kernels; each sits beside
 its plain PyTorch version in ``kernels/``.
 
-Served so far: the ``fast_int8_pico`` preset with the face path off,
-through :class:`service.engine.Engine`.
+Served through :class:`service.engine.Engine`: the reference's default
+``active`` preset (``PipelineStatics()``) on its kernel routes, the
+``fast_int8*`` presets and the ``multiclass_fast*`` presets
+(``runtime/presets.py``).
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,8 @@ export``, which restores the checkpoints with the reference).
   the port's own quantizer.
 * :func:`load_quantized`: the reference's already-quantized dict
   (``quantize_mattenet_hd`` output) -> the same serving dict.
-* :func:`face_tree`: a reference FaceFinder / LandmarkNet float tree ->
-  the numpy tree the port's face models load.
+* :func:`float_tree`: a reference flax float tree (MatteNet, FaceFinder,
+  LandmarkNet) -> the numpy tree the port's float models load.
 * :func:`load_export` / :func:`save_export`: one tree <-> one ``.npz``
   (``np.load(..., allow_pickle=False)``; numpy is all they need).
 * :func:`trained_weights`: the committed trained weights a preset serves,
@@ -72,9 +72,9 @@ def load_quantized(q: dict) -> dict:
     return out
 
 
-def face_tree(tree: dict) -> dict:
-    """A reference FaceFinder / LandmarkNet tree ``{"params",
-    "batch_stats"}`` -> the same tree with f32 numpy leaves."""
+def float_tree(tree: dict) -> dict:
+    """A reference flax float tree ``{"params", "batch_stats"}`` (MatteNet,
+    FaceFinder, LandmarkNet) -> the same tree with f32 numpy leaves."""
     return {k: _numpy_tree(v) for k, v in tree.items() if k in ("params", "batch_stats")}
 
 
@@ -108,21 +108,28 @@ def load_export(path) -> dict:
     return out
 
 
-# the checkpoints by plan (the reference's names), one class and K=4
+# the float MatteNet of the natural layout (the active preset)
+MATTENET_EXPORT = "mattenet"
+# the int8 checkpoints by plan (the reference's names), one class and K=4
 EXPORTS = {"full": "mattenet_hd10", "light": "mattenet_hd10_lite",
            "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico"}
 MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc"}
 
 
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
-    """The committed trained weights of a preset: ``{"params": the int8
-    serving dict of statics.matting_decoder (``EXPORTS[plan]`` for one
-    class, ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face",
-    "lmk"}}`` (face models keyed by geometry as the reference's
-    checkpoints are: no suffix at fd 256 / lmk 192, else '_<size>')."""
+    """The committed trained weights of a preset: ``{"params": the float
+    MatteNet tree (``MATTENET_EXPORT``) for the natural layout's
+    ``matting_input='resized'``, else the int8 serving dict of
+    statics.matting_decoder (``EXPORTS[plan]`` for one class,
+    ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face", "lmk"}}``
+    (face models keyed by geometry as the reference's checkpoints are: no
+    suffix at fd 256 / lmk 192, else '_<size>')."""
     d = Path(weights_dir)
-    plan = statics.matting_decoder
-    matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]
+    if statics.matting_input == "resized":
+        matting = MATTENET_EXPORT
+    else:
+        plan = statics.matting_decoder
+        matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]
     fd_suf = "" if statics.fd_size == 256 else f"_{statics.fd_size}"
     lmk_suf = "" if statics.lmk_size == 192 else f"_{statics.lmk_size}"
     return {

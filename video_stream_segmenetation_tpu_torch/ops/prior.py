@@ -1,6 +1,7 @@
-"""The soft elliptical face prior: its 4 scalars from a detector box and
-its plane rasterised from them (port of ``ops/prior.py::
-face_prior_params`` and ``prior_plane_from_params``)."""
+"""The soft elliptical face prior: its 4 scalars from a detector box, its
+plane rasterised from them, and the plane from the box (port of
+``ops/prior.py::face_prior_params``, ``prior_plane_from_params`` and
+``face_prior_mask``)."""
 
 from __future__ import annotations
 
@@ -49,3 +50,10 @@ def face_prior_params(box_video: torch.Tensor, video_hw, mask_hw) -> torch.Tenso
     rx = torch.clamp((x1 - x0) * 0.56, min=1e-6)
     ry = torch.clamp((y1 - y0) * 0.70, min=1e-6)
     return torch.stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0, rx, ry], dim=-1)
+
+
+def face_prior_mask(box_video: torch.Tensor, video_hw, mask_hw) -> torch.Tensor:
+    """Detector box ``[S, 4]`` in video pixels -> the prior plane ``[S, mh,
+    mw]`` (facePriorMask, frameProcessorTest.ts:697-741): the reference's
+    per-pixel formula on the box's scalars, as its two forms share it."""
+    return prior_plane_from_params(face_prior_params(box_video, video_hw, mask_hw), mask_hw)

@@ -1,6 +1,7 @@
 """Bilinear resizes with explicit coordinate conventions (port of
 ``ops/resize.py``): interpolation matrices, the gather and matrix forms of
-the separable resize, and the ROI crop of the face path.
+the separable resize, and the gather and matrix forms of the face path's
+ROI crop.
 
 ``half_pixel``: src = (dst + 0.5) * in/out - 0.5, taps clamped to the edge
 and weights clipped into [0, 1] (Canvas2D drawImage / patched ONNX Resize).
@@ -56,17 +57,23 @@ def interp_matrix(out_size: int, in_size: int, method: str, device="cpu") -> tor
     return torch.tensor(_interp_matrix(out_size, in_size, method), device=device)
 
 
-def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, method: str):
+def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, method: str,
+                        convert=None):
+    """Two-tap resize along ``axis``; ``convert`` (if given) is applied to
+    what the gathers take, before the blend."""
+    convert = convert or (lambda t: t)
     in_size = x.shape[axis]
     if in_size == out_size and method != "half_pixel":
-        return x
+        return convert(x)
     i0, i1, w1 = _linear_taps(out_size, in_size, method)
     dev = x.device
-    lo = torch.index_select(x, axis, torch.as_tensor(i0, dtype=torch.long, device=dev))
-    hi = torch.index_select(x, axis, torch.as_tensor(i1, dtype=torch.long, device=dev))
+    lo = convert(torch.index_select(x, axis, torch.as_tensor(i0, dtype=torch.long,
+                                                             device=dev)))
+    hi = convert(torch.index_select(x, axis, torch.as_tensor(i1, dtype=torch.long,
+                                                             device=dev)))
     shape = [1] * x.ndim
     shape[axis] = out_size
-    w = torch.as_tensor(w1, dtype=x.dtype, device=dev).reshape(shape)
+    w = torch.as_tensor(w1, dtype=lo.dtype, device=dev).reshape(shape)
     return lo * (1 - w) + hi * w
 
 
@@ -80,12 +87,24 @@ def resize_bilinear(img: torch.Tensor, out_hw, method: str = "asymmetric",
     return _resize_axis_linear(out, h_axis + 1, out_hw[1], method)
 
 
+def resize_frames_u8(frames_u8: torch.Tensor, out_hw, method: str = "asymmetric"):
+    """:func:`resize_bilinear` of ``frames_u8 / 255`` (``[..., H, W, C]`` u8
+    -> f32), bit for bit, with the division applied to the rows the first
+    pass gathers: the full-resolution f32 frames are never made."""
+    h_axis = frames_u8.ndim - 3
+    rows = _resize_axis_linear(frames_u8, h_axis, out_hw[0], method,
+                               convert=lambda t: t.to(torch.float32) / 255.0)
+    return _resize_axis_linear(rows, h_axis + 1, out_hw[1], method)
+
+
 def resize_bilinear_mxu(img: torch.Tensor, out_hw, method: str = "asymmetric",
-                        channel_last: bool = True) -> torch.Tensor:
-    """The same taps as :func:`resize_bilinear`, as two f32 interpolation
-    products ``A_h @ img @ A_w^T`` (port of ``resize_bilinear_mxu`` at its
-    default HIGHEST precision; f32 products need TF32 off, which the
-    engine pins for its steps, runtime/precision.py)."""
+                        channel_last: bool = True, bf16_pass: bool = False) -> torch.Tensor:
+    """The same taps as :func:`resize_bilinear`, as two interpolation
+    products ``A_h @ img @ A_w^T`` (port of ``resize_bilinear_mxu``): f32,
+    the reference's HIGHEST precision (f32 products need TF32 off, which
+    the engine pins for its steps, runtime/precision.py); with
+    ``bf16_pass`` the TPU's DEFAULT precision, one bf16 pass: each
+    product's operands rounded to bf16, its sums and result f32."""
     h_axis = img.ndim - (3 if channel_last else 2)
     in_h, in_w = img.shape[h_axis], img.shape[h_axis + 1]
     dev = img.device
@@ -93,11 +112,48 @@ def resize_bilinear_mxu(img: torch.Tensor, out_hw, method: str = "asymmetric",
     a_w = interp_matrix(out_hw[1], in_w, method, device=dev)
     x = img if img.is_floating_point() else img.to(torch.float32)
     a_h, a_w = a_h.to(x.dtype), a_w.to(x.dtype)
+    rnd = (lambda t: t.to(torch.bfloat16).to(t.dtype)) if bf16_pass else (lambda t: t)
     if channel_last:
-        x = torch.einsum("oh,...hwc->...owc", a_h, x)
-        return torch.einsum("pw,...hwc->...hpc", a_w, x)
-    x = torch.einsum("oh,...hw->...ow", a_h, x)
-    return torch.einsum("pw,...hw->...hp", a_w, x)
+        x = torch.einsum("oh,...hwc->...owc", rnd(a_h), rnd(x))
+        return torch.einsum("pw,...hwc->...hpc", rnd(a_w), rnd(x))
+    x = torch.einsum("oh,...hw->...ow", rnd(a_h), rnd(x))
+    return torch.einsum("pw,...hw->...hp", rnd(a_w), rnd(x))
+
+
+def crop_and_resize(img: torch.Tensor, box: torch.Tensor, out_hw,
+                    fill: float = 0.0) -> torch.Tensor:
+    """Crop ``box [K, 4]`` = (x0, y0, x1, y1) float pixels out of ``img
+    [K, H, W, C]`` and resample it to ``out_hw`` with half-pixel bilinear
+    taps as two-tap gathers (port of ``crop_and_resize``, batched over K as
+    the reference's ``vmap``): edge-clamped taps, samples outside the
+    frame read ``fill``."""
+    k, h, w, _ = img.shape
+    out_h, out_w = out_hw
+    dev = img.device
+    bw = torch.clamp(box[:, 2] - box[:, 0], min=1e-6)[:, None]
+    bh = torch.clamp(box[:, 3] - box[:, 1], min=1e-6)[:, None]
+    ar_h = torch.arange(out_h, dtype=torch.float32, device=dev)
+    ar_w = torch.arange(out_w, dtype=torch.float32, device=dev)
+    ys = box[:, 1:2] + (ar_h + 0.5) * (bh / out_h) - 0.5  # [K, out_h]
+    xs = box[:, 0:1] + (ar_w + 0.5) * (bw / out_w) - 0.5  # [K, out_w]
+
+    def taps(coords, size):
+        c0 = torch.floor(coords)
+        frac = (coords - c0).to(img.dtype)
+        i0 = torch.clamp(c0, 0, size - 1).long()
+        i1 = torch.clamp(c0 + 1, 0, size - 1).long()
+        return i0, i1, frac, (coords >= -0.5) & (coords <= size - 0.5)
+
+    yi0, yi1, fy, vy = taps(ys, h)
+    xi0, xi1, fx, vx = taps(xs, w)
+    kk = torch.arange(k, device=dev)[:, None]
+    row = img[kk, yi0] * (1 - fy)[..., None, None] + img[kk, yi1] * fy[..., None, None]
+    ku = kk[:, :, None]
+    uu = torch.arange(out_h, device=dev)[None, :, None]
+    out = (row[ku, uu, xi0[:, None, :]] * (1 - fx)[:, None, :, None]
+           + row[ku, uu, xi1[:, None, :]] * fx[:, None, :, None])
+    valid = (vy[:, :, None] & vx[:, None, :])[..., None]
+    return torch.where(valid, out, torch.full((), fill, dtype=img.dtype, device=dev))
 
 
 def crop_and_resize_mxu(img: torch.Tensor, box: torch.Tensor, out_hw,

@@ -1,5 +1,6 @@
-"""Affine inversion and the separable nearest-warp indices (port of
-``ops/warp.py::invert_affine`` and of the index preparation at
+"""Affine inversion, the rotation-aware nearest warp and the separable
+nearest-warp indices (port of ``ops/warp.py::invert_affine`` and
+``warp_affine_nearest``, and of the index preparation at
 ``kernels/refine_fused.py:633-647``)."""
 
 from __future__ import annotations
@@ -20,6 +21,28 @@ def invert_affine(affine: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     itx = -(ia11 * tx + ia12 * ty)
     ity = -(ia21 * tx + ia22 * ty)
     return torch.stack([ia11, ia12, itx, ia21, ia22, ity], dim=-1)
+
+
+def warp_affine_nearest(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
+    """Warp ``src [S, H, W]`` by the forward ``affine [S, 6]``: each output
+    (x, y) samples src at the JS Math.round (floor(v + 0.5)) of the inverse
+    affine's image of (x, y), the full 2-D map with its rotation
+    (warpAffineNearest, frameProcessorTest.ts:335-353); out of range reads
+    0."""
+    h, w = src.shape[-2:]
+    inv = invert_affine(affine)
+    ia11, ia12, itx, ia21, ia22, ity = (inv[:, i, None, None] for i in range(6))
+    x = torch.arange(w, dtype=src.dtype, device=src.device)[None, :]
+    y = torch.arange(h, dtype=src.dtype, device=src.device)[:, None]
+    sx = ia11 * x + ia12 * y + itx
+    sy = ia21 * x + ia22 * y + ity
+    xi = torch.floor(sx + 0.5).to(torch.int64)
+    yi = torch.floor(sy + 0.5).to(torch.int64)
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    flat = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+    gathered = torch.gather(src.reshape(src.shape[0], -1), 1,
+                            flat.reshape(src.shape[0], -1)).reshape(src.shape)
+    return torch.where(valid, gathered, torch.zeros((), dtype=src.dtype, device=src.device))
 
 
 def separable_warp_indices(affine: torch.Tensor, hw: tuple[int, int]):

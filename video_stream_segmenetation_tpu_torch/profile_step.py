@@ -1,14 +1,15 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro|mc_pico|mc|full|lite ...]
+        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active ...]
 
-For each configuration (default: all seven) it builds Engine(S, preset):
+For each configuration (default: all eight) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
-weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full`` and ``lite``
-are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
-multiclass_fast, fast_int8 and fast_int8_lite as their presets stand with
-the committed trained weights and frames.  It warms the engine up, then
+weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite`` and
+``active`` are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
+multiclass_fast, fast_int8, fast_int8_lite and active as their presets
+stand with the committed trained weights and frames.  It warms the engine
+up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
     the trunk -- for micro its convolutions and its decoder levels plus
@@ -17,7 +18,9 @@ the committed trained weights and frames.  It warms the engine up, then
     upsample, guide, face subpath, refine kernel, packed composite,
     unpack; for the multi-class presets: the K=4 trunk, the per-class
     upsample and softmax, the simplex EMA, the per-class composite and its
-    blurred guide), and
+    blurred guide; for active: the f32 conversion and gather resize, the
+    float MatteNet, the guide, the face subpath on the frames, the refine
+    kernel, the plain composite, and the composite kernel beside it), and
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
@@ -41,9 +44,12 @@ CONFIGS = {
     "mc": ("multiclass_fast", {}, True),
     "full": ("fast_int8", {}, True),
     "lite": ("fast_int8_lite", {}, True),
+    "active": ("active", {}, True),
 }
-# a stage timed apart that another stage's time already holds
+# a stage timed apart that another stage's time already holds, and one
+# that the configuration could run instead of another (neither is summed)
 INSIDE = "  (inside the composite) "
+INSTEAD = "  (instead of the plain composite) "
 
 
 def _event_ms(fn, iters=5):
@@ -103,7 +109,6 @@ def _trunk_stages(model, x0, stages):
 
 def profile(config: str, s: int, steps: int, smi: str) -> None:
     from video_stream_segmenetation_tpu_torch import bridge
-    from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
     from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
@@ -111,7 +116,6 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     name, overrides, trained = CONFIGS[config]
     st = preset(name, **overrides)
     fh, fw = st.frame_hw
-    blk = st.s2d_block
     if trained:
         eng = Engine(s, st, **bridge.trained_weights(st))
         clip, _ = bridge.load_frames()
@@ -126,30 +130,81 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     dev = eng.device
     out_dtype = torch.bfloat16 if st.refined_dtype == "bf16" else torch.float32
     stages = {}
+    trunk_kernels = []
     with pinned():  # as the engine's step runs
         stages["frames host->device"], ft = _event_ms(
             lambda: torch.as_tensor(frames, device=dev))
-        stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
-        stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(
-            lambda: eng.model.stem(fp))
-        logits, trunk_kernels = _trunk_stages(eng.model, x0, stages)
-        if st.num_classes > 1:
-            _multiclass_stages(eng, logits, fp, stages)
+        if st.frame_layout == "natural":
+            _natural_stages(eng, ft, stages)
         else:
-            _refine_stages(eng, logits, fp, stages, out_dtype)
-    total = sum(v for k, v in stages.items() if not k.startswith(INSIDE))
+            trunk_kernels = _packed_stages(eng, ft, stages, out_dtype)
+    total = sum(v for k, v in stages.items() if not k.startswith((INSIDE, INSTEAD)))
     print(f"[{config}] {name} {overrides or ''} stage times, S={s}, CUDA events, "
           f"mean of 5 ({smi}):", flush=True)
     for k, v in stages.items():
         print(f"  {k:56s} {v:8.3f} ms  {100 * v / total:5.1f} %")
     print(f"  {'sum':56s} {total:8.3f} ms")
-    what = "micro_decoder" if eng.model.decoder == "micro" else "trunk"
+    what = "micro_decoder" if getattr(eng.model, "decoder", None) == "micro" else "trunk"
     for i, (kernel, ms) in enumerate(trunk_kernels):
         print(f"    {what} launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
               "(torch.profiler, one call)")
     _profile_steps(eng, frames, steps, config)
     del eng
     torch.cuda.empty_cache()
+
+
+def _packed_stages(eng, ft, stages, out_dtype):
+    """The s2d configurations' step: pack, stem, trunk, then the
+    multi-class or the single-class tail.  Returns the trunk's kernels."""
+    from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
+
+    st = eng.statics
+    blk = st.s2d_block
+    stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
+    stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(lambda: eng.model.stem(fp))
+    logits, trunk_kernels = _trunk_stages(eng.model, x0, stages)
+    if st.num_classes > 1:
+        _multiclass_stages(eng, logits, fp, stages)
+    else:
+        _refine_stages(eng, logits, fp, stages, out_dtype)
+    return trunk_kernels
+
+
+def _natural_stages(eng, ft, stages):
+    """active's step after the frames' copy: f32 and the gather resize, the
+    float MatteNet, the guide, the face subpath on the frames, the refine
+    kernel, the plain composite (and the composite kernel, which
+    use_fused_composite=True would run instead)."""
+    from video_stream_segmenetation_tpu_torch.kernels.composite_fused import fused_composite
+    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
+    from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
+    from video_stream_segmenetation_tpu_torch.ops.resize import resize_frames_u8
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
+
+    st = eng.statics
+    s = ft.shape[0]
+    mh, mw = st.mask_hw
+    dev = eng.device
+    stages["f32 + asymmetric gather resize to the mask"], small = _event_ms(
+        lambda: resize_frames_u8(ft, (mh, mw), "asymmetric"))
+    stages["MatteNet (bf16)"], out = _event_ms(lambda: eng.model(small))
+    alpha = out["alpha"].contiguous()
+    stages["guide floor(small*255+0.5), planar u8"], guide = _event_ms(
+        lambda: torch.floor(small * 255.0 + 0.5).to(torch.uint8).permute(0, 3, 1, 2)
+        .contiguous())
+    gate = torch.ones((s,), dtype=torch.bool, device=dev)
+    fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+    stages[f"face subpath on the frames (K={-(-s // st.lmk_interval)} of {s} streams)"], \
+        face = _event_ms(lambda: face_subpath_compact(eng.face_models, ft, fidx, gate, st))
+    prior, has_prior = face[0].contiguous(), face[1]
+    stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
+        alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
+        eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
+        out_dtype=torch.float32))
+    stages["plain composite (bf16-pass upsample, f32 blend)"], _ = _event_ms(
+        lambda: natural_composite(ft, a, eng.backgrounds))
+    stages[f"{INSTEAD}composite kernel"], _ = _event_ms(
+        lambda: fused_composite(ft, a, eng.backgrounds))
 
 
 def _multiclass_stages(eng, logits, fp, stages):

@@ -9,6 +9,7 @@ Port of ``video_stream_segmenetation_tpu/runtime/config.py``: the
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -75,13 +76,12 @@ def default_knobs(
 class PipelineStatics:
     """Pipeline geometry and constants (the reference's tier 1).
 
-    Defaults are the reference's.  Only the fields the port reads or
-    refuses are here.  The port's steps are the reference's ``fast_int8_*``
-    and ``multiclass_fast*`` paths and have no switches for what those
-    presets select (native int8 matting of s2d-packed frames, nearest-u8
-    planar guide, separable warp, the fused temporal refine with the
-    analytic prior); runtime/pipeline.py::check_statics refuses what they
-    do not serve.
+    Defaults are the reference's: ``PipelineStatics()`` is its ``active``
+    preset, the float MatteNet over resized natural-layout frames.  Only
+    the fields the port reads or refuses are here; the port serves that
+    natural path and the reference's ``fast_int8_*`` and
+    ``multiclass_fast*`` s2d paths, and runtime/pipeline.py::check_statics
+    refuses every value neither serves.
     """
 
     frame_hw: tuple[int, int] = (720, 1280)
@@ -91,6 +91,8 @@ class PipelineStatics:
     lmk_interval: int = 6  # LANDMARK_INTERVAL (main.ts:10)
     warp_gain: float = 0.7  # WARP_GAIN (main.ts:12)
     warp_blend_weight: float = 0.3  # WARP_BLEND_WEIGHT (frameProcessorTest.ts:108)
+    # 'lerp' (wb*warped + (1-wb)*cur); the port refuses 'max'
+    warp_blend_mode: str = "lerp"
     face_score_thresh: float = 0.6  # FACE_SCORE_THRESH (:35)
     lmk_score_thresh: float = 0.3  # (:143)
     roi_pad: float = 0.25  # cropFaceROI pad (:139)
@@ -98,20 +100,52 @@ class PipelineStatics:
     background: str = "image"  # the port serves 'image' only
     face_path: bool = True
     face_tracking: str = "landmarks"  # the port serves 'landmarks' only
+    # 'ema'; the port refuses 'hole_fill' and 'none'
+    temporal_filter: str = "ema"
     ema_adapt_default: float = 0.0
+    # the port serves morphology on only
+    morphology: bool = True
     # cadence compaction: the face models run on the <= face_batch streams
     # whose cadence fires (0 = ceil(S / lmk_interval)); the port serves
     # face_compact=True only
     face_compact: bool = True
     face_batch: int = 0
-    # face source: 'guide' (the mask-resolution planar u8 guide; the only
-    # one the port serves) or 'frames'
+    # prev-alpha warp: 'separable' (scale + translate, inside the fused
+    # temporal refine) or 'exact' (the rotation-aware 2-D nearest warp,
+    # then the EMA, then the fused refine of stages 5/7/8/9)
+    warp_impl: str = "separable"
+    # the natural composite's alpha upsample: 'mxu' (planar interpolation
+    # products) only; its precision 'fast' (the reference's one bf16 pass)
+    # or 'exact' (f32)
+    upsample_impl: str = "mxu"
+    upsample_precision: str = "fast"
+    # the refine kernels: 'auto' or True (the kernel on the card, its
+    # plain version on the CPU); the port refuses False
+    use_fused_refine: Any = "auto"
+    # the face prior on the fused temporal refine: 'auto' (4 scalars, the
+    # ellipse rasterised in the kernel) or 'plane' (rendered [S, H, W])
+    prior_impl: str = "auto"
+    # the natural layout's fused composite kernel: True, or False / 'auto'
+    # (the plain upsample and blend, as the reference's 'auto')
+    use_fused_composite: Any = False
+    # the letterbox of the face path and the preprocess resize: 'gather'
+    # (two-tap gathers) or 'mxu' (interpolation products); the ROI crop
+    # likewise.  Natural frames take 'gather', s2d frames 'mxu'
+    resize_impl: str = "gather"
+    crop_impl: str = "gather"
+    # matting input: 'resized' (frames resized to the mask, the float
+    # MatteNet) or 'native' (the int8 MatteNetHD on s2d-packed frames)
+    matting_input: str = "resized"
+    # face source: 'frames' (the full-resolution u8 frames; the natural
+    # layout) or 'guide' (the mask-resolution planar u8 guide; s2d)
     face_input: str = "frames"
+    # the bilateral guide: 'bilinear' (the resized frame, u8-rounded;
+    # natural) or 'nearest_u8' (lanes of the packed frames; s2d)
+    guide_impl: str = "bilinear"
     s2d_block: int = 5
     # the port serves 'pico', 'micro', 'light' and 'full' with one class,
-    # 'pico' and 'nano' with K
+    # 'pico' and 'nano' with K (s2d only)
     matting_decoder: str = "full"
-    prior_impl: str = "auto"  # 'auto' = analytic; the port refuses 'plane'
     refine_alpha_src: str = "full"  # the port refuses 'lowres'
     guide_kernel_unfold: bool = False  # the port refuses True
     refined_dtype: str = "f32"  # refined alpha: 'f32' or 'bf16'
@@ -122,8 +156,8 @@ class PipelineStatics:
     num_classes: int = 1
     class_effects: tuple = ()
     upsample_method: str = "half_pixel"  # the port serves 'half_pixel' only
-    # the port serves the packed layout ('s2d') and the int8 matting graph
-    # only; the reference's defaults select its float natural-layout path
+    # 'natural' [S, H, W, 3] with the bf16 MatteNet, or 's2d'
+    # [S, H/b, W/b, b*b*3] with the int8 MatteNetHD
     frame_layout: str = "natural"
     matting_precision: str = "bf16"
     # the int8 graph's lowerings (models/quantized.py::QuantizedMatteNetHD):

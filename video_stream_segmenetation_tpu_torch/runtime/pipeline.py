@@ -1,19 +1,26 @@
 """The per-batch serving steps (port of ``runtime/pipeline.py::make_step``):
-the single-class step of the ``fast_int8``, ``fast_int8_lite``,
-``fast_int8_pico`` and ``fast_int8_micro`` presets, face path on or off,
-and the multi-class step of ``multiclass_fast_pico`` and
-``multiclass_fast`` (:func:`make_multiclass_step`).  The single-class
-step:
+the single-class step of ``active`` (the natural layout) and of the
+``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico`` and
+``fast_int8_micro`` presets (the s2d layout), face path on or off, and the
+multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
+(:func:`make_multiclass_step`).  The single-class step:
 
-  packed u8 frames [S, H/b, W/b, b*b*3]
-    -> int8 MatteNetHD (bf16 stem, the full, light, pico or micro trunk,
-       int8 or bf16 alpha head, x4 upsample, sigmoid)
-    -> planar u8 guide (lane selection of the packed frames)
-    -> face subpath on the guide, compacted to the <= K streams whose
-       cadence fires: letterbox -> FaceFinder -> best box -> prior
-       scalars -> ROI crop -> LandmarkNet -> Procrustes affine
-    -> fused temporal refine kernel (stages 3-9, analytic prior)
-    -> packed composite over the background
+  natural u8 frames [S, H, W, 3] -> f32 0..1 and the asymmetric gather
+    resize to the mask -> bf16 MatteNet, and the planar u8 guide
+    floor(small*255+0.5);
+  or packed u8 frames [S, H/b, W/b, b*b*3] -> int8 MatteNetHD (bf16 stem,
+    trunk kernel, x4 upsample, sigmoid), and the planar u8 guide as lanes
+    of the packed frames;
+    -> face subpath, compacted to the <= K streams whose cadence fires,
+       on the full-resolution frames (frame coordinates) or the guide
+       (mask coordinates): letterbox -> FaceFinder -> best box -> prior
+       (4 scalars or the rendered plane) -> ROI crop -> LandmarkNet ->
+       Procrustes affine
+    -> warp_impl='separable': the fused temporal refine kernel (stages
+       3-9, the analytic or the plane prior); 'exact' (natural): the 2-D
+       nearest warp and the EMA, then the fused refine kernel (5/7/8/9)
+    -> natural: the fused composite kernel (use_fused_composite=True) or
+       the planar upsample and blend; s2d: the packed composite
     -> affine low-pass with the face path's updates
 """
 
@@ -24,9 +31,16 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
-    fused_temporal_refine,
+from video_stream_segmenetation_tpu_torch.kernels.composite_fused import (
+    ROW_BLOCK,
+    fused_composite,
 )
+from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
+    fused_refine,
+    fused_temporal_refine,
+    fused_temporal_refine_plane,
+)
+from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
 from video_stream_segmenetation_tpu_torch.ops.detect import best_box_decode
 from video_stream_segmenetation_tpu_torch.ops.geometry import (
     affine_from_landmarks,
@@ -39,12 +53,16 @@ from video_stream_segmenetation_tpu_torch.ops.layout import (
     guide_from_s2d,
     multiclass_composite_s2d,
 )
-from video_stream_segmenetation_tpu_torch.ops.prior import face_prior_params
+from video_stream_segmenetation_tpu_torch.ops.prior import face_prior_mask, face_prior_params
 from video_stream_segmenetation_tpu_torch.ops.resize import (
+    crop_and_resize,
     crop_and_resize_mxu,
+    resize_bilinear,
     resize_bilinear_mxu,
+    resize_frames_u8,
 )
-from video_stream_segmenetation_tpu_torch.ops.temporal import affine_lowpass
+from video_stream_segmenetation_tpu_torch.ops.temporal import affine_lowpass, temporal_ema
+from video_stream_segmenetation_tpu_torch.ops.warp import warp_affine_nearest
 from video_stream_segmenetation_tpu_torch.runtime.config import (
     EMA_ADAPT_T0,
     EMA_ADAPT_T1,
@@ -55,50 +73,83 @@ from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
 
 # (field, the only value the port serves) -- anything else is refused
 _SERVED = (
-    ("frame_layout", "s2d"),
-    ("matting_precision", "int8"),
     ("upsample_method", "half_pixel"),
     ("background", "image"),
     ("face_tracking", "landmarks"),
     ("refine_alpha_src", "full"),
     ("guide_kernel_unfold", False),
     ("affine_mode", "exact"),
+    ("temporal_filter", "ema"),
+    ("warp_blend_mode", "lerp"),
+    ("morphology", True),
+    ("upsample_impl", "mxu"),
 )
+# ... by frame layout: the int8 MatteNetHD over packed frames, or the
+# float MatteNet over resized natural frames
+_SERVED_LAYOUT = {
+    "s2d": (("matting_input", "native"), ("matting_precision", "int8"),
+            ("warp_impl", "separable"), ("upsample_precision", "fast")),
+    "natural": (("matting_input", "resized"), ("matting_precision", "bf16"),
+                ("resize_impl", "gather"), ("refined_dtype", "f32")),
+}
+# ... the single-class step's bilateral guide
+_SERVED_GUIDE = {"s2d": ("guide_impl", "nearest_u8"), "natural": ("guide_impl", "bilinear")}
 # ... and, with the face path on
-_SERVED_FACE = (
-    ("face_compact", True),
-    ("face_input", "guide"),
+_SERVED_FACE = {
+    "s2d": (("face_compact", True), ("face_input", "guide"), ("crop_impl", "mxu"),
+            ("resize_impl", "mxu")),
+    "natural": (("face_compact", True), ("face_input", "frames"), ("crop_impl", "gather")),
+}
+# (field, the values the port serves)
+_ALLOWED = (
+    ("prior_impl", ("auto", "plane")),
+    ("use_fused_refine", ("auto", True)),
+    ("use_fused_composite", (False, True, "auto")),
+    ("refined_dtype", ("f32", "bf16")),
+    ("warp_impl", ("separable", "exact")),
+    ("upsample_precision", ("fast", "exact")),
 )
+_ALLOWED_S2D = (
+    ("int8_conv_impl", ("xla", "pallas")),
+    ("int8_head_impl", ("int8", "bf16")),
+)
+
+
+def _refuse(field, got, want, suffix=""):
+    raise NotImplementedError(f"{field}={got!r}: the torch port serves {field}={want!r} "
+                              f"only{suffix}")
 
 
 def check_statics(statics: PipelineStatics) -> None:
     """Refuse what the port's steps do not serve."""
     multiclass = statics.num_classes > 1
+    layout = statics.frame_layout
     if multiclass:
-        served = _SERVED + (("face_path", False),)
+        served = ((("frame_layout", "s2d"), ("face_path", False)) + _SERVED
+                  + _SERVED_LAYOUT["s2d"])
+    elif layout not in _SERVED_LAYOUT:
+        _refuse("frame_layout", layout, tuple(_SERVED_LAYOUT))
     else:
-        served = _SERVED + (_SERVED_FACE if statics.face_path else ())
+        served = (_SERVED + _SERVED_LAYOUT[layout] + (_SERVED_GUIDE[layout],)
+                  + (_SERVED_FACE[layout] if statics.face_path else ()))
+    suffix = f" with num_classes={statics.num_classes}" if multiclass else ""
     for field, want in served:
         got = getattr(statics, field)
-        if got != want:
-            raise NotImplementedError(
-                f"{field}={got!r}: the torch port serves {field}={want!r} only"
-                + (f" with num_classes={statics.num_classes}" if multiclass else ""))
-    decoders = ("pico", "nano") if multiclass else ("pico", "micro", "light", "full")
+        if got != want or type(got) is not type(want):
+            _refuse(field, got, want, suffix)
+    allowed = _ALLOWED
+    if layout == "s2d":
+        decoders = ("pico", "nano") if multiclass else ("pico", "micro", "light", "full")
+        allowed += (("matting_decoder", decoders),) + _ALLOWED_S2D
     if multiclass:
         if len(statics.class_effects) != statics.num_classes:
             raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
                              f"{statics.num_classes} classes")
         effect_algebra(statics.class_effects)
-    for field, allowed in (("matting_decoder", decoders),
-                           ("prior_impl", ("auto",)),
-                           ("int8_conv_impl", ("xla", "pallas")),
-                           ("int8_head_impl", ("int8", "bf16")),
-                           ("refined_dtype", ("f32", "bf16"))):
+    for field, values in allowed:
         got = getattr(statics, field)
-        if got not in allowed:
-            raise NotImplementedError(
-                f"{field}={got!r}: the torch port serves {allowed} only")
+        if not any(got == v and type(got) is type(v) for v in values):
+            _refuse(field, got, values)
 
 
 @dataclasses.dataclass
@@ -109,31 +160,41 @@ class FaceModels:
     lmk: torch.nn.Module
 
 
-def letterbox_to_square(frames: torch.Tensor, frame_hw, target: int) -> torch.Tensor:
-    """Fit-resize (half-pixel bilinear, the matrix form of the reference's
-    ``resize_impl='mxu'``) ``[S, h, w, 3]`` into a ``target`` square and
-    pad with black (toSquareLetterbox)."""
+def letterbox_to_square(frames: torch.Tensor, frame_hw, target: int,
+                        impl: str = "mxu") -> torch.Tensor:
+    """Fit-resize (half-pixel bilinear: the two-tap gathers with
+    ``impl='gather'``, the interpolation products with ``'mxu'``)
+    ``[S, h, w, 3]`` into a ``target`` square and pad with black
+    (toSquareLetterbox)."""
     _, dw, dh, off_x, off_y = letterbox_params(frame_hw, target)
-    small = resize_bilinear_mxu(frames, (dh, dw), method="half_pixel")
+    resize = resize_bilinear if impl == "gather" else resize_bilinear_mxu
+    small = resize(frames, (dh, dw), method="half_pixel")
     return F.pad(small, (0, 0, off_x, target - dw - off_x, off_y, target - dh - off_y))
 
 
 def face_subpath(models: FaceModels, frames_f32: torch.Tensor, fire: torch.Tensor,
-                 statics: PipelineStatics):
+                 statics: PipelineStatics, prior_form: str = "params"):
     """Stage 6 on ``frames_f32 [K, h, w, 3]`` (0..1; ``statics.frame_hw`` is
-    their size): detector -> prior scalars -> ROI -> landmarks -> affine.
-    ``fire [K]`` gates the streams.  Returns (prior params ``[K, 4]``,
-    has_prior, affine_update ``[K, 6]``, has_update, det_score)."""
+    their size): detector -> prior -> ROI -> landmarks -> affine.
+    ``fire [K]`` gates the streams.  Returns (prior, has_prior,
+    affine_update ``[K, 6]``, has_update, det_score): the prior as its 4
+    scalars ``[K, 4]`` (``prior_form='params'``) or as the rendered plane
+    ``[K, mh, mw]``, zero where the detection failed (``'plane'``)."""
     mh, mw = statics.mask_hw
     fh, fw = statics.frame_hw
-    fd_in = letterbox_to_square(frames_f32, (fh, fw), statics.fd_size)
+    fd_in = letterbox_to_square(frames_f32, (fh, fw), statics.fd_size, statics.resize_impl)
     det = models.face(fd_in)
     box, score, valid = best_box_decode(det["box_coords"], det["box_scores"], (fh, fw),
                                         statics.fd_size, letterboxed=True)
     det_ok = fire & valid & (score >= statics.face_score_thresh)
-    prior = face_prior_params(box, (fh, fw), (mh, mw))
+    if prior_form == "params":
+        prior = face_prior_params(box, (fh, fw), (mh, mw))
+    else:
+        prior = torch.where(det_ok[:, None, None], face_prior_mask(box, (fh, fw), (mh, mw)),
+                            torch.zeros((), device=box.device))
     roi = pad_box(box, statics.roi_pad, (fh, fw))
-    roi_img = crop_and_resize_mxu(frames_f32, roi, (statics.lmk_size, statics.lmk_size))
+    crop = crop_and_resize if statics.crop_impl == "gather" else crop_and_resize_mxu
+    roi_img = crop(frames_f32, roi, (statics.lmk_size, statics.lmk_size))
     lmk = models.lmk(roi_img)
     lmk_ok = det_ok & (lmk["scores"] >= statics.lmk_score_thresh)
     rw = (roi[:, 2] - roi[:, 0])[:, None]
@@ -155,31 +216,33 @@ def first_k(fire: torch.Tensor, k: int) -> torch.Tensor:
     return idxs[:k]
 
 
-def face_subpath_compact(models: FaceModels, guide_u8: torch.Tensor,
+def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
                          frame_idx: torch.Tensor, face_gate: torch.Tensor,
-                         statics: PipelineStatics):
-    """Cadence-compacted stage 6 on the planar u8 guide ``[S, 3, mh, mw]``
-    (``face_input='guide'``: the face path works in mask coordinates).
-    The streams whose cadence fires (``frame_idx % lmk_interval == 0`` and
-    the engine's ``face_gate``) are gathered, at most K = ``face_batch`` or
-    ceil(S / lmk_interval) of them (overflow streams skip this round, as in
-    the reference); the results are scattered back.  Returns what
-    :func:`face_subpath` returns, for all S streams."""
-    s = guide_u8.shape[0]
-    mh, mw = statics.mask_hw
-    fstat = dataclasses.replace(statics, frame_hw=(mh, mw))
+                         statics: PipelineStatics, prior_form: str = "params"):
+    """Cadence-compacted stage 6 on u8 images: the planar guide ``[S, 3,
+    mh, mw]`` (``face_input='guide'``: the face path works in mask
+    coordinates) or the natural frames ``[S, H, W, 3]``
+    (``face_input='frames'``: frame coordinates).  The streams whose
+    cadence fires (``frame_idx % lmk_interval == 0`` and the engine's
+    ``face_gate``) are gathered in u8, at most K = ``face_batch`` or
+    ceil(S / lmk_interval) of them (overflow streams skip this round, as
+    in the reference), converted to f32 0..1 and scattered back after.
+    Returns what :func:`face_subpath` returns, for all S streams."""
+    s = src_u8.shape[0]
+    planar = statics.face_input == "guide"
+    fstat = dataclasses.replace(statics, frame_hw=statics.mask_hw) if planar else statics
     fire = ((frame_idx % statics.lmk_interval) == 0) & face_gate
 
     def to_f32(g):
-        return g.permute(0, 2, 3, 1).to(torch.float32) / 255.0
+        return (g.permute(0, 2, 3, 1) if planar else g).to(torch.float32) / 255.0
 
     k = statics.face_batch or max(1, -(-s // statics.lmk_interval))
     if k >= s:
-        return face_subpath(models, to_f32(guide_u8), fire, fstat)
+        return face_subpath(models, to_f32(src_u8), fire, fstat, prior_form)
     idxs = first_k(fire, k)
     sel_valid = idxs < s
-    f_sel = to_f32(torch.index_select(guide_u8, 0, torch.clamp(idxs, max=s - 1)))
-    outs = face_subpath(models, f_sel, sel_valid, fstat)
+    f_sel = to_f32(torch.index_select(src_u8, 0, torch.clamp(idxs, max=s - 1)))
+    outs = face_subpath(models, f_sel, sel_valid, fstat, prior_form)
 
     def scatter(v):  # row s takes the fill indices and is dropped
         full = torch.zeros((s + 1,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
@@ -247,15 +310,22 @@ def make_multiclass_step(model, statics: PipelineStatics):
 
 
 def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
-    """step(state, frames_p, backgrounds_p, knobs, face_gate) -> (new_state,
+    """step(state, frames, backgrounds, knobs, face_gate) -> (new_state,
     outputs); with ``statics.num_classes > 1`` the step of
     :func:`make_multiclass_step`.
 
-    frames_p ``[S, H/b, W/b, b*b*3]`` u8; backgrounds_p the same shape or
-    one row to broadcast; face_gate ``[S]`` bool (the engine's min-interval
-    gate).  ``outputs``: ``frame`` (packed u8), ``alpha`` (``[S, mh, mw]``,
-    bf16 or f32 by ``refined_dtype``), ``det_score``, ``face_applied``,
-    ``face_prior_params`` and ``face_has_prior``."""
+    frames: natural ``[S, H, W, 3]`` u8 (the float MatteNet) or packed
+    ``[S, H/b, W/b, b*b*3]`` u8 (the int8 MatteNetHD), by
+    ``statics.frame_layout``; backgrounds in the same layout, ``[S, ...]``
+    or one row to broadcast; face_gate ``[S]`` bool (the engine's
+    min-interval gate).  ``outputs``: ``frame`` (u8, the frames' layout),
+    ``alpha`` (``[S, mh, mw]``, bf16 or f32 by ``refined_dtype``; f32 on
+    the exact-warp route), ``det_score``, ``face_applied``,
+    ``face_has_prior``, and with the prior as scalars (``prior_impl='auto'``
+    on the separable route) ``face_prior_params``, as the reference's step
+    exports them (its plane routes export ``face_has_prior`` only with
+    ``debug_face_outputs``; here it is a free view of the step's own
+    tensor)."""
     check_statics(statics)
     if statics.num_classes > 1:
         return make_multiclass_step(model, statics)
@@ -264,32 +334,61 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     mh, mw = statics.mask_hw
     fh, fw = statics.frame_hw
     blk = statics.s2d_block
+    natural = statics.frame_layout == "natural"
+    exact_warp = statics.warp_impl == "exact"
+    # the reference's routing (runtime/pipeline.py:476-487, 835-843)
+    prior_form = "plane" if exact_warp or statics.prior_impl == "plane" else "params"
+    fused_comp = natural and statics.use_fused_composite is True and fh % ROW_BLOCK == 0
     out_dtype = torch.bfloat16 if statics.refined_dtype == "bf16" else torch.float32
+    wb = statics.warp_blend_weight
 
-    def step(state: StreamState, frames_p, backgrounds_p, knobs: PipelineKnobs,
-             face_gate):
-        s = frames_p.shape[0]
-        dev = frames_p.device
-        alpha_raw = model(frames_p)["alpha"].to(torch.float32).contiguous()
-        guide = guide_from_s2d(frames_p, (fh, fw), (mh, mw), blk).contiguous()
+    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
+        s = frames.shape[0]
+        dev = frames.device
+        if natural:
+            small = resize_frames_u8(frames, (mh, mw), "asymmetric")
+            alpha_raw = model(small)["alpha"]
+            # u8-valued guide (the reference's canvas data): exact in u8
+            guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
+            guide = guide.permute(0, 3, 1, 2).contiguous()
+        else:
+            alpha_raw = model(frames)["alpha"]
+            guide = guide_from_s2d(frames, (fh, fw), (mh, mw), blk).contiguous()
+        alpha_raw = alpha_raw.to(torch.float32).contiguous()
         if statics.face_path:
             prior, has_prior, affine_update, has_update, det_score = face_subpath_compact(
-                face_models, guide, state.frame_idx, face_gate, statics)
+                face_models, frames if natural else guide, state.frame_idx, face_gate,
+                statics, prior_form)
             prior = prior.contiguous()
         else:
-            prior = torch.zeros((s, 4), dtype=torch.float32, device=dev)
+            prior = torch.zeros((s, 4) if prior_form == "params" else (s, mh, mw),
+                                dtype=torch.float32, device=dev)
             has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
             affine_update = torch.zeros((s, 6), dtype=torch.float32, device=dev)
             has_update = torch.zeros((s,), dtype=torch.bool, device=dev)
             det_score = torch.zeros((s,), dtype=torch.float32, device=dev)
 
-        new_prev, a = fused_temporal_refine(
-            alpha_raw, state.prev_alpha, state.affine,
-            state.has_affine & state.initialized, state.initialized,
-            statics.warp_blend_weight, guide, prior, has_prior, knobs,
-            out_dtype=out_dtype,
-        )
-        out_u8 = alpha_composite_s2d(frames_p, a, backgrounds_p, (fh, fw), blk)
+        use_warp = state.has_affine & state.initialized
+        if exact_warp:
+            warped = warp_affine_nearest(state.prev_alpha, state.affine)
+            base = torch.where(use_warp[:, None, None], warped * wb + alpha_raw * (1 - wb),
+                               alpha_raw)
+            new_prev, a = temporal_ema(state.prev_alpha, base, knobs.ema, state.initialized,
+                                       adapt=knobs.ema_adapt)
+            a = fused_refine(a.contiguous(), guide, prior, has_prior, knobs)
+        else:
+            refine = fused_temporal_refine if prior_form == "params" \
+                else fused_temporal_refine_plane
+            new_prev, a = refine(alpha_raw, state.prev_alpha, state.affine, use_warp,
+                                 state.initialized, wb, guide, prior, has_prior, knobs,
+                                 out_dtype=out_dtype)
+        if not natural:
+            out_u8 = alpha_composite_s2d(frames, a, backgrounds, (fh, fw), blk)
+        elif fused_comp:
+            out_u8 = fused_composite(frames, a, backgrounds)
+        else:
+            out_u8 = natural_composite(frames, a, backgrounds,
+                                       bf16_pass=statics.upsample_precision == "fast")
         new_affine, new_has_affine = affine_lowpass(
             state.affine, affine_update, statics.warp_gain, state.has_affine,
             has_update,
@@ -307,9 +406,10 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             "alpha": a,
             "det_score": det_score,
             "face_applied": has_update,
-            "face_prior_params": prior,
             "face_has_prior": has_prior,
         }
+        if prior_form == "params":
+            outputs["face_prior_params"] = prior
         return new_state, outputs
 
     return step

@@ -1,17 +1,14 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
-``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_micro``,
+``active`` (the reference's default pipeline, ``PipelineStatics()``: the
+float MatteNet over resized natural-layout frames), ``fast_int8``,
+``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_micro``,
 ``multiclass_fast_pico`` and ``multiclass_fast`` are ported, as the
-reference defines them;
-``preset(name, **overrides)`` takes overrides the way the reference's
-does (``face_path=False``, ``frame_hw``, ``mask_hw``, ...).  The
-reference's natural-layout ``multiclass`` preset is listed so that it is
-refused by name (runtime/pipeline.py::check_statics: the float MatteNet
-over resized frames is not ported).  The rest of each reference preset
--- native int8 matting over s2d-packed frames, the nearest-u8 planar
-guide, the separable warp, the matrix-form ROI crop and letterbox resize
-(``crop_impl='mxu'``, ``resize_impl='mxu'``) -- is what the port's step
-does unconditionally.
+reference defines them; ``preset(name, **overrides)`` takes overrides the
+way the reference's does (``face_path=False``, ``frame_hw``,
+``mask_hw``, ``warp_impl='exact'``, ...).  The reference's natural-layout
+``multiclass`` preset is listed so that it is refused (runtime/
+pipeline.py::check_statics: the K-class float MatteNet is not ported).
 """
 
 from __future__ import annotations
@@ -20,12 +17,19 @@ from video_stream_segmenetation_tpu_torch.runtime.config import PipelineStatics
 
 _FAST_INT8 = dict(
     ema_adapt_default=1.0,
+    matting_input="native",
+    guide_impl="nearest_u8",
     face_compact=True,
     s2d_block=10,
     face_input="guide",
     frame_layout="s2d",
     matting_precision="int8",
+    crop_impl="mxu",
+    resize_impl="mxu",
 )
+# the multi-class fast stack (no face path, so no crop)
+_MULTICLASS_FAST = dict(matting_input="native", frame_layout="s2d", s2d_block=10,
+                        matting_precision="int8", resize_impl="mxu", face_path=False)
 
 # BASELINE config 5: background blurred, person kept, two tinted classes
 # (the reference's runtime/presets.py:219-229); the simplex EMA at half
@@ -42,6 +46,10 @@ _MULTICLASS = dict(
 )
 
 _PRESETS = {
+    # the active pipeline, frameProcessorTest.ts (the reference's
+    # runtime/presets.py:19): landmark affine warp, morphology, elliptical
+    # prior, bilateral, live knobs; checkpoint mattenet
+    "active": dict(),
     # plan-B trunk (the reference's runtime/presets.py:38-50, its "bench.py
     # headline configuration"): a residual b1 block at the stem grid, 2/4
     # dilation context, 3x3 decoder convs over the concat; face models at
@@ -64,14 +72,11 @@ _PRESETS = {
     # plan-E nano trunk (192/256) with K=4 class heads, the class maps
     # upsampled x4 to the 288x512 mask (:236-255; checkpoint
     # mattenet_hd10_mc)
-    "multiclass_fast": dict(_MULTICLASS, frame_layout="s2d", s2d_block=10,
-                            matting_precision="int8", matting_decoder="nano",
-                            face_path=False),
+    "multiclass_fast": dict(_MULTICLASS, **_MULTICLASS_FAST, matting_decoder="nano"),
     # the pico trunk with K=4 heads, served at the 72x128 head grid
     # (head_upsample=1; :259-282; checkpoint mattenet_hd10_mc_pico)
-    "multiclass_fast_pico": dict(_MULTICLASS, frame_layout="s2d", s2d_block=10,
-                                 mask_hw=(72, 128), matting_precision="int8",
-                                 matting_decoder="pico", face_path=False),
+    "multiclass_fast_pico": dict(_MULTICLASS, **_MULTICLASS_FAST, mask_hw=(72, 128),
+                                 matting_decoder="pico"),
 }
 
 

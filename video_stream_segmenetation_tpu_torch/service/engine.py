@@ -3,7 +3,10 @@
 
 The engine owns S stream slots, batches their latest frames into one
 ``[S, H, W, 3]`` step on its device, and keeps all per-stream state (EMA
-accumulator, affine, knobs, packed backgrounds) there.  Knob updates are
+accumulator, affine, knobs, backgrounds) there.  With no statics it
+serves the reference's default, ``PipelineStatics()`` (the ``active``
+preset: the float MatteNet over resized natural-layout frames); the
+s2d presets get their frames and backgrounds packed here.  Knob updates are
 staged host-side and applied at the next step boundary, so a step sees one
 consistent config.
 
@@ -38,10 +41,12 @@ from video_stream_segmenetation_tpu_torch.models.facemesh import (
     init_landmark_net_params,
 )
 from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params
+from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_mattenet_params
 from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
     quantize_mattenet_hd,
 )
+from video_stream_segmenetation_tpu_torch.ops.composite import denormalize_to_u8
 from video_stream_segmenetation_tpu_torch.ops.layout import (
     depth_to_space,
     space_to_depth,
@@ -57,7 +62,6 @@ from video_stream_segmenetation_tpu_torch.runtime.pipeline import (
     make_step,
 )
 from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
-from video_stream_segmenetation_tpu_torch.runtime.presets import preset
 from video_stream_segmenetation_tpu_torch.runtime.state import (
     init_state,
     reset_stream,
@@ -80,16 +84,61 @@ class Engine:
     def __init__(self, num_streams: int, statics: PipelineStatics | None = None,
                  params: dict | None = None, seed: int = 0, device="cuda",
                  face_params: dict | None = None):
-        """``params``: the int8 serving dict of ``statics.matting_decoder``'s
-        plan with ``statics.num_classes`` head classes (models/quantized.py
-        ``quantize_mattenet_hd`` or bridge.py); None quantizes a float tree
-        made from ``seed`` (models/mattenet_hd.py).  ``face_params``: ``{"face": FaceFinder
-        tree, "lmk": LandmarkNet tree}`` (flax-shaped float trees, e.g.
+        """``statics``: None serves ``PipelineStatics()``, the reference's
+        default (``active``).  ``params``: for the natural layout the float
+        MatteNet tree (flax-shaped ``{"params", "batch_stats"}``, e.g.
+        bridge.py::trained_weights), for the s2d layout the int8 serving
+        dict of ``statics.matting_decoder``'s plan with
+        ``statics.num_classes`` head classes (models/quantized.py
+        ``quantize_mattenet_hd`` or bridge.py); None makes a float tree
+        from ``seed`` (models/modnet.py, models/mattenet_hd.py; s2d: then
+        quantized).  ``face_params``: ``{"face": FaceFinder tree, "lmk":
+        LandmarkNet tree}`` (flax-shaped float trees, e.g.
         bridge.py::trained_weights); None makes both from ``seed``."""
         self.device = resolve_device(device)
         self.num_streams = num_streams
-        self.statics = statics or preset("fast_int8_pico")
+        self.statics = statics or PipelineStatics()
         check_statics(self.statics)
+        st = self.statics
+        fh, fw = st.frame_hw
+        mh, mw = st.mask_hw
+        self.packed = st.frame_layout == "s2d"
+        if self.packed:
+            self.model = self._int8_model(params, seed)
+            blk = st.s2d_block
+            bg_shape = (num_streams, fh // blk, fw // blk, blk * blk * 3)
+        else:
+            if mh % 16 or mw % 16:
+                raise ValueError(f"mask_hw {st.mask_hw}: MatteNet needs multiples of 16")
+            self.model = MatteNet(init_mattenet_params(seed) if params is None else params,
+                                  device=self.device)
+            bg_shape = (num_streams, fh, fw, 3)
+        self.face_models = None
+        if st.face_path:
+            if face_params is None:
+                face_params = {"face": init_face_finder_params(seed + 1),
+                               "lmk": init_landmark_net_params(seed + 2)}
+            self.face_models = FaceModels(
+                face=FaceFinder(face_params["face"], st.fd_size, device=self.device),
+                lmk=LandmarkNet(face_params["lmk"], device=self.device))
+        self._step = make_step(self.model, st, self.face_models)
+        self.state = init_state(num_streams, (mh, mw), device=self.device,
+                                num_classes=st.num_classes)
+        self.knobs = default_knobs(num_streams, ema_adapt=st.ema_adapt_default,
+                                   device=self.device)
+        # backgrounds are kept u8 in the frames' layout (s2d: packed, ready
+        # for the packed composite)
+        self.backgrounds = torch.zeros(bg_shape, dtype=torch.uint8, device=self.device)
+        self.active = np.zeros((num_streams,), bool)
+        # host clock of each stream's last applied face round (L_MIN_MS)
+        self._last_face_at = np.zeros((num_streams,), np.float64)
+        self.face_min_interval_s = 0.180
+        self.counters = Counters()
+        self.health = HealthMonitor()
+        self._lock = threading.Lock()
+        self._staged_knobs: dict[int, dict] = {}
+
+    def _int8_model(self, params, seed) -> QuantizedMatteNetHD:
         st = self.statics
         fh, fw = st.frame_hw
         mh, mw = st.mask_hw
@@ -106,39 +155,16 @@ class Engine:
                 st.matting_decoder)
         # the head grid is the stem grid; mask_hw = uf x that (uf = 1: the
         # class maps are served at the head grid, as multiclass_fast_pico)
-        self.model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device,
-                                         conv_impl=st.int8_conv_impl,
-                                         head_impl=st.int8_head_impl)
-        if self.model.decoder != st.matting_decoder:
-            raise ValueError(f"params are the {self.model.decoder} plan's; statics ask "
+        model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device,
+                                    conv_impl=st.int8_conv_impl,
+                                    head_impl=st.int8_head_impl)
+        if model.decoder != st.matting_decoder:
+            raise ValueError(f"params are the {model.decoder} plan's; statics ask "
                              f"for matting_decoder={st.matting_decoder!r}")
-        if self.model.num_classes != st.num_classes:
-            raise ValueError(f"params have {self.model.num_classes} classes; statics ask "
+        if model.num_classes != st.num_classes:
+            raise ValueError(f"params have {model.num_classes} classes; statics ask "
                              f"for num_classes={st.num_classes}")
-        self.face_models = None
-        if st.face_path:
-            if face_params is None:
-                face_params = {"face": init_face_finder_params(seed + 1),
-                               "lmk": init_landmark_net_params(seed + 2)}
-            self.face_models = FaceModels(
-                face=FaceFinder(face_params["face"], st.fd_size, device=self.device),
-                lmk=LandmarkNet(face_params["lmk"], device=self.device))
-        self._step = make_step(self.model, st, self.face_models)
-        self.state = init_state(num_streams, (mh, mw), device=self.device,
-                                num_classes=st.num_classes)
-        self.knobs = default_knobs(num_streams, ema_adapt=st.ema_adapt_default,
-                                   device=self.device)
-        # backgrounds are kept packed u8, ready for the packed composite
-        self.backgrounds = torch.zeros((num_streams, hp, wp, blk * blk * 3),
-                                       dtype=torch.uint8, device=self.device)
-        self.active = np.zeros((num_streams,), bool)
-        # host clock of each stream's last applied face round (L_MIN_MS)
-        self._last_face_at = np.zeros((num_streams,), np.float64)
-        self.face_min_interval_s = 0.180
-        self.counters = Counters()
-        self.health = HealthMonitor()
-        self._lock = threading.Lock()
-        self._staged_knobs: dict[int, dict] = {}
+        return model
 
     # ---- stream admission ---------------------------------------------
     def admit(self) -> int:
@@ -178,7 +204,8 @@ class Engine:
 
     def set_background(self, slot: int, image) -> None:
         """Set a stream's background (u8 or float 0..1 RGB ``[h, w, 3]``;
-        resized half-pixel bilinear to the frame), packed once here."""
+        resized half-pixel bilinear to the frame), packed once here for the
+        s2d layout."""
         img = torch.as_tensor(np.asarray(image), device=self.device)
         if img.dtype == torch.uint8:
             img = img.to(torch.float32) / 255.0
@@ -190,8 +217,10 @@ class Engine:
             with pinned():
                 img = torch.einsum("oh,hwc->owc", a_h, img)
                 img = torch.einsum("pw,hwc->hpc", a_w, img)
-        img_u8 = torch.clamp(torch.floor(img * 255.0 + 0.5), 0, 255).to(torch.uint8)
-        self.backgrounds[slot] = space_to_depth(img_u8, self.statics.s2d_block)
+        img_u8 = denormalize_to_u8(img)
+        if self.packed:
+            img_u8 = space_to_depth(img_u8, self.statics.s2d_block)
+        self.backgrounds[slot] = img_u8
 
     def _apply_staged(self):
         with self._lock:
@@ -205,8 +234,9 @@ class Engine:
         are processed too and ignored).  Returns ``frame`` (composited u8
         ``[S, H, W, 3]``), ``alpha`` (``[S, mh, mw]``, bf16 or f32 by
         ``refined_dtype``), ``metrics`` and the step's face outputs
-        (``face_applied``, ``det_score``, ``face_prior_params``,
-        ``face_has_prior``), as tensors on the engine's device.  With K > 1
+        (``face_applied``, ``det_score``, ``face_has_prior``; and
+        ``face_prior_params`` where the prior rides as scalars), as tensors on
+        the engine's device.  With K > 1
         classes: ``alpha`` is class 1's map (f32), ``class_alpha`` the
         smoothed class maps ``[S, mh, mw, K]``, and ``det_score`` and
         ``face_applied`` are zeros."""
@@ -219,11 +249,12 @@ class Engine:
         if tuple(np.shape(frames)) != want:
             raise ValueError(f"process: frames must be u8 {want}, got {np.shape(frames)}")
         frames_t = torch.as_tensor(np.asarray(frames, dtype=np.uint8), device=self.device)
-        frames_p = space_to_depth(frames_t, self.statics.s2d_block).contiguous()
+        if self.packed:
+            frames_t = space_to_depth(frames_t, self.statics.s2d_block).contiguous()
         t1 = time.perf_counter()
         try:
             with pinned():
-                new_state, out = self._step(self.state, frames_p, self.backgrounds,
+                new_state, out = self._step(self.state, frames_t, self.backgrounds,
                                             self.knobs, gate)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -237,8 +268,9 @@ class Engine:
         n_active = int(self.active.sum()) or self.num_streams
         self.counters.record_step(n_active, (t2 - t1) * 1e3, (t2 - t0) * 1e3)
         extras = {k: v for k, v in out.items() if k not in ("frame", "alpha")}
+        frame = out["frame"]
         return {
-            "frame": depth_to_space(out["frame"], self.statics.s2d_block),
+            "frame": depth_to_space(frame, self.statics.s2d_block) if self.packed else frame,
             "alpha": out["alpha"],
             "metrics": self.stats(),
             **extras,
