@@ -18,8 +18,10 @@ Phases, each announced by one line on stdout:
      u1 levels, the fused 3x3 conv in its four forms (act or not, residual
      or not) at plan B's layer shapes, the u1-out trunk at pico widths, the
      natural layout's fused composite (720p, 288x512 alpha), the
-     plane-prior temporal refine and fused_refine (f32 out);
-  4-12. serve: Engine(64, ...) answers 8 steps of 720p frames in nine
+     plane-prior temporal refine, fused_refine (f32 out), and the fast
+     form of the temporal refine in its three forms (head-grid logits
+     [64, 72, 128], tap lanes [48, 64, 72, 128], both);
+  4-16. serve: Engine(64, ...) answers 8 steps of 720p frames in thirteen
      phases, each with every launch count set to 0 just before it and read
      just after:
        4. fast_int8_pico with the face path off, seeded weights, synthetic
@@ -40,6 +42,9 @@ Phases, each announced by one line on stdout:
           step);
       12. fast_int8_pico with int8_head_impl='bf16' (the u1-out trunk and
           the bf16 head, no int8-head trunk launch);
+      13-16. active (the float MatteNet over natural frames) as it stands,
+          with use_fused_composite=True, prior_impl='plane' and
+          warp_impl='exact';
      each checks shapes, dtypes, value ranges, the alpha against the frames'
      ground truth (phases 5-12) or the ellipse (phase 4), that each counted
      wrapper ran its expected number of times (every other one none), with
@@ -47,7 +52,25 @@ Phases, each announced by one line on stdout:
      7-8 that class_alpha sums to 1 within 1e-3, in phases 7-12 that the
      IoU is at most 0.02 below the reference engine's, and in phases 5-12
      that the served trunk equals its plain version on two streams; each
-     prints its median step time and the peak device memory.
+     prints its median step time and the peak device memory;
+  17. rotation, the production serving loop: StreamScheduler(Engine(400,
+     fast_int8_pico with refine_alpha_src='lowres', guide_kernel_unfold=
+     True, guide_source='host'), group_sizes=[96, 96, 96, 96, 16],
+     fused_rounds=True) over the port's native FramePool (48 guide lanes
+     emitted while it packs), trained weights, the committed frames pushed
+     per stream: a priming round, 8 rounds and a drain; the trunk and the
+     fast refine once a group a round and no other kernel, the face path
+     applied with the stagger, alpha IoU >= 0.5; one more round timed by
+     its parts, its step under torch.cuda.set_sync_debug_mode('error');
+     one more round whose trunk and fast refine inputs are kept at each
+     group size (96 and 16), and each kernel held against its plain
+     version on them at the kernels phase's tolerances;
+  18. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
+     frames through that route with fused rounds and through
+     fast_int8_pico as its preset stands under per-group step_pipelined:
+     prev_alpha within 1e-5, the refined alpha within 1e-2, IoU within
+     0.001; then on each route a round held as in phase 17 (trunk, fast
+     and analytic refine at 24 and 16 streams).
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result line {"ok": true, "device":
 {...}}.  Any failure raises and exits non-zero; without a card it exits
@@ -296,6 +319,98 @@ def check_refine(dev) -> dict:
             "max_abs_err": max(err, err_prev, err32, err32_prev), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def fast_refine_inputs(dev, seed):
+    """The fast refine's inputs at S=64, 720p shapes: head-grid logits
+    ``[S, 72, 128]`` f32 (spread over +-4), the full-resolution alpha
+    they upsample to (sigmoid of the f32 interpolation products), a random
+    planar u8 guide ``[S, 3, 288, 512]`` and its tap lanes ``[48, S, 72,
+    128]`` (lane (c*4 + y%4)*4 + x%4 at (y/4, x/4)), and the rest of
+    :func:`_refine_inputs`."""
+    from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear_mxu
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    (_, prev, guide, affine, initialized, use_warp, has_prior, prior_params,
+     knobs) = _refine_inputs(dev, seed)
+    h, w = prev.shape[-2:]
+    fy = fx = 4
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    logits = (torch.rand((S, h // fy, w // fx), generator=gen, device=dev) - 0.5) * 8.0
+    with pinned():
+        alpha = torch.sigmoid(resize_bilinear_mxu(logits, (h, w), "half_pixel",
+                                                  channel_last=False)).contiguous()
+    lanes = guide.reshape(S, 3, h // fy, fy, w // fx, fx).permute(1, 3, 5, 0, 2, 4) \
+        .reshape(3 * fy * fx, S, h // fy, w // fx).contiguous()
+    return (logits, alpha, lanes, (fy, fx), prev, guide, affine, initialized, use_warp,
+            has_prior, prior_params, knobs)
+
+
+# the fast refine's three forms: (label, head-grid logits, tap lanes)
+FAST_FORMS = (("lowres", True, False), ("lanes", False, True), ("lowres+lanes", True, True))
+
+
+def check_refine_fast(dev) -> dict:
+    """The fast form of the temporal refine in its three forms (the
+    head-grid logits, the tap lanes, both; bf16 refined alpha) against its
+    plain version, then CUDA-event times of each and of the plain version,
+    and the bound of the form the production rotation serves (both)."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    (logits, alpha, lanes, geom, prev, guide, affine, initialized, use_warp, has_prior,
+     prior_params, knobs) = fast_refine_inputs(dev, 9)
+    h, w = prev.shape[-2:]
+    yi, xi = separable_warp_indices(affine, (h, w))
+    table = TR.scalar_table(knobs, use_warp, initialized, 0.3, prior_params, has_prior)
+    errs, times = {}, {}
+    for label, lowres, use_lanes in FAST_FORMS:
+        a_src = logits if lowres else alpha
+        g_src = lanes if use_lanes else guide
+        hw = (h, w) if lowres else None
+        gg = geom if use_lanes else None
+        got_prev, got = TR.fused_temporal_refine_fast(
+            a_src, prev, affine, use_warp, initialized, 0.3, g_src, prior_params, has_prior,
+            knobs, alpha_lowres_hw=hw, guide_lanes_geom=gg)
+        with pinned():
+            want_prev, want = TR.fused_temporal_refine_plain(a_src, prev, yi, xi, g_src, table,
+                                                             torch.bfloat16, None, hw, gg)
+        torch.cuda.synchronize()
+        err_prev = (got_prev - want_prev).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        say(f"  refine_fused_fast {label}: new_prev max_abs_err {err_prev:.3e} (tolerance "
+            f"{PREV_TOL:g}), refined {got.dtype} max_abs_err {err:.3e} (tolerance "
+            f"{REFINED_TOL:g}); refined mean {want.float().mean().item():.4f}")
+        if got.dtype != torch.bfloat16 or not (err_prev <= PREV_TOL and err <= REFINED_TOL):
+            raise AssertionError(f"fast refine kernel ({label}) disagrees with its plain "
+                                 f"version: {err_prev}, {err}")
+        errs[label] = max(err_prev, err)
+        ms = cuda_time_ms(lambda: TR._launch(a_src, prev, yi, xi, g_src, table,
+                                             torch.bfloat16, None, hw, gg), 20)
+        with pinned():
+            plain_ms = cuda_time_ms(lambda: TR.fused_temporal_refine_plain(
+                a_src, prev, yi, xi, g_src, table, torch.bfloat16, None, hw, gg), 3)
+        times[label] = (ms, plain_ms)
+        say(f"  refine_fused_fast {label}: {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    px = S * h * w
+    # both cuts: prev read, new_prev and the bf16 alpha written, the logits
+    # and the lanes read once; plus the indices, the table and the taps
+    bytes_moved = (px * (4 + 4 + 2) + logits.numel() * 4 + lanes.numel()
+                   + yi.numel() * 4 + xi.numel() * 4 + table.numel() * 4 + (h + w) * 16)
+    # the upsample and sigmoid: 6 products and sums of the two taps, the
+    # exp and the division (~10 a pixel)
+    ops = refine_ops(table, (h, w)) + 10 * px
+    bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
+    ms, plain_ms = times["lowres+lanes"]
+    say(f"  refine_fused_fast lowres+lanes: bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{bytes_moved / px:.2f} B a pixel, {bytes_moved / 1e6:.1f} MB)")
+    return {"name": "refine_fused_fast", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/refine_fused.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/refine_fused.py:330",
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "forms_ms": {k: v[0] for k, v in times.items()}}
 
 
 def check_decoder(dev) -> dict:
@@ -677,6 +792,7 @@ def _counters():
             "full_trunk": trunk_int8.full_trunk_alpha,
             "light_trunk": trunk_int8.light_trunk_alpha,
             "refine_fused": refine_fused.fused_temporal_refine,
+            "refine_fused_fast": refine_fused.fused_temporal_refine_fast,
             "refine_fused_plane": refine_fused.fused_temporal_refine_plane,
             "fused_refine": refine_fused.fused_refine,
             "composite_fused": composite_fused.fused_composite,
@@ -789,6 +905,311 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     return res
 
 
+# the production rotation: 400 streams as 4 x 96 + 16, the fast refine's
+# inputs from the native pool (the reference's ARCHITECTURE.md
+# "Production serving")
+ROTATION = (96, 96, 96, 96, 16)
+FAST_ROUTE = {"refine_alpha_src": "lowres", "guide_kernel_unfold": True, "guide_source": "host"}
+ROUNDS = 8
+
+
+def _iou(alpha, truth) -> float:
+    pred = alpha.float().cpu().numpy() > 0.5
+    inter = (pred & truth).sum(axis=(1, 2))
+    union = np.maximum((pred | truth).sum(axis=(1, 2)), 1)
+    return float(np.mean(inter / union))
+
+
+def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
+             min_interval=None, sync_check: bool = False) -> dict:
+    """Serve ``fast_int8_pico`` (with ``overrides``, trained weights) through
+    the port's StreamScheduler over its native FramePool, streams in groups
+    of ``sizes``, the committed 720p frames pushed per stream and round
+    (frame (s + r) % 2), ``rounds`` rounds: with ``fused`` through
+    step_round (the first call primes, a drain collects the last round),
+    else per-group step_pipelined (dispatch_range) and a drain.
+    Returns the launches of the run, per round the streams the face path
+    was applied to, the times, the last round's alpha (all streams, in
+    slot order), IoU and the engine.  With ``sync_check`` one more round's
+    step runs, after its ingest, under torch.cuda.set_sync_debug_mode
+    ('error'): a host synchronisation inside the round raises."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.runtime.scheduler import StreamScheduler
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+
+    statics = preset("fast_int8_pico", **overrides)
+    n = sum(sizes)
+    fh, fw = FRAME_HW
+    eng = Engine(n, statics, **bridge.trained_weights(statics), device=device)
+    if min_interval is not None:
+        eng.face_min_interval_s = min_interval
+    sched = StreamScheduler(eng, group_sizes=list(sizes), fused_rounds=fused)
+    if sched.pool is None:
+        raise AssertionError(f"the native FramePool did not build ({sched.pool_error!r}): "
+                             "the scheduler fell back to host arrays")
+    sched.admit_all()
+    grad = np.linspace(0, 255, fw, dtype=np.float32)[None, :, None]
+    for s in range(n):
+        eng.set_background(s, np.broadcast_to(grad * ((s % 3) + 1) / 3.0,
+                                              (fh, fw, 3)).astype(np.uint8))
+    clip, gt = bridge.load_frames()
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+
+    def push(r):
+        for s in range(n):
+            sched.push_frame(s, clip[(s + r) % 2])
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    applied, last, periods, latencies = [], {}, [], []
+
+    def take(results):
+        hit = np.zeros((n,), bool)
+        for res in results:
+            i0, i1 = res["slots"]
+            hit[i0:i1] = res["face_applied"].cpu().numpy()
+            last[i0] = res
+        applied.append(hit)
+
+    t_start = time.perf_counter()
+    if fused:
+        for r in range(rounds):
+            push(r)
+            tok = sched._inflight
+            t0 = time.perf_counter()
+            outs = sched.step_round()
+            t1 = time.perf_counter()
+            periods.append((t1 - t0) * 1e3)
+            if outs is not None:
+                latencies.append((t1 - tok["t0"]) * 1e3)
+                take(outs)
+        take(sched.drain())
+    else:
+        for r in range(rounds):
+            push(r)
+            round_res = []
+            t0 = time.perf_counter()
+            for _ in range(len(sizes)):
+                out = sched.step_pipelined()
+                if out is not None:
+                    round_res.append(out)
+            periods.append((time.perf_counter() - t0) * 1e3)
+            if round_res:
+                take(round_res)
+        take([sched.drain()])
+    last_round = rounds - 1
+    sync()
+    wall_s = time.perf_counter() - t_start
+    launches = {k: c.launches for k, c in counters.items()}
+    alpha = torch.cat([last[i0]["alpha"] for i0 in sorted(last)])
+    truth = gt[(np.arange(n) + last_round) % 2] > 127
+    res = {"engine": eng, "sched": sched, "sizes": list(sizes), "launches": launches,
+           "applied": applied,
+           "alpha": alpha, "iou": _iou(alpha, truth), "periods_ms": periods,
+           "latencies_ms": latencies, "wall_s": wall_s,
+           "peak_mib": (torch.cuda.max_memory_allocated() / 2**20 if device != "cpu"
+                        else None), "pool_lanes": sched.pool.num_lanes,
+           "health": eng.stats()["health"]["state"]}
+    if sync_check:
+        # one more round, its parts timed apart: the pool's assemble (pack
+        # and lanes, host), the ingest (host -> device), the round step
+        push(rounds)
+        offs = sched.group_offsets
+        sync()
+        t0 = time.perf_counter()
+        host = [sched._group_frames(offs[g], offs[g + 1])[0] for g in range(len(sizes))]
+        t1 = time.perf_counter()
+        step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g])
+                       for g, f in enumerate(host)]
+        sync()
+        t2 = time.perf_counter()
+        if device != "cpu":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.round_step(list(sizes), step_frames, time.monotonic())
+            t3 = time.perf_counter()
+        finally:
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode("default")
+        sync()
+        t4 = time.perf_counter()
+        res["parts_ms"] = {"assemble": (t1 - t0) * 1e3, "ingest": (t2 - t1) * 1e3,
+                           "round_enqueue": (t3 - t2) * 1e3, "round": (t4 - t2) * 1e3}
+    return res
+
+
+REFINE_FORMS = ("fused_temporal_refine", "fused_temporal_refine_plane",
+                "fused_temporal_refine_fast")
+
+
+def hold_round(res, r: int) -> dict:
+    """One more round of a :func:`rotation`'s engine (frames of round
+    ``r``) through its round step, keeping the inputs of the trunk and of
+    the temporal refine of the first group of each size; then each kernel
+    against its plain version on those inputs, at the shapes the serving
+    loop gave it, at the kernels phase's tolerances.  Its launches come
+    after the rotation's counts were read.  Returns {(counter, S): error}
+    (the refine's error the larger of new_prev's and the refined alpha's)."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    eng, sched, sizes = res["engine"], res["sched"], res["sizes"]
+    model = eng.model
+    clip, _ = bridge.load_frames()
+    for s in range(eng.num_streams):
+        sched.push_frame(s, clip[(s + r) % 2])
+    offs = sched.group_offsets
+    step_frames = [eng._ingest(sched._group_frames(offs[g], offs[g + 1])[0],
+                               rows=offs[g + 1] - offs[g]) for g in range(len(sizes))]
+    calls = {}
+
+    def keep(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            key = (name, int(args[0].shape[0]))
+            if key not in calls:
+                calls[key] = ([keep(a) for a in args], {k: keep(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return rec
+
+    origs = {n: getattr(pipeline, n) for n in REFINE_FORMS}
+    for n, fn in origs.items():
+        setattr(pipeline, n, recorder(n, fn))
+    model.trunk_logits = recorder("trunk", model.trunk_logits)
+    try:
+        eng.round_step(sizes, step_frames, time.monotonic())
+    finally:
+        for n, fn in origs.items():
+            setattr(pipeline, n, fn)
+        del model.trunk_logits
+    held = {}
+    for (name, s), (args, kw) in sorted(calls.items()):
+        if name == "trunk":
+            err = trunk_err(model, args[0])
+            tol = TRUNK_TOL
+            held[("trunk_int8", s)] = err
+            if not err <= tol:
+                raise AssertionError(f"trunk kernel at S={s} disagrees with its plain version "
+                                     f"on the serving loop's input: {err}")
+            continue
+        (alpha, prev, affine, use_warp, initialized, wb, guide, prior, has_prior,
+         knobs) = args
+        out_dtype = kw.get("out_dtype", torch.bfloat16)
+        plane = prior if name == "fused_temporal_refine_plane" else None
+        params = torch.zeros((s, 4), device=prev.device) if plane is not None else prior
+        h, w = prev.shape[-2:]
+        yi, xi = separable_warp_indices(affine, (h, w))
+        table = TR.scalar_table(knobs, use_warp, initialized, wb, params, has_prior)
+        with pinned():
+            got_prev, got = getattr(TR, name)(*args, **kw)
+            want_prev, want = TR.fused_temporal_refine_plain(
+                alpha, prev, yi, xi, guide, table, out_dtype, plane,
+                kw.get("alpha_lowres_hw"), kw.get("guide_lanes_geom"))
+        err_prev = (got_prev - want_prev).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = REFINED_TOL if out_dtype == torch.bfloat16 else REFINED_F32_TOL
+        counter = {"fused_temporal_refine": "refine_fused",
+                   "fused_temporal_refine_plane": "refine_fused_plane",
+                   "fused_temporal_refine_fast": "refine_fused_fast"}[name]
+        held[(counter, s)] = max(err_prev, err)
+        if not (err_prev <= PREV_TOL and err <= tol):
+            raise AssertionError(f"{counter} at S={s} disagrees with its plain version on the "
+                                 f"serving loop's inputs: {err_prev}, {err}")
+    missing = {("trunk_int8", g) for g in sizes} - held.keys()
+    if missing:
+        raise AssertionError(f"held round: no trunk input kept for {missing}")
+    return held
+
+
+def phase_production(device, sizes=ROTATION, rounds=ROUNDS) -> dict:
+    """Phase A: the production rotation (fast refine, host lanes, fused
+    rounds) at full size, with its assertions; returns :func:`rotation`'s
+    figures."""
+    n = sum(sizes)
+    # one priming round, then the timed ones
+    res = rotation(device, sizes, FAST_ROUTE, rounds + 1, fused=True, sync_check=True)
+    eng = res["engine"]
+    if res["pool_lanes"] != 48:
+        raise AssertionError(f"the pool emits {res['pool_lanes']} guide lanes, not 48")
+    if not (eng.host_lanes and eng.routing["use_lowres_alpha"]):
+        raise AssertionError(f"the fast route is not taken: {eng.routing}")
+    served = rounds + 1
+    want = {"trunk_int8": len(sizes) * served, "refine_fused_fast": len(sizes) * served}
+    for counter, got in res["launches"].items():
+        if got != want.get(counter, 0):
+            raise AssertionError(f"production rotation: {counter} launched {got} times in "
+                                 f"{served} rounds, expected {want.get(counter, 0)}")
+    per_round = [int(a.sum()) for a in res["applied"]]
+    union = np.logical_or.reduce(res["applied"][:6])
+    k_sum = sum(-(-g // eng.statics.lmk_interval) for g in sizes)
+    if not (min(per_round) >= n / eng.statics.lmk_interval / 2 and max(per_round) <= k_sum
+            and union.sum() >= 0.9 * n):
+        raise AssertionError(f"face path applied on {per_round} streams a round (at most "
+                             f"{k_sum}), {int(union.sum())} of {n} over six rounds")
+    if res["iou"] < 0.5:
+        raise AssertionError(f"production rotation: alpha IoU {res['iou']:.4f} < 0.5")
+    if not bool(torch.isfinite(res["alpha"].float()).all()) or res["alpha"].dtype != \
+            torch.bfloat16 or tuple(res["alpha"].shape) != (n, *eng.statics.mask_hw):
+        raise AssertionError(f"alpha {tuple(res['alpha'].shape)} {res['alpha'].dtype}")
+    res["per_round"] = per_round
+    res["union6"] = int(union.sum())
+    res["held"] = hold_round(res, rounds + 2)
+    if {("refine_fused_fast", g) for g in sizes} - res["held"].keys():
+        raise AssertionError(f"production rotation: the held round kept {res['held']}")
+    return res
+
+
+# Phase B's bars: prev_alpha (f32 state; the two routes' upsample differ
+# by ulps), the refined alpha (one bf16 step plus the gamma's x^0.4 near
+# the noise cutoff), the foreground IoU
+ROUTE_PREV_TOL = 1e-5
+ROUTE_ALPHA_TOL = 1e-2
+ROUTE_IOU_TOL = 1e-3
+
+
+def phase_routes(device, sizes=(24, 24, 16), rounds=ROUNDS) -> dict:
+    """Phase B: the same frames through (i) the production route with
+    fused rounds and (ii) fast_int8_pico as its preset stands under
+    per-group step_pipelined, face_min_interval_s=0 on both; the states
+    and alphas agree."""
+    a = rotation(device, sizes, FAST_ROUTE, rounds, fused=True, min_interval=0.0)
+    b = rotation(device, sizes, {}, rounds, fused=False, min_interval=0.0)
+    for label, res, counter in (("fused, fast route", a, "refine_fused_fast"),
+                                ("pipelined, preset", b, "refine_fused")):
+        want = {"trunk_int8": len(sizes) * rounds, counter: len(sizes) * rounds}
+        for c, got in res["launches"].items():
+            if got != want.get(c, 0):
+                raise AssertionError(f"routes ({label}): {c} launched {got} times, "
+                                     f"expected {want.get(c, 0)}")
+    prev_err = (a["engine"].state.prev_alpha - b["engine"].state.prev_alpha).abs().max().item()
+    alpha_err = (a["alpha"].float() - b["alpha"].float()).abs().max().item()
+    iou_err = abs(a["iou"] - b["iou"])
+    if not torch.equal(a["engine"].state.frame_idx, b["engine"].state.frame_idx):
+        raise AssertionError("routes: the two schedulers served different frame counts")
+    if not (prev_err <= ROUTE_PREV_TOL and alpha_err <= ROUTE_ALPHA_TOL
+            and iou_err <= ROUTE_IOU_TOL):
+        raise AssertionError(f"routes disagree: prev_alpha {prev_err}, alpha {alpha_err}, "
+                             f"IoU {a['iou']} vs {b['iou']}")
+    held = hold_round(a, rounds)
+    for key, err in hold_round(b, rounds).items():
+        held[key] = max(err, held.get(key, 0.0))
+    return {"a": a, "b": b, "prev_err": prev_err, "alpha_err": alpha_err,
+            "iou_err": iou_err, "held": held}
+
+
 def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
     """Max difference between the model's trunk (the kernels on a card) and
     its plain version, on the stem output of ``frames_u8``: the logits
@@ -801,7 +1222,14 @@ def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
 
     dev = model.stem_w.device
     fp = space_to_depth(torch.as_tensor(frames_u8, device=dev), block).contiguous()
-    x0 = model.stem(fp)
+    return trunk_err(model, model.stem(fp))
+
+
+def trunk_err(model, x0) -> float:
+    """:func:`trunk_vs_plain` on the stem output ``x0``."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+
     tp = model.trunk
     plain_u1 = Q.PLAIN_TRUNKS[model.decoder](x0, tp)
     if model.head_impl == "bf16":
@@ -819,6 +1247,16 @@ def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def hold(by_name: dict, phase: str, held: dict) -> None:
+    """Print a held round's errors and fold them into the kernels'
+    ``max_abs_err``."""
+    for (counter, s), err in held.items():
+        by_name[counter]["max_abs_err"] = max(by_name[counter]["max_abs_err"], err)
+    say(f"  {phase}: one more round, each kernel held against its plain version on the "
+        f"inputs the round gave it (tolerances as in the kernels phase): "
+        + ", ".join(f"{c} S={s} {e:.3e}" for (c, s), e in sorted(held.items())))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a card",
@@ -832,7 +1270,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 3 + len(PHASES)
+    steps = 5 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -846,7 +1284,7 @@ def main() -> int:
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
     kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
                check_u1_trunk(dev), check_composite(dev), check_refine_plane(dev),
-               check_fused_refine(dev)]
+               check_fused_refine(dev), check_refine_fast(dev)]
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -883,6 +1321,49 @@ def main() -> int:
             f"{res['launches']}, {quality}, health {res['health']}, peak device memory "
             f"{res['peak_mib']:.0f} MiB")
         torch.cuda.empty_cache()
+
+    n = sum(ROTATION)
+    say(f"[{4 + len(PHASES)}/{steps} rotation] StreamScheduler(Engine({n}, fast_int8_pico, "
+        f"{FAST_ROUTE}), group_sizes={list(ROTATION)}, fused_rounds=True) over the native "
+        f"FramePool: 1 priming + {ROUNDS} rounds and a drain, trained weights, committed "
+        "frames")
+    res = phase_production("cuda")
+    for counter, got in res["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    say(f"  rotation: median round {statistics.median(res['latencies_ms']):.2f} ms dispatch "
+        f"to collect (host clock; {len(res['latencies_ms'])} rounds, "
+        f"{[round(t, 1) for t in res['latencies_ms']]}), median step_round call "
+        f"{statistics.median(res['periods_ms'][1:]):.2f} ms; {res['wall_s']:.1f} s for all "
+        f"rounds with the pushes; launches {res['launches']}; native pool, "
+        f"{res['pool_lanes']} guide lanes; face applied a round {res['per_round']}, "
+        f"{res['union6']} of {n} streams over the first six; alpha IoU vs ground truth "
+        f"{res['iou']:.4f} (least allowed 0.5); one more round, timed apart and its step "
+        f"under set_sync_debug_mode('error'): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in res["parts_ms"].items())
+        + f"; health {res['health']}; peak device memory "
+        f"{res['peak_mib']:.0f} MiB; {smi}")
+    hold(by_name, "rotation", res["held"])
+    del res
+    torch.cuda.empty_cache()
+
+    say(f"[{5 + len(PHASES)}/{steps} routes] the same frames, S=64, group_sizes=[24, 24, "
+        f"16], face_min_interval_s=0: the fast route with fused rounds vs fast_int8_pico "
+        f"as it stands under per-group step_pipelined, {ROUNDS} rounds")
+    rb = phase_routes("cuda")
+    for res in (rb["a"], rb["b"]):
+        for counter, got in res["launches"].items():
+            if counter in by_name:
+                by_name[counter]["launches"] += got
+    say(f"  routes: prev_alpha max_abs_err {rb['prev_err']:.3e} (tolerance "
+        f"{ROUTE_PREV_TOL:g}), refined alpha {rb['alpha_err']:.3e} (tolerance "
+        f"{ROUTE_ALPHA_TOL:g}), IoU {rb['a']['iou']:.4f} vs {rb['b']['iou']:.4f} (tolerance "
+        f"{ROUTE_IOU_TOL:g}); median round {statistics.median(rb['a']['latencies_ms']):.2f} "
+        f"ms fused (dispatch to collect), {statistics.median(rb['b']['periods_ms']):.2f} ms "
+        f"pipelined (three ticks)")
+    hold(by_name, "routes", rb["held"])
+    del rb
+    torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))

@@ -125,7 +125,7 @@ def test_engine_refuses_unported_statics():
 
 
 @pytest.mark.parametrize("override", [
-    {"affine_mode": "reference"}, {"guide_kernel_unfold": True}, {"refine_alpha_src": "lowres"},
+    {"affine_mode": "reference"}, {"guide_kernel_unfold": "yes"}, {"refine_alpha_src": "half"},
     {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"},
     {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}, {"warp_impl": "exact"},
     {"matting_precision": "bf16"}])

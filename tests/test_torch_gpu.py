@@ -38,15 +38,16 @@ def _refine_inputs(device, s=4, h=40, w=72, seed=0):
     alpha = t(g.random((s, h, w), dtype=np.float32))
     prev = t(g.random((s, h, w), dtype=np.float32))
     guide = t(g.integers(0, 256, (s, 3, h, w), dtype=np.uint8))
-    affine = t(np.asarray([[1.05, 0, 2.5, 0, 0.97, -1.5], [1, 0, 0, 0, 1, 0],
-                           [1.0, 0, 30.0, 0, 1.0, 12.0], [0.9, 0, -1.0, 0, 1.1, 3.0]],
-                          np.float32)[:s])
-    init = t(np.asarray([True, True, False, True])[:s])
-    use_warp = t(np.asarray([True, False, True, True])[:s]) & init
-    has_prior = t(np.asarray([True, False, True, False])[:s])
+    # four streams' settings, repeated over more streams
+    affine = t(np.resize(np.asarray([[1.05, 0, 2.5, 0, 0.97, -1.5], [1, 0, 0, 0, 1, 0],
+                                     [1.0, 0, 30.0, 0, 1.0, 12.0], [0.9, 0, -1.0, 0, 1.1, 3.0]],
+                                    np.float32), (s, 6)))
+    init = t(np.resize(np.asarray([True, True, False, True]), s))
+    use_warp = t(np.resize(np.asarray([True, False, True, True]), s)) & init
+    has_prior = t(np.resize(np.asarray([True, False, True, False]), s))
     pp = t(np.asarray([[30.0, 18.0, 14.0, 12.0]] * s, np.float32))
     knobs = default_knobs(s, ema_adapt=1.0, device=device)
-    knobs.use_bilateral = t(np.asarray([True, True, False, True])[:s])
+    knobs.use_bilateral = t(np.resize(np.asarray([True, True, False, True]), s))
     return alpha, prev, affine, use_warp, init, guide, pp, has_prior, knobs
 
 
@@ -527,3 +528,204 @@ def test_cpu_tensors_take_plain_versions_of_the_active_kernels():
     assert torch.equal(KC.fused_composite(frames, alpha, frames + 7),
                        KC.fused_composite_plain(frames, alpha, frames + 7))
     assert [c.launches for c in counters] == before
+
+
+# ---- the fast form of the temporal refine and the production rotation ------
+
+FAST_ROUTE = dict(refine_alpha_src="lowres", guide_kernel_unfold=True, guide_source="host")
+SMALL = dict(frame_hw=(80, 160), mask_hw=(32, 64), fd_size=64, lmk_size=48)
+
+
+def _fast_inputs(device, s, hw, seed=0):
+    """Head-grid logits (a quarter of ``hw``), the alpha they upsample to,
+    a planar guide and its tap lanes (geometry (4, 4)), and the rest."""
+    from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear_mxu
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    h, w = hw
+    _, prev, affine, use_warp, init, _, pp, has_prior, knobs = _refine_inputs(device, s, h, w,
+                                                                               seed)
+    g = np.random.default_rng(seed + 1)
+    logits = torch.as_tensor((g.random((s, h // 4, w // 4), dtype=np.float32) - 0.5) * 8,
+                             device=device)
+    with pinned():
+        alpha = torch.sigmoid(resize_bilinear_mxu(logits, hw, "half_pixel",
+                                                  channel_last=False)).contiguous()
+    guide = torch.as_tensor(g.integers(0, 256, (s, 3, h, w), dtype=np.uint8), device=device)
+    lanes = guide.reshape(s, 3, h // 4, 4, w // 4, 4).permute(1, 3, 5, 0, 2, 4) \
+        .reshape(48, s, h // 4, w // 4).contiguous()
+    return logits, alpha, guide, lanes, prev, affine, use_warp, init, pp, has_prior, knobs
+
+
+def test_cpu_fast_refine_counts_no_launch():
+    logits, _, _, lanes, prev, affine, use_warp, init, pp, has_prior, knobs = _fast_inputs(
+        "cpu", 4, (40, 72))
+    before = TR.fused_temporal_refine_fast.launches
+    new_prev, out = TR.fused_temporal_refine_fast(logits, prev, affine, use_warp, init, 0.3,
+                                                  lanes, pp, has_prior, knobs,
+                                                  alpha_lowres_hw=(40, 72),
+                                                  guide_lanes_geom=(4, 4))
+    assert TR.fused_temporal_refine_fast.launches == before
+    assert out.shape == new_prev.shape == (4, 40, 72) and out.dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(40, 72), (288, 512)])
+@pytest.mark.parametrize("form", ["lowres", "lanes", "lowres+lanes"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_fast_refine_kernel_matches_plain(card, hw, form, out_dtype):
+    """The kernel's three fast forms against the plain version (720p's
+    288x512 mask and a small one): new_prev within 2e-5, the refined alpha
+    within 4e-3 (bf16) or 2e-5 (f32); the lanes form exact."""
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    logits, alpha, guide, lanes, prev, affine, use_warp, init, pp, has_prior, knobs = \
+        _fast_inputs(card, 4, hw)
+    lowres, use_lanes = "lowres" in form, "lanes" in form
+    a_src, g_src = (logits if lowres else alpha), (lanes if use_lanes else guide)
+    lhw, geom = (hw if lowres else None), ((4, 4) if use_lanes else None)
+    before = TR.fused_temporal_refine_fast.launches
+    got_prev, got = TR.fused_temporal_refine_fast(a_src, prev, affine, use_warp, init, 0.3,
+                                                  g_src, pp, has_prior, knobs,
+                                                  out_dtype=out_dtype, alpha_lowres_hw=lhw,
+                                                  guide_lanes_geom=geom)
+    assert TR.fused_temporal_refine_fast.launches == before + 1
+    yi, xi = separable_warp_indices(affine, hw)
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+    with pinned():
+        want_prev, want = TR.fused_temporal_refine_plain(a_src, prev, yi, xi, g_src, table,
+                                                         out_dtype, None, lhw, geom)
+    torch.cuda.synchronize()
+    tol = 4e-3 if out_dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == out_dtype
+    assert (got_prev - want_prev).abs().max().item() <= (0 if not lowres else 2e-5)
+    assert (got.float() - want.float()).abs().max().item() <= (0 if not lowres else tol)
+
+
+def _two_tap_alpha(logits, hw):
+    """The head-grid logits' half-pixel upsample to ``hw`` as the kernel
+    computes it (each output from its two row taps, then its two column
+    taps, products and sums rounded apart), then the sigmoid."""
+    taps, wts = TR.lowres_taps(hw, logits.shape[-2:], logits.device)
+    h = hw[0]
+    r, a, c, b = taps[:h].long(), wts[:h], taps[h:].long(), wts[h:]
+    u = a[:, 0, None] * logits[:, r[:, 0]] + a[:, 1, None] * logits[:, r[:, 1]]
+    v = b[:, 0] * u[:, :, c[:, 0]] + b[:, 1] * u[:, :, c[:, 1]]
+    return torch.sigmoid(v).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["lowres", "lanes", "lowres+lanes"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [16, 96])
+def test_fast_refine_kernel_at_rotation_group_sizes(card, s, form, out_dtype):
+    """The three fast forms at the production rotation's group sizes (the
+    logits' and the lanes' index run over the streams), 720p's 288x512
+    mask, against the plain version given the kernel's own upsample
+    (:func:`_two_tap_alpha`) and the reassembled lanes: new_prev and the
+    f32 alpha within 2e-5, bf16 within 4e-3.  Against the plain version's
+    matrix upsample (up to 1.8e-7 apart on a tenth of the pixels at S=96)
+    the f32 alpha can move by 6.9e-4: the gamma's x**0.4 just above the
+    noise cutoff magnifies an ulp.  The production rotation's bf16 alpha
+    is held against that upsample in chip_smoke.py."""
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    hw = (288, 512)
+    logits, alpha, guide, lanes, prev, affine, use_warp, init, pp, has_prior, knobs = \
+        _fast_inputs(card, s, hw, seed=s)
+    lowres, use_lanes = "lowres" in form, "lanes" in form
+    a_src, g_src = (logits if lowres else alpha), (lanes if use_lanes else guide)
+    lhw, geom = (hw if lowres else None), ((4, 4) if use_lanes else None)
+    got_prev, got = TR.fused_temporal_refine_fast(a_src, prev, affine, use_warp, init, 0.3,
+                                                  g_src, pp, has_prior, knobs,
+                                                  out_dtype=out_dtype, alpha_lowres_hw=lhw,
+                                                  guide_lanes_geom=geom)
+    yi, xi = separable_warp_indices(affine, hw)
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+    with pinned():
+        want_prev, want = TR.fused_temporal_refine_plain(
+            _two_tap_alpha(logits, hw) if lowres else alpha, prev, yi, xi, g_src, table,
+            out_dtype, None, None, geom)
+    torch.cuda.synchronize()
+    tol = 4e-3 if out_dtype == torch.bfloat16 else 2e-5
+    assert (got_prev - want_prev).abs().max().item() <= 2e-5
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _round_engine(device, **over):
+    eng = Engine(6, preset("fast_int8_pico", **FAST_ROUTE, **over, **SMALL), device=device)
+    eng.face_min_interval_s = 0.0
+    return eng
+
+
+@pytest.mark.gpu
+def test_dispatch_round_makes_no_host_sync(card):
+    """After a priming round, the round step itself (after its ingest)
+    runs under set_sync_debug_mode('error'): a .item(), a blocking copy or
+    a nonzero inside the round raises."""
+    import time
+
+    from video_stream_segmenetation_tpu_torch.runtime.scheduler import StreamScheduler
+
+    eng = _round_engine(card)
+    sched = StreamScheduler(eng, group_sizes=[4, 2], fused_rounds=True)
+    assert sched.pool is not None and sched.pool.num_lanes == 48
+    sched.admit_all()
+    g = np.random.default_rng(0)
+    for _ in range(2):
+        for s in range(6):
+            sched.push_frame(s, g.integers(0, 256, (80, 160, 3), dtype=np.uint8))
+        sched.step_round()
+    sched.drain()
+    offs = sched.group_offsets
+    step_frames = [eng._ingest(sched._group_frames(offs[i], offs[i + 1])[0],
+                               rows=offs[i + 1] - offs[i]) for i in range(2)]
+    torch.cuda.synchronize()
+    before = TR.fused_temporal_refine_fast.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = eng.round_step([4, 2], step_frames, time.monotonic())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert TR.fused_temporal_refine_fast.launches == before + 2
+    assert [tuple(o["alpha"].shape) for o in outs] == [(4, 32, 64), (2, 32, 64)]
+    sched.stop()
+
+
+@pytest.mark.gpu
+def test_pool_lanes_on_card_equal_device_gathered(card):
+    """The pool's (packed, lanes) on the card equal the lanes the engine
+    gathers on the card from natural frames, and a round served from each
+    gives the same alpha and frames."""
+    from video_stream_segmenetation_tpu_torch.runtime.native import FramePool
+    from video_stream_segmenetation_tpu_torch.ops.layout import guide_s2d_sel
+
+    g = np.random.default_rng(1)
+    frames = g.integers(0, 256, (6, 80, 160, 3), dtype=np.uint8)
+    pool = FramePool(6, 80, 160, s2d_block=10,
+                     guide_lanes=guide_s2d_sel((80, 160), (32, 64), 10), depth=4)
+    for s in range(6):
+        pool.push_rgb(s, frames[s])
+    outs = []
+    for feed in ("pool", "natural"):
+        eng = _round_engine(card)
+        eng.admit_all()
+        fl = []
+        for i0, i1 in ((0, 4), (4, 6)):
+            if feed == "pool":
+                packed, _ = pool.assemble_range(i0, i1)
+                fl.append((packed, pool.lanes()))
+            else:
+                fl.append(frames[i0:i1])
+        step_in = [eng._ingest(f, rows=len(f[0]) if isinstance(f, tuple) else len(f))
+                   for f in fl]
+        outs.append((step_in, eng.collect_round(eng.dispatch_round([4, 2], fl))))
+    (pin, pout), (nin, nout) = outs
+    for a, b in zip(pin, nin):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for a, b in zip(pout, nout):
+        assert torch.equal(a["alpha"], b["alpha"]) and torch.equal(a["frame"], b["frame"])
+    pool.close()

@@ -1,6 +1,6 @@
 // Fused refine kernels for Hopper (sm_90a): ports of the Pallas kernels of
-// video_stream_segmenetation_tpu/kernels/refine_fused.py with a planar u8
-// guide.  One templated body serves three of them:
+// video_stream_segmenetation_tpu/kernels/refine_fused.py.  One templated
+// body serves four of them:
 //   * fused_temporal_refine (pallas_call :752) in its analytic-prior form
 //     (_temporal_refine_kernel_analytic :243): stages 3-9, the face prior
 //     rasterised here from 4 scalars;
@@ -8,7 +8,16 @@
 //     stages 3-9 with the prior read from an [S, H, W] f32 plane;
 //   * fused_refine (pallas_call :522, _refine_kernel :182): stages 5, 7, 8
 //     and 9 alone, on an alpha already warped and smoothed, with the prior
-//     plane and an f32 output.
+//     plane and an f32 output;
+//   * the same call's fast form (_temporal_refine_kernel_fast :330, with
+//     _guide_from_lanes :297), analytic prior only, with one or both of two
+//     cuts: LOWRES takes the head-grid logits [S, h0, w0] f32 and computes
+//     sigmoid(A_h . L . A_w^T) per pixel (the half-pixel interpolation
+//     matrices, at most two taps a row: rows first, then columns, as the
+//     reference's two products), so the full-resolution f32 alpha is never
+//     written; LANES takes the guide's raw tap lanes [nl, S, hp, wp] u8 and
+//     reads guide pixel (c, y, x) at lane (c*fy + y%fy)*fx + x%fx, patch
+//     (y/fy, x/fx), so the planar guide is never built.
 // new_prev stays f32; the temporal forms' refined alpha is bf16 or f32
 // (the reference's out_dtype: bf16 for refined_dtype='bf16', else f32).
 //
@@ -26,7 +35,9 @@
 // and the refined alpha (bf16 or f32): about 17-19 bytes a pixel, against a
 // few hundred flops -- bound by bytes (3.35 TB/s).  The plane form reads 4
 // bytes more a pixel; fused_refine reads alpha, the prior and the guide and
-// writes the refined alpha, about 15 bytes a pixel.
+// writes the refined alpha, about 15 bytes a pixel.  The fast form with
+// both cuts reads a sixteenth of an f32 logit a pixel instead of the f32
+// alpha: about 13.3 bytes a pixel.
 //
 // Design: the TPU kernel holds a whole 288x512 plane per stream in VMEM.
 // A plane's 576 KB does not fit one SM, so a block takes one stream's
@@ -37,7 +48,10 @@
 // memory.  The zero/interior border is applied at the plane's edges only;
 // rows outside the plane are zero and never interior.  The warp is a
 // direct gather.  Built with --fmad=false so every stage rounds as the
-// plain PyTorch version does.
+// plain PyTorch version does.  LOWRES recomputes each alpha value from its
+// four logits (the halo rows' too) and LANES reads the guide by its lane
+// index: no intermediate plane is written, at the price of re-reads that
+// the L1 and L2 caches take.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,17 +92,52 @@ __device__ __forceinline__ float prior_at(const float* k, const float* plane_s,
   return d2 <= 1.0f ? v : 0.0f;
 }
 
+// the raw alpha at (y, x) of one stream from its head-grid logits lg
+// [h0, w0]: taps/wts hold the two source rows (H rows) then the two source
+// columns (W columns) of each output row and column with their weights
+// (one tap of weight 0 where a row of the matrix has one nonzero)
+__device__ __forceinline__ float lowres_alpha(const float* lg, const int* taps,
+                                              const float* wts, int y, int x,
+                                              int H, int w0) {
+  const int r0 = taps[2 * y], r1 = taps[2 * y + 1];
+  const float a0 = wts[2 * y], a1 = wts[2 * y + 1];
+  const int c0 = taps[2 * (H + x)], c1 = taps[2 * (H + x) + 1];
+  const float b0 = wts[2 * (H + x)], b1 = wts[2 * (H + x) + 1];
+  const float u0 = a0 * lg[(size_t)r0 * w0 + c0] + a1 * lg[(size_t)r1 * w0 + c0];
+  const float u1 = a0 * lg[(size_t)r0 * w0 + c1] + a1 * lg[(size_t)r1 * w0 + c1];
+  const float v = b0 * u0 + b1 * u1;
+  return 1.0f / (1.0f + expf(-v));
+}
+
+// guide channel c at (y, x) of stream s: planar [S, 3, H, W], or (LANES)
+// lane (c*fy + y%fy)*fx + x%fx of [nl, S, H/fy, W/fx] at (y/fy, x/fx)
+template <bool LANES>
+__device__ __forceinline__ float guide_at(const uint8_t* g, int s, int S, int c,
+                                          int y, int x, int H, int W, int fy,
+                                          int fx) {
+  if (LANES) {
+    const int hp = H / fy, wp = W / fx;
+    const int k = (c * fy + y % fy) * fx + x % fx;
+    return (float)g[((size_t)k * S + s) * hp * wp + (size_t)(y / fy) * wp + x / fx];
+  }
+  return (float)g[((size_t)s * 3 + c) * H * W + (size_t)y * W + x];
+}
+
 // TEMPORAL: stages 3-9 from the raw alpha and prev; else stages 5-9 on
 // alpha as it is.  PLANE: the prior from prior_plane, else from the scalars.
-template <bool TEMPORAL, bool PLANE>
+// LOWRES: alpha holds the head-grid logits [S, h0, w0].  LANES: guide holds
+// the tap lanes.
+template <bool TEMPORAL, bool PLANE, bool LOWRES, bool LANES>
 __global__ void __launch_bounds__(256)
 refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
               const int* __restrict__ yi, const int* __restrict__ xi,
               const uint8_t* __restrict__ guide,
               const float* __restrict__ knobs,
               const float* __restrict__ prior_plane,
+              const int* __restrict__ taps, const float* __restrict__ wts,
               float* __restrict__ new_prev, void* __restrict__ out,
-              int out_f32, int H, int W, int pad) {
+              int out_f32, int S, int H, int W, int h0, int w0, int fy, int fx,
+              int pad) {
   extern __shared__ float smem[];
   float* P = smem;             // [ROWS, W]
   float* Q = smem + ROWS * W;  // [ROWS, W]
@@ -96,7 +145,7 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
   const int y0 = blockIdx.x * TILE_H;
   const float* k = knobs + (size_t)s * NKNOB;
   const size_t plane = (size_t)H * W;
-  const float* a_s = alpha + s * plane;
+  const float* a_s = alpha + (LOWRES ? (size_t)s * h0 * w0 : s * plane);
   const float* pl_s = PLANE ? prior_plane + s * plane : nullptr;
   const int n = ROWS * W;
 
@@ -116,7 +165,8 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
       const int j = e / W, x = e % W, y = y0 - HALO + j;
       float v = 0.0f;
       if (y >= 0 && y < H) {
-        const float ar = a_s[(size_t)y * W + x];
+        const float ar = LOWRES ? lowres_alpha(a_s, taps, wts, y, x, H, w0)
+                                : a_s[(size_t)y * W + x];
         const float pv = p_s[(size_t)y * W + x];
         float base = ar;
         if (use_warp) {
@@ -202,14 +252,14 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
   const float inv_two_sr2 = 1.0f / (2.0f * sr * sr);
   const float low = k[K_LOW], high = k[K_HIGH], gamma = k[K_GAMMA];
   const bool has_prior = k[K_HAS_PRIOR] > 0.0f;
-  const uint8_t* g_s = guide + (size_t)s * 3 * plane;
   for (int e = threadIdx.x; e < TILE_H * W; e += blockDim.x) {
     const int jt = e / W, x = e % W, y = y0 + jt, j = jt + HALO;
     if (y >= H) continue;
     float a = P[j * W + x];
     if (use_bi) {
-      const size_t c0 = (size_t)y * W + x;
-      const float gr = g_s[c0], gg = g_s[plane + c0], gb = g_s[2 * plane + c0];
+      const float gr = guide_at<LANES>(guide, s, S, 0, y, x, H, W, fy, fx);
+      const float gg = guide_at<LANES>(guide, s, S, 1, y, x, H, W, fy, fx);
+      const float gb = guide_at<LANES>(guide, s, S, 2, y, x, H, W, fy, fx);
       float sum_w = 0.0f, sum_a = 0.0f;
       for (int dy = -1; dy <= 1; ++dy) {
         const int ny = y + dy;
@@ -217,10 +267,9 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
         for (int dx = -1; dx <= 1; ++dx) {
           const int nx = x + dx;
           if (nx < 0 || nx >= W) continue;
-          const size_t c1 = (size_t)ny * W + nx;
-          const float dr = (float)g_s[c1] - gr;
-          const float dg = (float)g_s[plane + c1] - gg;
-          const float db = (float)g_s[2 * plane + c1] - gb;
+          const float dr = guide_at<LANES>(guide, s, S, 0, ny, nx, H, W, fy, fx) - gr;
+          const float dg = guide_at<LANES>(guide, s, S, 1, ny, nx, H, W, fy, fx) - gg;
+          const float db = guide_at<LANES>(guide, s, S, 2, ny, nx, H, W, fy, fx) - gb;
           const float range2 = dr * dr + dg * dg + db * db;
           const float spatial2 = (float)(dy * dy + dx * dx);
           const float wgt = expf(-spatial2 * inv_two_ss2) * expf(-range2 * inv_two_sr2);
@@ -248,37 +297,53 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
   }
 }
 
-template <bool TEMPORAL, bool PLANE>
+template <bool TEMPORAL, bool PLANE, bool LOWRES = false, bool LANES = false>
 static int launch(const void* alpha, const void* prev, const void* yi,
                   const void* xi, const void* guide, const void* knobs,
                   const void* prior, void* new_prev, void* out, int out_f32,
-                  int S, int H, int W, int pad, void* stream) {
+                  int S, int H, int W, int pad, void* stream,
+                  const void* taps = nullptr, const void* wts = nullptr,
+                  int h0 = 0, int w0 = 0, int fy = 1, int fx = 1) {
   const size_t smem = 2 * (size_t)ROWS * W * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      refine_kernel<TEMPORAL, PLANE>,
+      refine_kernel<TEMPORAL, PLANE, LOWRES, LANES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((H + TILE_H - 1) / TILE_H), (unsigned)S);
-  refine_kernel<TEMPORAL, PLANE><<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const float*)alpha, (const float*)prev, (const int*)yi, (const int*)xi,
-      (const uint8_t*)guide, (const float*)knobs, (const float*)prior,
-      (float*)new_prev, out, out_f32, H, W, pad);
+  refine_kernel<TEMPORAL, PLANE, LOWRES, LANES>
+      <<<grid, 256, smem, (cudaStream_t)stream>>>(
+          (const float*)alpha, (const float*)prev, (const int*)yi,
+          (const int*)xi, (const uint8_t*)guide, (const float*)knobs,
+          (const float*)prior, (const int*)taps, (const float*)wts,
+          (float*)new_prev, out, out_f32, S, H, W, h0, w0, fy, fx, pad);
   return (int)cudaGetLastError();
 }
 
-// stages 3-9; prior == NULL: the analytic prior from the scalar table,
-// else the [S, H, W] f32 plane
+// stages 3-9: the analytic prior from the scalar table (prior == NULL) or
+// the [S, H, W] f32 plane; the fast form (analytic prior only) with taps !=
+// NULL, alpha the head-grid logits [S, h0, w0] and taps/wts the two taps of
+// the interpolation matrices, and/or lanes != 0, guide the tap lanes
+// [3*fy*fx, S, H/fy, W/fx]
 extern "C" int vst_temporal_refine(const void* alpha, const void* prev,
                                    const void* yi, const void* xi,
                                    const void* guide, const void* knobs,
-                                   const void* prior, void* new_prev,
-                                   void* out, int out_f32, int S, int H,
-                                   int W, int pad, void* stream) {
-  if (prior == nullptr)
-    return launch<true, false>(alpha, prev, yi, xi, guide, knobs, prior,
-                               new_prev, out, out_f32, S, H, W, pad, stream);
-  return launch<true, true>(alpha, prev, yi, xi, guide, knobs, prior,
-                            new_prev, out, out_f32, S, H, W, pad, stream);
+                                   const void* prior, const void* taps,
+                                   const void* wts, void* new_prev, void* out,
+                                   int out_f32, int lanes, int S, int H, int W,
+                                   int h0, int w0, int fy, int fx, int pad,
+                                   void* stream) {
+  const bool lowres = taps != nullptr;
+  if (prior != nullptr && (lowres || lanes)) return (int)cudaErrorInvalidValue;
+  if (prior != nullptr)
+    return launch<true, true>(alpha, prev, yi, xi, guide, knobs, prior,
+                              new_prev, out, out_f32, S, H, W, pad, stream);
+#define FAST(L, N)                                                          \
+  launch<true, false, L, N>(alpha, prev, yi, xi, guide, knobs, nullptr,     \
+                            new_prev, out, out_f32, S, H, W, pad, stream,   \
+                            taps, wts, h0, w0, fy, fx)
+  if (lowres) return lanes ? FAST(true, true) : FAST(true, false);
+  return lanes ? FAST(false, true) : FAST(false, false);
+#undef FAST
 }
 
 // stages 5-9 on alpha as it is, the prior plane, f32 out

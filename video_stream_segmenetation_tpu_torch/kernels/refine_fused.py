@@ -11,6 +11,11 @@ Replaces the Pallas kernels of
 * :func:`fused_temporal_refine_plane`: the same call's plane-prior form
   (``_temporal_refine_kernel``, ``prior_impl='plane'``), the prior read from
   an ``[S, H, W]`` plane;
+* :func:`fused_temporal_refine_fast`: the same call's fast form
+  (``_temporal_refine_kernel_fast`` with ``_guide_from_lanes``), analytic
+  prior: from the head-grid logits (``refine_alpha_src='lowres'``, the
+  upsample and sigmoid in the kernel) and/or the guide's raw tap lanes
+  (``guide_kernel_unfold=True``, unfolded in the kernel);
 * :func:`fused_refine`: ``fused_refine`` (pallas_call at line 522,
   ``_refine_kernel``): stages 5, 7, 8 and 9 alone on an alpha already
   warped and smoothed (``warp_impl='exact'``), with the prior plane.
@@ -25,10 +30,13 @@ wrapper's ``launches``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from video_stream_segmenetation_tpu_torch.kernels import _build
 from video_stream_segmenetation_tpu_torch.ops.bilateral import joint_bilateral3x3
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
+from video_stream_segmenetation_tpu_torch.ops.layout import lanes_to_planar
 from video_stream_segmenetation_tpu_torch.ops.morphology import (
     morphological_closing_in_prior,
     morphological_opening,
@@ -38,6 +46,7 @@ from video_stream_segmenetation_tpu_torch.ops.prior import (
     prior_plane_from_params,
 )
 from video_stream_segmenetation_tpu_torch.ops.refine import refine_alpha
+from video_stream_segmenetation_tpu_torch.ops.resize import _interp_matrix, resize_bilinear_mxu
 from video_stream_segmenetation_tpu_torch.ops.temporal import temporal_ema
 from video_stream_segmenetation_tpu_torch.ops.warp import (
     separable_warp_indices,
@@ -89,10 +98,19 @@ def _gated(prior, has_prior):
 
 
 def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table,
-                                out_dtype=torch.bfloat16, prior_plane=None):
+                                out_dtype=torch.bfloat16, prior_plane=None,
+                                alpha_lowres_hw=None, guide_lanes_geom=None):
     """Plain PyTorch version, built from ops/*: same arguments as the
     kernel's wrapper after index and scalar preparation; the prior
-    rasterised from the table's scalars, or ``prior_plane [S, H, W]``."""
+    rasterised from the table's scalars, or ``prior_plane [S, H, W]``.
+    With ``alpha_lowres_hw`` alpha_raw is the head-grid logits, upsampled
+    (f32 interpolation products) and put through the sigmoid here; with
+    ``guide_lanes_geom`` guide is the tap lanes, reassembled here."""
+    if alpha_lowres_hw is not None:
+        alpha_raw = torch.sigmoid(resize_bilinear_mxu(alpha_raw, alpha_lowres_hw, "half_pixel",
+                                                      channel_last=False))
+    if guide_lanes_geom is not None:
+        guide = lanes_to_planar(guide, guide_lanes_geom)
     k, flag = _columns(table)
     h, w = alpha_raw.shape[-2:]
     wb = k["warp_blend"][:, None, None]
@@ -115,36 +133,56 @@ def _check(what, ref, specs):
             raise ValueError(f"{what}: {name} must be contiguous {dt} {shape} on {ref.device}")
 
 
-def _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype=torch.bfloat16,
-            prior_plane=None):
-    """One launch of the temporal refine: the analytic form, or the plane
-    form with ``prior_plane``.  Returns (new_prev, refined)."""
-    s, h, w = alpha_raw.shape
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfloat16,
+            prior_plane=None, alpha_lowres_hw=None, guide_lanes_geom=None):
+    """One launch of the temporal refine: the analytic form; the plane form
+    with ``prior_plane``; the fast form (analytic prior) with
+    ``alpha_lowres_hw`` and/or ``guide_lanes_geom``.  Returns (new_prev,
+    refined)."""
+    s, h, w = prev_alpha.shape
+    lowres, lanes = alpha_lowres_hw is not None, guide_lanes_geom is not None
+    if prior_plane is not None and (lowres or lanes):
+        raise ValueError("fused_temporal_refine: the fast form takes the analytic prior only")
+    if lowres and tuple(alpha_lowres_hw) != (h, w):
+        raise ValueError(f"alpha_lowres_hw {alpha_lowres_hw} is not prev_alpha's {(h, w)}")
+    h0, w0 = alpha_src.shape[-2:] if lowres else (h, w)
+    fy, fx = guide_lanes_geom if lanes else (1, 1)
+    if h % fy or w % fx:
+        raise ValueError(f"guide_lanes_geom {(fy, fx)} does not divide {(h, w)}")
     specs = [
-        ("alpha_raw", alpha_raw, torch.float32, (s, h, w)),
+        ("alpha_src", alpha_src, torch.float32, (s, h0, w0)),
         ("prev_alpha", prev_alpha, torch.float32, (s, h, w)),
         ("yi", yi, torch.int32, (s, h)),
         ("xi", xi, torch.int32, (s, w)),
-        ("guide", guide, torch.uint8, (s, 3, h, w)),
+        ("guide_src", guide_src, torch.uint8,
+         (3 * fy * fx, s, h // fy, w // fx) if lanes else (s, 3, h, w)),
         ("table", table, torch.float32, (s, len(KNOB_COLUMNS))),
     ]
     if prior_plane is not None:
         specs.append(("prior_plane", prior_plane, torch.float32, (s, h, w)))
-    _check("fused_temporal_refine", alpha_raw, specs)
+    _check("fused_temporal_refine", prev_alpha, specs)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_temporal_refine: out_dtype {out_dtype} is not bf16 or f32")
+    dev = prev_alpha.device
+    taps, wts = lowres_taps((h, w), (h0, w0), dev) if lowres else (None, None)
     lib = _build.library()
-    new_prev = torch.empty_like(alpha_raw)
-    out = torch.empty((s, h, w), dtype=out_dtype, device=alpha_raw.device)
-    stream = torch.cuda.current_stream(alpha_raw.device).cuda_stream
+    new_prev = torch.empty_like(prev_alpha)
+    out = torch.empty((s, h, w), dtype=out_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib, lib.vst_temporal_refine(
-        alpha_raw.data_ptr(), prev_alpha.data_ptr(), yi.data_ptr(), xi.data_ptr(),
-        guide.data_ptr(), table.data_ptr(),
-        None if prior_plane is None else prior_plane.data_ptr(),
-        new_prev.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.float32), s, h, w, prior_pad((h, w)), stream,
+        alpha_src.data_ptr(), prev_alpha.data_ptr(), yi.data_ptr(), xi.data_ptr(),
+        guide_src.data_ptr(), table.data_ptr(), _ptr(prior_plane), _ptr(taps), _ptr(wts),
+        new_prev.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32),
+        int(lanes), s, h, w, h0, w0, fy, fx, prior_pad((h, w)), stream,
     ), "temporal_refine")
-    counter = fused_temporal_refine if prior_plane is None else fused_temporal_refine_plane
+    if lowres or lanes:
+        counter = fused_temporal_refine_fast
+    else:
+        counter = fused_temporal_refine if prior_plane is None else fused_temporal_refine_plane
     counter.launches += 1
     return new_prev, out
 
@@ -191,6 +229,59 @@ def fused_temporal_refine_plane(alpha_raw, prev_alpha, affine, use_warp, initial
 
 
 fused_temporal_refine_plane.launches = 0
+
+
+def _two_taps(out_size: int, in_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero columns of each row of the half-pixel interpolation
+    matrix ``[out, in]`` (at most two, in ascending order; a row with one
+    repeats it with weight 0) and their weights."""
+    m = _interp_matrix(out_size, in_size, "half_pixel")
+    taps = np.zeros((out_size, 2), np.int32)
+    wts = np.zeros((out_size, 2), np.float32)
+    for r in range(out_size):
+        (cols,) = np.nonzero(m[r])
+        taps[r] = cols[0], cols[-1]
+        wts[r, :len(cols)] = m[r, cols]
+    return taps, wts
+
+
+def lowres_taps(hw, hw0, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``taps [H + W, 2]`` int32 and ``wts [H + W, 2]`` f32: the two taps
+    of each output row (``hw0[0]`` -> ``hw[0]``), then of each output
+    column, kept on ``device``."""
+    def make(n):
+        rows, cols = _two_taps(hw[0], hw0[0]), _two_taps(hw[1], hw0[1])
+        return np.ascontiguousarray(np.concatenate([rows[n], cols[n]]))
+    key = ("lowres_taps", tuple(hw), tuple(hw0))
+    return (device_const(key + (0,), device, lambda: make(0)),
+            device_const(key + (1,), device, lambda: make(1)))
+
+
+def fused_temporal_refine_fast(alpha_src, prev_alpha, affine, use_warp, initialized,
+                               warp_blend, guide_src, prior_params, has_prior, knobs,
+                               out_dtype=torch.bfloat16, alpha_lowres_hw=None,
+                               guide_lanes_geom=None):
+    """Stages 3-9 with the analytic prior, as :func:`fused_temporal_refine`,
+    with one or both of the fast form's inputs: ``alpha_lowres_hw=(H, W)``
+    takes ``alpha_src`` as the head-grid logits ``[S, h0, w0]`` f32 (the
+    half-pixel upsample to ``(H, W)`` and the sigmoid in the kernel, else
+    the raw alpha ``[S, H, W]``); ``guide_lanes_geom=(fy, fx)`` takes
+    ``guide_src`` as the tap lanes ``[3*fy*fx, S, H/fy, W/fx]`` u8
+    (ops/layout.py::guide_lanes_s2d; else the planar guide).  Returns
+    (new_prev f32, refined in out_dtype).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    h, w = prev_alpha.shape[-2:]
+    yi, xi = separable_warp_indices(affine, (h, w))
+    table = scalar_table(knobs, use_warp, initialized, warp_blend,
+                         prior_params, has_prior)
+    if prev_alpha.device.type == "cpu":
+        return fused_temporal_refine_plain(alpha_src, prev_alpha, yi, xi, guide_src, table,
+                                           out_dtype, None, alpha_lowres_hw, guide_lanes_geom)
+    return _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype, None,
+                   alpha_lowres_hw, guide_lanes_geom)
+
+
+fused_temporal_refine_fast.launches = 0
 
 
 def refine_table(knobs, has_prior) -> torch.Tensor:

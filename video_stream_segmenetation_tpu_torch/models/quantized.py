@@ -448,6 +448,10 @@ class QuantizedMatteNetHD(torch.nn.Module):
       trunk kernel), or the trunk's u1 out and :func:`bf16_head`.
     """
 
+    # forward(lowres=True) gives the head-grid logits (refine_alpha_src=
+    # 'lowres': the refine kernel upsamples them itself)
+    supports_lowres_alpha = True
+
     def __init__(self, q: dict, stem_stride: int, head_upsample: int, device="cpu",
                  conv_impl: str = "xla", head_impl: str = "int8"):
         super().__init__()
@@ -509,5 +513,15 @@ class QuantizedMatteNetHD(torch.nn.Module):
             logits = planes.permute(0, 2, 3, 1)
         return torch.softmax(logits, dim=-1).contiguous()
 
-    def forward(self, frames_p: torch.Tensor) -> dict:
-        return {"alpha": self.upsample(self.trunk_logits(self.stem(frames_p)))}
+    def forward(self, frames_p: torch.Tensor, lowres: bool = False) -> dict:
+        """``{"alpha": ...}``; with ``lowres`` (one class) instead
+        ``{"alpha_logit_lr": [S, h0, w0] f32}``, the head-grid logits, and
+        no upsample or sigmoid is computed (the reference's
+        ``alpha_logit_lr``, there an output beside ``alpha`` that XLA drops
+        when unread)."""
+        logits = self.trunk_logits(self.stem(frames_p))
+        if lowres:
+            if self.num_classes != 1:
+                raise ValueError("lowres: the head-grid logits are served with one class")
+            return {"alpha_logit_lr": logits}
+        return {"alpha": self.upsample(logits)}

@@ -9,6 +9,7 @@ import functools
 import numpy as np
 import torch
 
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
 from video_stream_segmenetation_tpu_torch.ops.geometry import letterbox_inverse_map
 
 
@@ -63,8 +64,9 @@ def best_box_decode(coords: torch.Tensor, scores: torch.Tensor, video_hw,
         p0 = letterbox_inverse_map(p0, video_hw, input_size)
         p1 = letterbox_inverse_map(p1, video_hw, input_size)
     else:
-        s = torch.tensor([vw / input_size, vh / input_size], dtype=p0.dtype,
-                         device=p0.device)
+        s = device_const(("box_scale", vw, vh, input_size, p0.dtype), p0.device,
+                         lambda: torch.tensor([vw / input_size, vh / input_size],
+                                              dtype=p0.dtype))
         p0, p1 = p0 * s, p1 * s
     x0 = torch.clamp(p0[..., 0], 0, vw)
     y0 = torch.clamp(p0[..., 1], 0, vh)

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
+
 # the 5 FaceMesh anchor landmarks: eye outer corners, nose tip, inner lips
 ANCHOR_IDXS = (33, 263, 1, 13, 14)
 
@@ -56,10 +58,11 @@ def affine_from_landmarks(points_full: torch.Tensor, video_hw, mask_hw) -> torch
     """468 landmark positions in video pixels ``[..., 468, 2]`` -> the
     mask-space affine of the 5 anchors against :data:`REF_NORM`."""
     vh, vw = video_hw
-    idx = torch.as_tensor(ANCHOR_IDXS, device=points_full.device)
+    dev = points_full.device
+    idx = device_const("anchor_idxs", dev, lambda: torch.tensor(ANCHOR_IDXS))
     dst = torch.index_select(points_full, -2, idx)
-    ref = torch.tensor([(x * vw, y * vh) for x, y in REF_NORM],
-                       dtype=points_full.dtype, device=points_full.device)
+    ref = device_const(("ref_norm", vw, vh, points_full.dtype), dev, lambda: torch.tensor(
+        [(x * vw, y * vh) for x, y in REF_NORM], dtype=points_full.dtype))
     affine_v = estimate_similarity_transform(dst, ref.expand(dst.shape))
     return affine_video_to_mask(affine_v, video_hw, mask_hw)
 
@@ -79,7 +82,8 @@ def letterbox_inverse_map(pts: torch.Tensor, src_hw, target: int) -> torch.Tenso
     """Letterboxed square coordinates ``[..., 2]`` (x, y) -> source pixels:
     ``(pt - offset) / scale``."""
     scale, _, _, off_x, off_y = letterbox_params(src_hw, target)
-    off = torch.tensor([off_x, off_y], dtype=pts.dtype, device=pts.device)
+    off = device_const(("letterbox_off", off_x, off_y, pts.dtype), pts.device,
+                       lambda: torch.tensor([off_x, off_y], dtype=pts.dtype))
     return (pts - off) / scale
 
 

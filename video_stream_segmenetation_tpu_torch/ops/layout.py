@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_planar_mxu
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
 from video_stream_segmenetation_tpu_torch.ops.resize import (
     _interp_matrix,
     _nearest_taps,
@@ -82,12 +83,40 @@ def guide_from_s2d(xp: torch.Tensor, frame_hw, out_hw, block, channels=3,
     oh, ow = out_hw
     hp, wp = frame_hw[0] // block, frame_hw[1] // block
     fy, fx = oh // hp, ow // wp
-    g = xp[..., torch.as_tensor(sel, device=xp.device)]  # [..., hp, wp, nl]
+    g = xp[..., device_const(("guide_sel", tuple(sel)), xp.device,
+                             lambda: torch.as_tensor(sel))]  # [..., hp, wp, nl]
     *lead, _, _, _ = g.shape
     nd = len(lead)
     g = g.reshape(*lead, hp, wp, channels, fy, fx)
     g = g.permute(*range(nd), nd + 2, nd, nd + 3, nd + 1, nd + 4)
     return g.reshape(*lead, channels, oh, ow)
+
+
+def guide_lanes_s2d(xp: torch.Tensor, frame_hw, out_hw, block, channels=3,
+                    method="half_pixel"):
+    """The guide's raw tap lanes of packed frames ``[S, hp, wp, b*b*C]`` u8:
+    ``([nl, S, hp, wp] u8, (fy, fx))``, lane ``k = (c*fy + yy)*fx + xx``
+    holding guide pixel ``(c, fy*i + yy, fx*j + xx)`` at patch ``(i, j)``
+    (the reference's ``guide_lanes_s2d``, there a one-hot product, exact
+    for u8; here the lane gather).  ``None`` where the taps do not repeat
+    per patch."""
+    sel = guide_s2d_sel(frame_hw, out_hw, block, channels, method)
+    if sel is None:
+        return None
+    hp, wp = frame_hw[0] // block, frame_hw[1] // block
+    idx = device_const(("guide_sel", tuple(sel)), xp.device, lambda: torch.as_tensor(sel))
+    lanes = xp[..., idx].permute(3, 0, 1, 2).contiguous()
+    return lanes, (out_hw[0] // hp, out_hw[1] // wp)
+
+
+def lanes_to_planar(lanes: torch.Tensor, geom, channels=3) -> torch.Tensor:
+    """Reassemble tap lanes ``[nl, K, hp, wp]`` (:func:`guide_lanes_s2d`)
+    into the planar guide ``[K, C, hp*fy, wp*fx]`` u8 (the reference's
+    ``guide_from_gathered`` with block 1)."""
+    fy, fx = geom
+    _, k, hp, wp = lanes.shape
+    g = lanes.reshape(channels, fy, fx, k, hp, wp).permute(3, 0, 4, 1, 5, 2)
+    return g.reshape(k, channels, hp * fy, wp * fx)
 
 
 def packed_color(color_f32, block: int, device="cpu") -> torch.Tensor:

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
+
 
 def _axis_coords(out_size: int, in_size: int, method: str) -> np.ndarray:
     d = np.arange(out_size, dtype=np.float64)
@@ -53,8 +55,10 @@ def _interp_matrix(out_size: int, in_size: int, method: str) -> np.ndarray:
 
 
 def interp_matrix(out_size: int, in_size: int, method: str, device="cpu") -> torch.Tensor:
-    """:func:`_interp_matrix` as a new f32 tensor on ``device``."""
-    return torch.tensor(_interp_matrix(out_size, in_size, method), device=device)
+    """:func:`_interp_matrix` as an f32 tensor on ``device``, kept there
+    (ops/consts.py: callers must not write to it)."""
+    return device_const(("interp", out_size, in_size, method), device,
+                        lambda: _interp_matrix(out_size, in_size, method))
 
 
 def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, method: str,
@@ -65,15 +69,15 @@ def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, method: str,
     in_size = x.shape[axis]
     if in_size == out_size and method != "half_pixel":
         return convert(x)
-    i0, i1, w1 = _linear_taps(out_size, in_size, method)
-    dev = x.device
-    lo = convert(torch.index_select(x, axis, torch.as_tensor(i0, dtype=torch.long,
-                                                             device=dev)))
-    hi = convert(torch.index_select(x, axis, torch.as_tensor(i1, dtype=torch.long,
-                                                             device=dev)))
+    key = ("taps", out_size, in_size, method)
+    i0, i1, w1 = (device_const(key + (n,), x.device, lambda n=n: np.asarray(
+        _linear_taps(out_size, in_size, method)[n], np.int64 if n < 2 else np.float32))
+        for n in range(3))
+    lo = convert(torch.index_select(x, axis, i0))
+    hi = convert(torch.index_select(x, axis, i1))
     shape = [1] * x.ndim
     shape[axis] = out_size
-    w = torch.as_tensor(w1, dtype=lo.dtype, device=dev).reshape(shape)
+    w = w1.to(lo.dtype).reshape(shape)
     return lo * (1 - w) + hi * w
 
 

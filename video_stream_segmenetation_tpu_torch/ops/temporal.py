@@ -37,7 +37,7 @@ def temporal_ema(prev, current, ema, initialized, adapt=None):
 def affine_lowpass(last, update, gain, has_last, has_update):
     """lastAffine = lerp(lastAffine, update, gain) when an update arrives,
     the update itself when there was none yet (main.ts:77-94)."""
-    g = torch.as_tensor(gain, dtype=last.dtype, device=last.device)
+    g = torch.full((), gain, dtype=last.dtype, device=last.device)
     merged = last * (1.0 - g) + update * g
     taken = torch.where(has_last[:, None], merged, update)
     new_last = torch.where(has_update[:, None], taken, last)

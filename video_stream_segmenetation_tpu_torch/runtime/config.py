@@ -146,8 +146,22 @@ class PipelineStatics:
     # the port serves 'pico', 'micro', 'light' and 'full' with one class,
     # 'pico' and 'nano' with K (s2d only)
     matting_decoder: str = "full"
-    refine_alpha_src: str = "full"  # the port refuses 'lowres'
-    guide_kernel_unfold: bool = False  # the port refuses True
+    # the fused temporal refine's alpha: 'full' (the model's [S, mh, mw]
+    # f32 alpha) or 'lowres' (the head-grid logits; the x4 upsample and the
+    # sigmoid run in the kernel, so the full-resolution alpha is never
+    # written).  'auto' resolves as the reference resolves it off a TPU:
+    # 'full' (the reference turns it on on the TPU only)
+    refine_alpha_src: str = "full"
+    # True: the kernel takes the raw guide tap lanes [nl, S, hp, wp] u8
+    # (ops/layout.py::guide_lanes_s2d) and unfolds them itself, so the
+    # planar guide is never built; False: the planar u8 guide.  'auto'
+    # resolves off, as the reference off a TPU
+    guide_kernel_unfold: Any = False
+    # where the lanes come from when guide_kernel_unfold is on: 'gather'
+    # (gathered on the card from the packed frames) or 'host' (the step
+    # takes a (packed, lanes) tuple; runtime/native.py::FramePool emits the
+    # lanes while it packs)
+    guide_source: str = "gather"
     refined_dtype: str = "f32"  # refined alpha: 'f32' or 'bf16'
     # multi-class mode (BASELINE config 5): K > 1 segmentation classes,
     # class 0 the background; the composite applies one effect a class

@@ -10,7 +10,10 @@ multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
     floor(small*255+0.5);
   or packed u8 frames [S, H/b, W/b, b*b*3] -> int8 MatteNetHD (bf16 stem,
     trunk kernel, x4 upsample, sigmoid), and the planar u8 guide as lanes
-    of the packed frames;
+    of the packed frames; with refine_alpha_src='lowres' the head-grid
+    logits instead (the refine kernel upsamples them), with
+    guide_kernel_unfold=True the guide's raw tap lanes (gathered here, or
+    with guide_source='host' handed in beside the packed frames);
     -> face subpath, compacted to the <= K streams whose cadence fires,
        on the full-resolution frames (frame coordinates) or the guide
        (mask coordinates): letterbox -> FaceFinder -> best box -> prior
@@ -22,6 +25,10 @@ multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
     -> natural: the fused composite kernel (use_fused_composite=True) or
        the planar upsample and blend; s2d: the packed composite
     -> affine low-pass with the face path's updates
+
+make_range_step and make_round_step serve the scheduler's rotation: a
+group of rows stepped out of the full state and written back in place,
+the face min-interval gate on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from video_stream_segmenetation_tpu_torch.kernels.composite_fused import (
 from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
     fused_refine,
     fused_temporal_refine,
+    fused_temporal_refine_fast,
     fused_temporal_refine_plane,
 )
 from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
@@ -51,6 +59,9 @@ from video_stream_segmenetation_tpu_torch.ops.layout import (
     alpha_composite_s2d,
     effect_algebra,
     guide_from_s2d,
+    guide_lanes_s2d,
+    guide_s2d_sel,
+    lanes_to_planar,
     multiclass_composite_s2d,
 )
 from video_stream_segmenetation_tpu_torch.ops.prior import face_prior_mask, face_prior_params
@@ -76,8 +87,6 @@ _SERVED = (
     ("upsample_method", "half_pixel"),
     ("background", "image"),
     ("face_tracking", "landmarks"),
-    ("refine_alpha_src", "full"),
-    ("guide_kernel_unfold", False),
     ("affine_mode", "exact"),
     ("temporal_filter", "ema"),
     ("warp_blend_mode", "lerp"),
@@ -109,6 +118,12 @@ _ALLOWED = (
     ("warp_impl", ("separable", "exact")),
     ("upsample_precision", ("fast", "exact")),
 )
+# the fast refine's inputs (single class); 'auto' resolves as off the TPU
+_ALLOWED_FAST = (
+    ("refine_alpha_src", ("full", "lowres", "auto")),
+    ("guide_kernel_unfold", (False, True, "auto")),
+    ("guide_source", ("gather", "host")),
+)
 _ALLOWED_S2D = (
     ("int8_conv_impl", ("xla", "pallas")),
     ("int8_head_impl", ("int8", "bf16")),
@@ -126,7 +141,9 @@ def check_statics(statics: PipelineStatics) -> None:
     layout = statics.frame_layout
     if multiclass:
         served = ((("frame_layout", "s2d"), ("face_path", False)) + _SERVED
-                  + _SERVED_LAYOUT["s2d"])
+                  + _SERVED_LAYOUT["s2d"] + (("refine_alpha_src", "full"),
+                                             ("guide_kernel_unfold", False),
+                                             ("guide_source", "gather")))
     elif layout not in _SERVED_LAYOUT:
         _refuse("frame_layout", layout, tuple(_SERVED_LAYOUT))
     else:
@@ -137,7 +154,7 @@ def check_statics(statics: PipelineStatics) -> None:
         got = getattr(statics, field)
         if got != want or type(got) is not type(want):
             _refuse(field, got, want, suffix)
-    allowed = _ALLOWED
+    allowed = _ALLOWED if multiclass else _ALLOWED + _ALLOWED_FAST
     if layout == "s2d":
         decoders = ("pico", "nano") if multiclass else ("pico", "micro", "light", "full")
         allowed += (("matting_decoder", decoders),) + _ALLOWED_S2D
@@ -218,22 +235,28 @@ def first_k(fire: torch.Tensor, k: int) -> torch.Tensor:
 
 def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
                          frame_idx: torch.Tensor, face_gate: torch.Tensor,
-                         statics: PipelineStatics, prior_form: str = "params"):
+                         statics: PipelineStatics, prior_form: str = "params",
+                         src_lanes_geom=None):
     """Cadence-compacted stage 6 on u8 images: the planar guide ``[S, 3,
     mh, mw]`` (``face_input='guide'``: the face path works in mask
-    coordinates) or the natural frames ``[S, H, W, 3]``
+    coordinates), or with ``src_lanes_geom=(fy, fx)`` the guide's tap lanes
+    ``[nl, S, hp, wp]`` (gathered on the stream axis; only the gathered
+    streams are reassembled), or the natural frames ``[S, H, W, 3]``
     (``face_input='frames'``: frame coordinates).  The streams whose
     cadence fires (``frame_idx % lmk_interval == 0`` and the engine's
     ``face_gate``) are gathered in u8, at most K = ``face_batch`` or
     ceil(S / lmk_interval) of them (overflow streams skip this round, as
     in the reference), converted to f32 0..1 and scattered back after.
     Returns what :func:`face_subpath` returns, for all S streams."""
-    s = src_u8.shape[0]
+    axis = 1 if src_lanes_geom else 0
+    s = src_u8.shape[axis]
     planar = statics.face_input == "guide"
     fstat = dataclasses.replace(statics, frame_hw=statics.mask_hw) if planar else statics
     fire = ((frame_idx % statics.lmk_interval) == 0) & face_gate
 
     def to_f32(g):
+        if src_lanes_geom:
+            g = lanes_to_planar(g, src_lanes_geom)
         return (g.permute(0, 2, 3, 1) if planar else g).to(torch.float32) / 255.0
 
     k = statics.face_batch or max(1, -(-s // statics.lmk_interval))
@@ -241,7 +264,7 @@ def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
         return face_subpath(models, to_f32(src_u8), fire, fstat, prior_form)
     idxs = first_k(fire, k)
     sel_valid = idxs < s
-    f_sel = to_f32(torch.index_select(src_u8, 0, torch.clamp(idxs, max=s - 1)))
+    f_sel = to_f32(torch.index_select(src_u8, axis, torch.clamp(idxs, max=s - 1)))
     outs = face_subpath(models, f_sel, sel_valid, fstat, prior_form)
 
     def scatter(v):  # row s takes the fill indices and is dropped
@@ -309,6 +332,39 @@ def make_multiclass_step(model, statics: PipelineStatics):
     return step
 
 
+def fast_routing(model, statics: PipelineStatics) -> dict:
+    """The reference's build-time routing of the fast refine's inputs
+    (runtime/pipeline.py:476-539): ``use_lowres_alpha``,
+    ``use_guide_lanes``, ``lane_geom`` ((fy, fx) or None) and
+    ``host_lanes``, each under the reference's conditions, with what the
+    port fixes: the fused refine on (the port refuses
+    ``use_fused_refine=False``), a feed-forward matting model, no stem-aux
+    guide, no debug stages.  'auto' resolves as the reference resolves it
+    off a TPU (its ``_on_tpu`` is False there): off."""
+    fh, fw = statics.frame_hw
+    mh, mw = statics.mask_hw
+    blk = statics.s2d_block
+    s2d = statics.frame_layout == "s2d"
+    use_fused_tr = statics.num_classes == 1 and statics.warp_impl == "separable"
+    analytic_prior = use_fused_tr and statics.prior_impl != "plane"
+    planar_guide = (use_fused_tr and s2d and statics.matting_input == "native"
+                    and statics.guide_impl == "nearest_u8"
+                    and (not statics.face_path
+                         or (statics.face_compact and statics.face_tracking != "translation")))
+    use_lowres_alpha = bool(
+        analytic_prior and statics.matting_input == "native"
+        and getattr(model, "supports_lowres_alpha", False)
+        and getattr(model, "head_upsample", 1) > 1
+        and statics.refine_alpha_src == "lowres")
+    use_guide_lanes = bool(
+        planar_guide and analytic_prior and statics.guide_kernel_unfold is True
+        and guide_s2d_sel((fh, fw), (mh, mw), blk) is not None)
+    lane_geom = (mh // (fh // blk), mw // (fw // blk)) if use_guide_lanes else None
+    return {"use_lowres_alpha": use_lowres_alpha, "use_guide_lanes": use_guide_lanes,
+            "lane_geom": lane_geom,
+            "host_lanes": use_guide_lanes and statics.guide_source == "host"}
+
+
 def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
     """step(state, frames, backgrounds, knobs, face_gate) -> (new_state,
     outputs); with ``statics.num_classes > 1`` the step of
@@ -325,7 +381,10 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     on the separable route) ``face_prior_params``, as the reference's step
     exports them (its plane routes export ``face_has_prior`` only with
     ``debug_face_outputs``; here it is a free view of the step's own
-    tensor)."""
+    tensor).
+
+    With the fast refine's ``host_lanes`` on (:func:`fast_routing`), frames
+    is a ``(packed, lanes [nl, S, hp, wp] u8)`` tuple."""
     check_statics(statics)
     if statics.num_classes > 1:
         return make_multiclass_step(model, statics)
@@ -341,8 +400,15 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     fused_comp = natural and statics.use_fused_composite is True and fh % ROW_BLOCK == 0
     out_dtype = torch.bfloat16 if statics.refined_dtype == "bf16" else torch.float32
     wb = statics.warp_blend_weight
+    route = fast_routing(model, statics)
+    lowres = route["use_lowres_alpha"]
+    lane_geom = route["lane_geom"]
+    host_lanes = route["host_lanes"]
 
     def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
+        lanes = None
+        if host_lanes:
+            frames, lanes = frames
         s = frames.shape[0]
         dev = frames.device
         if natural:
@@ -352,13 +418,21 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
             guide = guide.permute(0, 3, 1, 2).contiguous()
         else:
-            alpha_raw = model(frames)["alpha"]
-            guide = guide_from_s2d(frames, (fh, fw), (mh, mw), blk).contiguous()
+            # lowres: the head-grid logits; the refine kernel upsamples them
+            alpha_raw = (model(frames, lowres=True)["alpha_logit_lr"] if lowres
+                         else model(frames)["alpha"])
+            if lane_geom is None:
+                guide = guide_from_s2d(frames, (fh, fw), (mh, mw), blk)
+            elif lanes is None:
+                guide = guide_lanes_s2d(frames, (fh, fw), (mh, mw), blk)[0]
+            else:
+                guide = lanes
+            guide = guide.contiguous()
         alpha_raw = alpha_raw.to(torch.float32).contiguous()
         if statics.face_path:
             prior, has_prior, affine_update, has_update, det_score = face_subpath_compact(
                 face_models, frames if natural else guide, state.frame_idx, face_gate,
-                statics, prior_form)
+                statics, prior_form, src_lanes_geom=lane_geom)
             prior = prior.contiguous()
         else:
             prior = torch.zeros((s, 4) if prior_form == "params" else (s, mh, mw),
@@ -376,6 +450,11 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             new_prev, a = temporal_ema(state.prev_alpha, base, knobs.ema, state.initialized,
                                        adapt=knobs.ema_adapt)
             a = fused_refine(a.contiguous(), guide, prior, has_prior, knobs)
+        elif lowres or lane_geom is not None:
+            new_prev, a = fused_temporal_refine_fast(
+                alpha_raw, state.prev_alpha, state.affine, use_warp, state.initialized, wb,
+                guide, prior, has_prior, knobs, out_dtype=out_dtype,
+                alpha_lowres_hw=(mh, mw) if lowres else None, guide_lanes_geom=lane_geom)
         else:
             refine = fused_temporal_refine if prior_form == "params" \
                 else fused_temporal_refine_plane
@@ -413,3 +492,77 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
         return new_state, outputs
 
     return step
+
+
+def rows_of(tree, rows: slice):
+    """A StreamState or PipelineKnobs of the rows ``rows`` of ``tree``, as
+    views into its tensors."""
+    return type(tree)(**{f.name: getattr(tree, f.name)[rows]
+                         for f in dataclasses.fields(tree)})
+
+
+def write_rows(group: StreamState, new: StreamState) -> None:
+    """Copy a group step's new state into the group's views of the full
+    state, in place (fields the step passed through unchanged are the
+    views themselves)."""
+    for f in dataclasses.fields(group):
+        dst, src = getattr(group, f.name), getattr(new, f.name)
+        if src is not dst:
+            dst.copy_(src)
+
+
+def make_range_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
+    """The group step of the scheduler's rotation (the reference's
+    ``make_range_step``): ``range_step(full_state, i0, frames, full_bgs,
+    full_knobs, face_last, now, min_interval, gs) -> (full_state,
+    face_last, outputs)``.
+
+    Rows ``[i0, i0+gs)`` of the full state, knobs and backgrounds (one
+    background row is broadcast) are sliced out as views, stepped, and the
+    new rows are written back in place into the full state's tensors; no
+    other row is read or written.  The face clock ``face_last [S]`` f32
+    (seconds since the engine's epoch of each stream's last applied face
+    round) and the scalars ``now`` and ``min_interval`` are tensors on the
+    step's device: the gate compare and the applied-scatter run there, and
+    the step reads nothing back to the host.  ``frames`` as the step takes
+    them (a ``(packed, lanes)`` tuple with host lanes)."""
+    step = make_step(model, statics, face_models)
+
+    def range_step(full_state: StreamState, i0: int, frames, full_bgs, full_knobs,
+                   face_last, now, min_interval, gs: int):
+        rows = slice(i0, i0 + gs)
+        gstate = rows_of(full_state, rows)
+        gbgs = full_bgs if full_bgs.shape[0] == 1 else full_bgs[rows]
+        last_g = face_last[rows]
+        face_gate = (now - last_g) >= min_interval
+        new_g, out = step(gstate, frames, gbgs, rows_of(full_knobs, rows), face_gate)
+        write_rows(gstate, new_g)
+        last_g.copy_(torch.where(out["face_applied"], now, last_g))
+        return full_state, face_last, out
+
+    return range_step
+
+
+def make_round_step(model, statics: PipelineStatics, group_sizes,
+                    face_models: FaceModels | None = None):
+    """One whole rotation round (the reference's ``make_round_step``): every
+    group's range step over the full state, at the schedule's offsets, in
+    order.  ``round_step(full_state, frames_list, full_bgs, full_knobs,
+    face_last, now, min_interval) -> (full_state, face_last, [outputs a
+    group])``.  The round shares one knob snapshot and one ``now``."""
+    rstep = make_range_step(model, statics, face_models)
+    sizes = [int(g) for g in group_sizes]
+    offs = [0]
+    for g in sizes:
+        offs.append(offs[-1] + g)
+
+    def round_step(full_state, frames_list, full_bgs, full_knobs, face_last, now,
+                   min_interval):
+        outs = []
+        for g, gs in enumerate(sizes):
+            full_state, face_last, out = rstep(full_state, offs[g], frames_list[g], full_bgs,
+                                               full_knobs, face_last, now, min_interval, gs)
+            outs.append(out)
+        return full_state, face_last, outs
+
+    return round_step
