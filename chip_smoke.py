@@ -18,9 +18,13 @@ Phases, each announced by one line on stdout:
      u1 levels, the fused 3x3 conv in its four forms (act or not, residual
      or not) at plan B's layer shapes, the u1-out trunk at pico widths, the
      natural layout's fused composite (720p, 288x512 alpha), the
-     plane-prior temporal refine, fused_refine (f32 out), and the fast
+     plane-prior temporal refine, fused_refine (f32 out), the fast
      form of the temporal refine in its three forms (head-grid logits
-     [64, 72, 128], tap lanes [48, 64, 72, 128], both);
+     [64, 72, 128], tap lanes [48, 64, 72, 128], both), and the stochastic
+     rounding f32 -> bf16 on 64 M values (+-0, subnormals, exact values,
+     +-inf, NaNs, values next to bf16's largest, normals at many scales):
+     bit for bit, every output one of its two bf16 neighbours, a block of
+     one value rounded up at its probability within 5 sigma;
   4-16. serve: Engine(64, ...) answers 8 steps of 720p frames in thirteen
      phases, each with every launch count set to 0 just before it and read
      just after:
@@ -70,7 +74,16 @@ Phases, each announced by one line on stdout:
      fast_int8_pico as its preset stands under per-group step_pipelined:
      prev_alpha within 1e-5, the refined alpha within 1e-2, IoU within
      0.001; then on each route a round held as in phase 17 (trunk, fast
-     and analytic refine at 24 and 16 streams).
+     and analytic refine at 24 and 16 streams);
+  19. train: the plan-D pico MatteNetHD at its full widths, fit on the
+     card with tools/train_flagship.py's schedule at fewer steps (20 at
+     240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
+     grad_norm finite and every leaf moved; one step's forward and
+     backward on the card against the CPU (bf16 and f32); the trained
+     tree stochastically rounded to bf16 through the kernel, leaf by
+     leaf, quantized by the port's quantizer and served one step of
+     Engine(8, fast_int8_pico, face_path=False) through the CUDA trunk;
+     it prints ms a step (CUDA events) and the peak memory.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result line {"ok": true, "device":
 {...}}.  Any failure raises and exits non-zero; without a card it exits
@@ -706,6 +719,83 @@ def check_composite(dev) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+
+SR_N = 64 << 20  # 64 M f32 elements (256 MB)
+SR_BLOCK = 4 << 20  # a block of one value rounded up with a known probability
+SR_OPS = 30  # integer operations an element: a Philox draw (10 rounds) per 4, the add
+
+
+def stochastic_inputs(dev) -> tuple[torch.Tensor, int, float]:
+    """64 M f32 values: +-0, subnormals, values exact in bf16, +-inf, NaNs
+    (quiet, signalling, payloads in the low and the high bits), values next
+    to bf16's largest finite value, a block of one value whose low 16 bits
+    make it round up with probability ``p``, and random normals at many
+    scales.  Returns (x, the block's offset, p)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(SR_N, generator=gen, device=dev)
+    x *= torch.pow(10.0, torch.randint(-30, 30, (SR_N,), generator=gen, device=dev).float())
+    bits = x.view(torch.int32)
+    q = SR_N // 16
+    bits[:q] &= -65536  # exact in bf16
+    mag = torch.randint(0, 1 << 23, (q,), generator=gen, device=dev, dtype=torch.int32)
+    neg = torch.randint(0, 2, (q,), generator=gen, device=dev).bool()
+    bits[q: 2 * q] = torch.where(neg, mag | -(1 << 31), mag)  # subnormals, +-0
+    ints = lambda *v: torch.tensor(  # noqa: E731
+        np.asarray(v, np.uint32).view(np.int32), device=dev)
+    special = ints(0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7F800001,
+                   0xFF800001, 0x7FFFFFFF, 0xFFFFFFFF, 0x00000000, 0x80000000)
+    near_max = ints(0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000, 0x7F7F0001, 0xFF7F0000)
+    n_sp = 1 << 16
+    bits[2 * q: 2 * q + n_sp] = special.repeat(n_sp // len(special) + 1)[:n_sp]
+    bits[2 * q + n_sp: 2 * q + 2 * n_sp] = near_max.repeat(n_sp // len(near_max) + 1)[:n_sp]
+    low = 19661  # ~0.3 of 2^16
+    off = 3 * q
+    bits[off: off + SR_BLOCK] = 0x3F810000 + low  # 1.0078125 + a share of the gap
+    return x, off, low / 65536.0
+
+
+def check_stochastic_round(dev) -> dict:
+    """The stochastic-rounding kernel on 64 M mixed f32 values, against its
+    plain version bit for bit (NaN payloads included); every finite output
+    one of its input's two bf16 neighbours; the block of one value rounded
+    up at a share within 5 sigma of its probability."""
+    from video_stream_segmenetation_tpu_torch.kernels import stochastic_round as SR
+
+    x, off, p = stochastic_inputs(dev)
+    got = SR.stochastic_round_bf16(x, 123)
+    want = SR.stochastic_round_bf16_plain(x, 123)
+    torch.cuda.synchronize()
+    gb, wb = got.view(torch.int16), want.view(torch.int16)
+    apart = int((gb != wb).sum().item())
+    finite = torch.isfinite(want)
+    err = (got.float() - want.float())[finite].abs().max().item() if apart else 0.0
+    xb = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ob = gb.to(torch.int64) & 0xFFFF
+    xnan = torch.isnan(x)
+    neighbour = (ob == (xb >> 16)) | (ob == (xb >> 16) + 1)
+    not_neighbour = int((~neighbour & ~xnan).sum().item())
+    nan_kept = bool(torch.equal(ob[xnan], (xb[xnan] >> 16) | 0x40))
+    up = (ob[off: off + SR_BLOCK] != (xb[off] >> 16)).double().mean().item()
+    sigma = math.sqrt(p * (1 - p) / SR_BLOCK)
+    say(f"  stochastic_round: {SR_N} values, {apart} bit patterns apart from the plain "
+        f"version (tolerance 0), max_abs_err {err:.3e}; {not_neighbour} non-NaN outputs "
+        f"off their two bf16 neighbours; NaNs quiet and signed {nan_kept}; rounded up "
+        f"{up:.6f} of a block of {SR_BLOCK} at p = {p:.6f} ({(up - p) / sigma:+.2f} sigma)")
+    if apart or not_neighbour or not nan_kept or abs(up - p) > 5 * sigma:
+        raise AssertionError("stochastic rounding kernel: disagrees with its plain version "
+                             "or off its distribution")
+    ms = cuda_time_ms(lambda: SR.stochastic_round_bf16(x, 123), 20)
+    plain_ms = cuda_time_ms(lambda: SR.stochastic_round_bf16_plain(x, 123), 2)
+    bound_ms, bound_by = bound(6 * SR_N, SR_OPS * SR_N, F32_OPS_PER_S)
+    say(f"  stochastic_round: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; 6 B an element); no single PyTorch call rounds stochastically")
+    del x, got, want
+    return {"name": "stochastic_round", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/stochastic_round.cu",
+            "replaces": "video_stream_segmenetation_tpu/utils/quantize.py:91",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
 def synthetic_frames(rng, base, t):
     """Noise background with a bright ellipse whose centre moves with t;
     returns (frames, ellipse mask at frame resolution)."""
@@ -783,6 +873,7 @@ def _counters():
         conv_int8,
         decoder_int8,
         refine_fused,
+        stochastic_round,
         trunk_int8,
     )
 
@@ -797,7 +888,8 @@ def _counters():
             "fused_refine": refine_fused.fused_refine,
             "composite_fused": composite_fused.fused_composite,
             "decoder_int8": decoder_int8.fused_decoder_level,
-            "conv3x3_i8_fused": conv_int8.conv3x3_i8_fused}
+            "conv3x3_i8_fused": conv_int8.conv3x3_i8_fused,
+            "stochastic_round": stochastic_round.stochastic_round_bf16}
 
 
 def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
@@ -1247,6 +1339,189 @@ def trunk_err(model, x0) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+
+# the train phase: tools/train_flagship.py's pico job at fewer steps
+TRAIN_STEPS, FT_STEPS = 20, 5
+STEP_HW, STEP_BATCH = (240, 320), 4
+# one step's forward and backward on the card against the CPU, the same
+# tree and batch: bf16 (the trained dtype) by the loss within 1e-2 relative
+# and a gradient cosine of at least 0.99 a leaf (cuDNN and the CPU round
+# their bf16 convolutions' sums at other places; the JAX-vs-port bars of
+# tests/test_torch_train.py); f32 with TF32 off by the loss within 1e-4 and
+# each leaf's gradient within 1e-3 relative L2 (cuDNN's f32 algorithms sum
+# in other orders than the CPU's, through a whole backward pass)
+STEP_BF16_LOSS_TOL, STEP_BF16_COS = 1e-2, 0.99
+STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-3
+# then one whole train_step in f32 on each side (the clip, AdamW's moments,
+# its bias correction and decay on every leaf, the update applied): each
+# leaf's first and second moments and its update (the parameter after less
+# before) within 1e-3 relative L2 of the CPU's.  The moments carry the
+# clipped gradients' gap (~1e-6); the first update is near lr * sign(g), so
+# it departs only where a gradient near 0 changes sign, and by the rounding
+# of p + u in f32 (an ulp of p, ~1e-5 of u)
+STEP_F32_UPDATE_TOL = 1e-3
+
+
+def fit_timed(model, **fit_kw) -> dict:
+    """``train.loop.fit`` on the card with a CUDA event after every step:
+    the trained tree, the history, each step's losses and grad_norm, the
+    ms between consecutive steps' ends (the batch's generation and the
+    step), the peak device memory."""
+    from video_stream_segmenetation_tpu_torch.train.loop import fit
+
+    events, seen = [], []
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        seen.append(torch.stack([metrics["loss"], metrics["grad_norm"]]))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, history = fit(model, on_step=on_step, **fit_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    loss, gnorm = torch.stack(seen).cpu().numpy().T
+    return {"tree": tree, "history": history, "loss": loss, "grad_norm": gnorm,
+            "ms": ms, "wall_s": wall, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def step_vs_cpu(tree, dev) -> dict:
+    """One training step's forward and backward (the matting loss, the
+    gradient of every leaf) on the card and on the CPU, from the same tree
+    and the same synthetic batch (batch 4 at 240x320, made on the CPU), in
+    bf16 and in f32; then one whole f32 ``train_step`` on each side from a
+    fresh optimizer, its moments and updates leaf by leaf."""
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+    from video_stream_segmenetation_tpu_torch.train import flagship as FL
+    from video_stream_segmenetation_tpu_torch.train.loop import synthetic_matting_batch
+    from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
+    from video_stream_segmenetation_tpu_torch.train.step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    frames, gt = synthetic_matting_batch(torch.Generator().manual_seed(3), STEP_BATCH, STEP_HW)
+    res = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        side = {}
+        for d in ("cpu", dev):
+            m = MatteNetHD(10, 4, "pico", dtype=dt, params=tree, device=d)
+            fr, g = frames.to(d), gt.to(d)
+            with pinned():
+                loss, _ = matting_loss(m(fr), g, fr)
+                grads = torch.autograd.grad(loss, list(m.parameters()))
+            side[str(d)] = (loss.item(), [t.double().cpu().flatten() for t in grads])
+        (lc, gc), (lg, gg) = side["cpu"], side[str(dev)]
+        cos = min(float(a @ b / max(a.norm() * b.norm(), 1e-30)) for a, b in zip(gc, gg))
+        rel = max(float((a - b).norm() / max(b.norm(), 1e-30)) for a, b in zip(gg, gc))
+        res[name] = {"loss_rel": abs(lg - lc) / abs(lc), "min_cos": cos, "max_rel_l2": rel,
+                     "loss_card": lg, "loss_cpu": lc}
+
+    side = {}
+    for d in ("cpu", dev):
+        m = MatteNetHD(10, 4, "pico", dtype=torch.float32, params=tree, device=d)
+        tx = make_optimizer(FL.LR)
+        state, _ = init_train_state(m, tx)
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        with pinned():
+            state, _ = make_train_step(m, tx)(state, frames.to(d), gt.to(d))
+        flat = lambda t: t.detach().double().cpu().flatten()  # noqa: E731
+        side[str(d)] = {k: (flat(p - before[k]), flat(state.opt_state.mu[k]),
+                            flat(state.opt_state.nu[k])) for k, p in state.params.items()}
+    gaps = [[float((g - c).norm() / max(c.norm(), 1e-30)) for g, c in zip(side[str(dev)][k], cs)]
+            for k, cs in side["cpu"].items()]
+    res["update"] = {"update": max(g[0] for g in gaps), "mu": max(g[1] for g in gaps),
+                     "nu": max(g[2] for g in gaps), "leaves": len(gaps)}
+    return res
+
+
+def phase_train(dev, counters: dict) -> dict:
+    """The plan-D pico MatteNetHD trained on the card at its full widths
+    (c0 128, c2 128, c3 192) with tools/train_flagship.py's schedule at
+    fewer steps, held against a CPU step; the trained tree stochastically
+    rounded to bf16 through the kernel, quantized by the port's quantizer
+    and served one step through the CUDA trunk.  ``counters`` are set to 0
+    before and read after."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.kernels import stochastic_round as SR
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD, init_params
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+    from video_stream_segmenetation_tpu_torch.train import flagship as FL
+    from video_stream_segmenetation_tpu_torch.utils import quantize as UQ
+
+    for c in counters.values():
+        c.launches = 0
+    model = MatteNetHD(FL.STEM_STRIDE, FL.HEAD_UPSAMPLE, "pico", device=dev)
+    pre = fit_timed(model, hw=FL.PRETRAIN_HW, batch=FL.PRETRAIN_BATCH, steps=TRAIN_STEPS,
+                    lr=FL.LR, log_every=10)
+    ft = fit_timed(model, hw=FL.SERVE_HW, batch=FL.SERVE_BATCH, steps=FT_STEPS, lr=FL.LR / 3,
+                   log_every=10, init_params=pre["tree"], seed=1)
+    for label, r in (("pretrain", pre), ("fine-tune", ft)):
+        if not (np.isfinite(r["loss"]).all() and np.isfinite(r["grad_norm"]).all()):
+            raise AssertionError(f"train ({label}): a loss or grad_norm is not finite: "
+                                 f"{r['loss']} {r['grad_norm']}")
+    start = bridge.flatten(init_params("pico", 0))
+    trained = bridge.flatten(ft["tree"])
+    still = [k for k, v in start.items() if np.array_equal(v, trained[k])]
+    if still or not all(np.isfinite(v).all() for v in trained.values()):
+        raise AssertionError(f"train: leaves that did not move or are not finite: {still}")
+
+    held = step_vs_cpu(ft["tree"], dev)
+    b, f, u = held["bf16"], held["f32"], held["update"]
+    if not (b["loss_rel"] <= STEP_BF16_LOSS_TOL and b["min_cos"] >= STEP_BF16_COS
+            and f["loss_rel"] <= STEP_F32_LOSS_TOL and f["max_rel_l2"] <= STEP_F32_GRAD_TOL
+            and max(u["update"], u["mu"], u["nu"]) <= STEP_F32_UPDATE_TOL):
+        raise AssertionError(f"train: the card's step departs from the CPU's: {held}")
+
+    # every leaf stochastically rounded to bf16 through the quantization
+    # module's entry point (the kernel), each held against the plain version
+    # bit for bit: the leaves' lengths reach the kernel's scalar tail
+    rounded, sr_err = {}, 0.0
+    for i, (k, v) in enumerate(trained.items()):
+        x = torch.as_tensor(v, device=dev)
+        r = UQ.stochastic_round_bf16(x, seed=i)
+        want = SR.stochastic_round_bf16_plain(x, seed=i)
+        xb = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        rb = r.view(torch.int16).to(torch.int64) & 0xFFFF
+        if not torch.equal(r.view(torch.int16), want.view(torch.int16)):
+            sr_err = max(sr_err, (r.float() - want.float()).abs().max().item())
+            raise AssertionError(f"train: {k} {tuple(x.shape)} rounded apart from the plain "
+                                 f"version (tolerance 0), max_abs_err {sr_err:.3e}")
+        if not bool(((rb == xb >> 16) | (rb == (xb >> 16) + 1)).all()):
+            raise AssertionError(f"train: {k} rounded off its bf16 neighbours")
+        rounded[k] = r.float().cpu().numpy()
+    qerr = UQ.quantization_error({k: torch.as_tensor(v, device=dev) for k, v in rounded.items()})
+    rounded = bridge.unflatten(rounded)
+
+    # the rounded tree quantized by the port's quantizer, served one step
+    eng = Engine(8, preset("fast_int8_pico", face_path=False),
+                 params=bridge.params_from_jax(rounded, FL.STEM_STRIDE, "pico"), device=dev)
+    eng.admit_all()
+    rng = np.random.default_rng(0)
+    base = (rng.random((8, *FRAME_HW, 3)) * 90).astype(np.uint8)
+    frames, _ = synthetic_frames(rng, base, 0)
+    out = eng.process(frames)
+    torch.cuda.synchronize()
+    alpha = out["alpha"].float()
+    if tuple(alpha.shape) != (8, *eng.statics.mask_hw) or tuple(out["frame"].shape) != \
+            (8, *FRAME_HW, 3) or not bool(torch.isfinite(alpha).all()) \
+            or alpha.min() < 0 or alpha.max() > 1:
+        raise AssertionError(f"train: the served step gave alpha {tuple(alpha.shape)}, "
+                             f"frame {tuple(out['frame'].shape)}")
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"stochastic_round": len(trained), "trunk_int8": 1, "refine_fused": 1}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    return {"pre": pre, "ft": ft, "held": held, "launches": launches, "leaves": len(trained),
+            "shapes": sorted({tuple(v.shape) for v in trained.values()}), "sr_err": sr_err,
+            "qerr": qerr, "alpha_mean": alpha.mean().item()}
+
 def hold(by_name: dict, phase: str, held: dict) -> None:
     """Print a held round's errors and fold them into the kernels'
     ``max_abs_err``."""
@@ -1270,7 +1545,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 5 + len(PHASES)
+    steps = 6 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -1284,7 +1559,7 @@ def main() -> int:
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
     kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
                check_u1_trunk(dev), check_composite(dev), check_refine_plane(dev),
-               check_fused_refine(dev), check_refine_fast(dev)]
+               check_fused_refine(dev), check_refine_fast(dev), check_stochastic_round(dev)]
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -1363,6 +1638,45 @@ def main() -> int:
         f"pipelined (three ticks)")
     hold(by_name, "routes", rb["held"])
     del rb
+    torch.cuda.empty_cache()
+
+    say(f"[{6 + len(PHASES)}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
+        f"the card: fit {TRAIN_STEPS} steps at 240x320 batch 32 lr 5e-4, then {FT_STEPS} at "
+        "720x1280 batch 8 lr 5e-4/3 seed 1; one step against the CPU; the trained tree "
+        "stochastically rounded, quantized and served one step of Engine(8, fast_int8_pico, "
+        "face_path=False)")
+    counters = _counters()
+    tr = phase_train(dev, counters)
+    for counter, got in tr["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    for label, r in (("pretrain 240x320 b32", tr["pre"]), ("fine-tune 720x1280 b8", tr["ft"])):
+        say(f"  train {label}: median step {statistics.median(r['ms'][1:]):.2f} ms (CUDA "
+            f"events between steps' ends: the batch's generation and the step; median of "
+            f"{len(r['ms']) - 1} intervals after the first), {r['wall_s']:.1f} s for the "
+            f"fit, peak device memory "
+            f"{r['peak_mib']:.0f} MiB; losses {[round(float(v), 4) for v in r['loss']]}; "
+            f"grad_norm {[round(float(v), 3) for v in r['grad_norm']]}; history "
+            f"{r['history']}; {smi}")
+    h = tr["held"]
+    say(f"  train: card vs CPU step (batch 4 at 240x320, the trained tree): bf16 loss "
+        f"{h['bf16']['loss_card']:.6f} vs {h['bf16']['loss_cpu']:.6f} (relative "
+        f"{h['bf16']['loss_rel']:.2e}, tolerance {STEP_BF16_LOSS_TOL:g}), least gradient "
+        f"cosine {h['bf16']['min_cos']:.5f} (at least {STEP_BF16_COS}); f32 loss relative "
+        f"{h['f32']['loss_rel']:.2e} (tolerance {STEP_F32_LOSS_TOL:g}), largest gradient "
+        f"relative L2 {h['f32']['max_rel_l2']:.2e} (tolerance {STEP_F32_GRAD_TOL:g}); one "
+        f"f32 train_step each (clip, AdamW, update applied), largest relative L2 over "
+        f"{h['update']['leaves']} leaves: update {h['update']['update']:.2e}, mu "
+        f"{h['update']['mu']:.2e}, nu {h['update']['nu']:.2e} (tolerance "
+        f"{STEP_F32_UPDATE_TOL:g})")
+    by_name["stochastic_round"]["max_abs_err"] = max(
+        by_name["stochastic_round"]["max_abs_err"], tr["sr_err"])
+    say(f"  train: {tr['leaves']} leaves stochastically rounded through the kernel (shapes "
+        f"{tr['shapes']}), each equal to the plain version bit for bit (tolerance 0, "
+        f"max_abs_err {tr['sr_err']:.3e}); int8 quantization_error of the rounded tree "
+        f"{tr['qerr']:.4f}; served one step, alpha mean {tr['alpha_mean']:.4f}; launches "
+        f"{tr['launches']}")
+    del tr
     torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

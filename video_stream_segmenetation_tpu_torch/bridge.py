@@ -78,34 +78,40 @@ def float_tree(tree: dict) -> dict:
     return {k: _numpy_tree(v) for k, v in tree.items() if k in ("params", "batch_stats")}
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays -> ``{"a:b:c": array}`` (``SEP``-joined keys)."""
     out = {}
     for k, v in tree.items():
         if SEP in k:
             raise ValueError(f"key {k!r} holds the separator {SEP!r}")
         if isinstance(v, dict):
-            out.update(_flatten(v, prefix + k + SEP))
+            out.update(flatten(v, prefix + k + SEP))
         else:
             out[prefix + k] = np.asarray(v)
     return out
 
 
+def unflatten(flat) -> dict:
+    """The nested dict of :func:`flatten`'s keys and values."""
+    out: dict = {}
+    for name, v in flat.items():
+        *parents, leaf = name.split(SEP)
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
 def save_export(path, tree: dict) -> None:
     """Write a nested dict of arrays as one compressed ``.npz``."""
-    np.savez_compressed(path, **_flatten(tree))
+    np.savez_compressed(path, **flatten(tree))
 
 
 def load_export(path) -> dict:
     """Read an archive of :func:`save_export` back into the nested dict."""
-    out: dict = {}
     with np.load(path, allow_pickle=False) as z:
-        for name in z.files:
-            *parents, leaf = name.split(SEP)
-            node = out
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[name]
-    return out
+        return unflatten({name: z[name] for name in z.files})
 
 
 # the float MatteNet of the natural layout (the active preset)

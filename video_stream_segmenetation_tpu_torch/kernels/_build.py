@@ -46,6 +46,7 @@ SIGNATURES = {
     "vst_refine": [_P] * 5 + [_I] * 3 + [_P],
     "vst_composite": [_P, _P, ctypes.c_longlong] + [_P] * 6 + [_I] * 5 + [_P],
     "vst_decoder_level_i8": [_P] * 7 + [_I] * 6 + [_P],
+    "vst_stochastic_round_bf16": [_P, _P, ctypes.c_longlong, ctypes.c_uint, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,24 @@
-"""Conv building blocks of the float models (port of ``models/backbones.py``
-as the bf16 serving forward: ``ConvBN`` with groups and dilation,
-``SEBlock``, ``InvertedResidual``, ``MobileEncoder``, ``EASPP``,
-``nearest_x2``) and the seeded float trees the models load.
+"""Conv building blocks of the float models (port of ``models/backbones.py``:
+``ConvBN`` with groups and dilation, ``Conv``, ``Dense``, ``SEBlock``,
+``InvertedResidual``, ``MobileEncoder``, ``EASPP``, ``nearest_x2``) and the
+seeded float trees the models load.
 
-The reference runs these as bf16 XLA convolutions, so the port uses
-``torch.nn.functional.conv2d`` in bf16 and mirrors flax's dtype flow:
-input and kernel cast to bf16, BatchNorm on running averages computed in
-f32 on the bf16 conv output and rounded back to bf16, relu6 in bf16.
-Layers keep the reference's NHWC layout at their boundaries.
+The layers hold f32 ``nn.Parameter``s and cast to their compute ``dtype``
+inside ``forward``, as flax does with ``param_dtype=f32`` and ``dtype=bf16``:
+input and kernel cast to the compute dtype, the convolution in it,
+BatchNorm on its running averages computed in f32 and rounded back, relu6 in
+the compute dtype.  The BatchNorm keeps flax's frozen form
+(``use_running_average=True`` in training too, reference
+``backbones.py:57-110``); its ``mean`` and ``var`` are parameters, since the
+reference's trainer differentiates and updates its ``batch_stats``
+(``train/step.py:37-47``).  Parameters are made frozen (the serving
+models never train); a model that trains turns them on
+(models/mattenet_hd.py::MatteNetHD).  The compute-dtype tensors are
+derived from the parameters at each call, except in a model that
+:func:`freeze` froze for serving: there once, when it is frozen.
+The relu6 is ``F.relu6`` where autograd records (its gradient is 0 at
+both bounds, as ``jax.nn.relu6``'s is), else ``torch.clamp``.  Layers
+keep the reference's NHWC layout at their boundaries and NCHW inside.
 """
 
 from __future__ import annotations
@@ -36,85 +47,168 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return F.conv2d(x, w, stride=stride, dilation=dilation, groups=groups)
 
 
-def _oihw_bf16(kernel_hwio, device) -> torch.Tensor:
-    k = torch.as_tensor(np.asarray(kernel_hwio, np.float32), device=device)
-    return k.permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
+def _param(a, device, perm=None) -> torch.nn.Parameter:
+    """An f32 parameter, frozen until the model that trains it says so; a
+    copy, so that training never writes into the caller's tree."""
+    t = torch.tensor(np.asarray(a, np.float32), device=device)
+    if perm is not None:
+        t = t.permute(*perm).contiguous()
+    return torch.nn.Parameter(t, requires_grad=False)
 
 
-def _f32(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+def _numpy(t: torch.Tensor, perm=None) -> np.ndarray:
+    t = t.detach()
+    if perm is not None:
+        t = t.permute(*perm)
+    return t.cpu().numpy().copy()
 
 
-class ConvBN(torch.nn.Module):
-    """bf16 'SAME' conv (no bias; ``groups`` input groups, ``dilation``) +
-    BatchNorm on running averages + relu6, NCHW bf16 in and out."""
+HWIO_TO_OIHW = (3, 2, 0, 1)
+OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+class _Layer(torch.nn.Module):
+    """A layer whose forward reads tensors derived from its parameters
+    (:meth:`_derive`): at each call, or those :func:`freeze` kept."""
+
+    _frozen = None
+
+    def derived(self):
+        return self._derive() if self._frozen is None else self._frozen
+
+
+def freeze(model: torch.nn.Module) -> torch.nn.Module:
+    """Freeze a model for serving: no parameter requires a gradient, so
+    that no step records an autograd graph, and each layer derives its
+    compute-dtype tensors now, once, so that a step issues no casts for
+    them.  Nothing may change the parameters after (the Engine's models)."""
+    model.requires_grad_(False)
+    for m in model.modules():
+        if isinstance(m, _Layer):
+            m._frozen = m._derive()
+    return model
+
+
+class ConvBN(_Layer):
+    """'SAME' conv (no bias; ``groups`` input groups, ``dilation``) +
+    BatchNorm on running averages + relu6, NCHW ``dtype`` in and out.
+    Parameters (f32): ``kernel`` OIHW, BatchNorm ``scale``, ``bias``,
+    ``mean``, ``var``."""
 
     def __init__(self, params: dict, stats: dict, stride: int = 1,
-                 act: bool = True, device="cpu", groups: int = 1, dilation: int = 1):
+                 act: bool = True, device="cpu", groups: int = 1, dilation: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.stride = stride
         self.act = act
         self.groups = groups
         self.dilation = dilation
+        self.dtype = dtype
         bn, bst = params["BatchNorm_0"], stats["BatchNorm_0"]
-        self.register_buffer("w", _oihw_bf16(params["Conv_0"]["kernel"], device))
-        self.register_buffer("mean", _f32(bst["mean"], device)[None, :, None, None])
+        self.kernel = _param(params["Conv_0"]["kernel"], device, HWIO_TO_OIHW)
+        self.scale = _param(bn["scale"], device)
+        self.bias = _param(bn["bias"], device)
+        self.mean = _param(bst["mean"], device)
+        self.var = _param(bst["var"], device)
+
+    def _derive(self):
         # flax: (x - mean) * (rsqrt(var + eps) * scale) + bias, in f32
-        mul = torch.rsqrt(_f32(bst["var"], device) + BN_EPS) * _f32(bn["scale"], device)
-        self.register_buffer("mul", mul[None, :, None, None])
-        self.register_buffer("bias", _f32(bn["bias"], device)[None, :, None, None])
+        mul = torch.rsqrt(self.var + BN_EPS) * self.scale
+        return (self.kernel.to(self.dtype), self.mean[None, :, None, None],
+                mul[None, :, None, None], self.bias[None, :, None, None])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.w, self.stride, self.dilation, self.groups)
-        y = ((y.to(torch.float32) - self.mean) * self.mul + self.bias).to(torch.bfloat16)
-        return torch.clamp(y, 0.0, 6.0) if self.act else y
+        w, mean, mul, bias = self.derived()
+        y = conv2d_same(x, w, self.stride, self.dilation, self.groups)
+        y = ((y.to(torch.float32) - mean) * mul + bias).to(self.dtype)
+        if not self.act:
+            return y
+        # F.relu6 where autograd records (its gradient is 0 at both bounds, as
+        # jax.nn.relu6's is); else torch.clamp, the same values in one host
+        # dispatch where relu6 takes three
+        return F.relu6(y) if y.requires_grad else torch.clamp(y, 0.0, 6.0)
+
+    def export(self) -> tuple[dict, dict]:
+        """The flax ``(params, batch_stats)`` entries of this layer, numpy."""
+        return ({"Conv_0": {"kernel": _numpy(self.kernel, OIHW_TO_HWIO)},
+                 "BatchNorm_0": {"scale": _numpy(self.scale), "bias": _numpy(self.bias)}},
+                {"BatchNorm_0": {"mean": _numpy(self.mean), "var": _numpy(self.var)}})
 
 
-class Conv(torch.nn.Module):
-    """flax ``nn.Conv`` with bias and ``dtype=bf16``: bf16 'SAME' conv, then
-    the bias added in bf16.  NCHW bf16 in and out."""
+class Conv(_Layer):
+    """flax ``nn.Conv`` with bias: a 'SAME' conv in ``dtype``, then the bias
+    added in ``dtype``.  NCHW in and out."""
 
-    def __init__(self, params: dict, device="cpu"):
+    def __init__(self, params: dict, device="cpu", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.register_buffer("w", _oihw_bf16(params["kernel"], device))
-        self.register_buffer(
-            "b", _f32(params["bias"], device).to(torch.bfloat16)[None, :, None, None])
+        self.dtype = dtype
+        self.kernel = _param(params["kernel"], device, HWIO_TO_OIHW)
+        self.bias = _param(params["bias"], device)
+
+    def _derive(self):
+        return self.kernel.to(self.dtype), self.bias.to(self.dtype)[None, :, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.w) + self.b
+        w, b = self.derived()
+        return conv2d_same(x, w) + b
+
+    def export(self) -> tuple[dict, dict]:
+        return {"kernel": _numpy(self.kernel, OIHW_TO_HWIO), "bias": _numpy(self.bias)}, {}
 
 
-class Dense(torch.nn.Module):
-    """flax ``nn.Dense`` with ``dtype=bf16``: bf16 product, bias added in
-    bf16."""
+class Dense(_Layer):
+    """flax ``nn.Dense``: the product in ``dtype``, the bias added in
+    ``dtype``."""
 
-    def __init__(self, params: dict, device="cpu"):
+    def __init__(self, params: dict, device="cpu", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.register_buffer("w", _f32(params["kernel"], device).to(torch.bfloat16))
-        self.register_buffer("b", _f32(params["bias"], device).to(torch.bfloat16))
+        self.dtype = dtype
+        self.kernel = _param(params["kernel"], device)
+        self.bias = _param(params["bias"], device)
+
+    def _derive(self):
+        return self.kernel.to(self.dtype), self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        w, b = self.derived()
+        return torch.matmul(x, w) + b
+
+    def export(self) -> tuple[dict, dict]:
+        return {"kernel": _numpy(self.kernel), "bias": _numpy(self.bias)}, {}
 
 
-def mean_hw_bf16(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.mean`` of an NCHW bf16 tensor over H and W: summed in f32, the
-    mean rounded to bf16 -> ``[N, C]``."""
-    return x.to(torch.float32).mean(dim=(2, 3)).to(torch.bfloat16)
+def mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of an NCHW tensor over H and W: summed in f32, the mean
+    rounded to the input's dtype -> ``[N, C]``."""
+    return x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
 
 
 class SEBlock(torch.nn.Module):
-    """Squeeze-excitation in bf16: the spatial mean, Dense, relu, Dense,
-    sigmoid, times the input."""
+    """Squeeze-excitation in ``dtype``: the spatial mean, Dense, relu,
+    Dense, sigmoid, times the input."""
 
-    def __init__(self, params: dict, device="cpu"):
+    def __init__(self, params: dict, device="cpu", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.d0 = Dense(params["Dense_0"], device)
-        self.d1 = Dense(params["Dense_1"], device)
+        self.d0 = Dense(params["Dense_0"], device, dtype)
+        self.d1 = Dense(params["Dense_1"], device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.d1(torch.relu(self.d0(mean_hw_bf16(x))))
+        s = self.d1(torch.relu(self.d0(mean_hw(x))))
         return x * torch.sigmoid(s)[:, :, None, None]
+
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({"Dense_0": self.d0, "Dense_1": self.d1})
+
+
+def export_layers(layers: dict) -> tuple[dict, dict]:
+    """The flax ``(params, batch_stats)`` subtrees of named layers (each
+    with an ``export()``); layers without statistics get no entry there."""
+    params, stats = {}, {}
+    for name, layer in layers.items():
+        params[name], st = layer.export()
+        if st:
+            stats[name] = st
+    return params, stats
 
 
 class InvertedResidual(torch.nn.Module):

@@ -1,7 +1,7 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active ...]
+        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|train ...]
 
 For each configuration (default: all eight) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
@@ -24,6 +24,8 @@ up, then
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
+``train`` (not in the default set) does the same for a training step of
+the pico MatteNetHD at the train phase's two geometries (profile_train).
 Needs a card; prints the card's name and power limit beside the numbers.
 """
 
@@ -148,7 +150,7 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     for i, (kernel, ms) in enumerate(trunk_kernels):
         print(f"    {what} launch {i + 1}: {kernel[:40]:40s} {ms:8.3f} ms "
               "(torch.profiler, one call)")
-    _profile_steps(eng, frames, steps, config)
+    _profile_steps(lambda: eng.process(frames), steps, config)
     del eng
     torch.cuda.empty_cache()
 
@@ -276,36 +278,106 @@ def _refine_stages(eng, logits, fp, stages, out_dtype):
     stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
 
 
-def _profile_steps(eng, frames, steps, config):
-    """torch.profiler over whole Engine.process calls."""
+def _profile_steps(step, steps, config, what="Engine.process"):
+    """torch.profiler over ``steps`` calls of ``step()``: wall, device time
+    in kernels and in copies, device operations a step, idle share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.process(frames)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
     busy = {"kernels": 0.0, "memcpy/memset": 0.0}
+    launches = 0
     for e in ka:
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", 0)
         busy["memcpy/memset" if e.key.startswith(("Memcpy", "Memset")) else "kernels"] += us
-    print(f"[{config}] profiled {steps} Engine.process calls: wall {wall_ms / steps:.2f} ms "
+        launches += e.count
+    print(f"[{config}] profiled {steps} {what} calls: wall {wall_ms / steps:.2f} ms "
           "a step; " + ", ".join(f"{k} {v / 1e3 / steps:.2f} ms a step"
                                  for k, v in busy.items())
-          + f"; SMs idle (no kernel running) "
-          f"{100 - 100 * busy['kernels'] / 1e3 / wall_ms:.1f} % of the wall time", flush=True)
+          + f"; {launches / steps:.0f} device operations a step; SMs idle (no kernel "
+          f"running) {100 - 100 * busy['kernels'] / 1e3 / wall_ms:.1f} % of the wall time",
+          flush=True)
     print(ka.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=60),
           flush=True)
+
+
+# the train phase's two geometries (train/flagship.py): pretraining and the
+# serving-resolution fine-tune, (frame hw, batch)
+TRAIN_GEOMETRIES = (((240, 320), 32), ((720, 1280), 8))
+
+
+def profile_train(steps: int, smi: str) -> None:
+    """Where a training step of the pico MatteNetHD (bf16, full widths)
+    goes, at each of :data:`TRAIN_GEOMETRIES`: CUDA-event times of the
+    synthetic batch, the forward and loss, the forward, loss and backward,
+    the optimizer's update, the whole step; then torch.profiler over whole
+    steps (batch included)."""
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+    from video_stream_segmenetation_tpu_torch.train.loop import synthetic_matting_batch
+    from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
+    from video_stream_segmenetation_tpu_torch.train.step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    model = MatteNetHD(device=dev)
+    tx = make_optimizer(5e-4)
+    state, _ = init_train_state(model, tx)
+    train_step = make_train_step(model, tx)
+    params = list(state.params.values())
+    for hw, batch in TRAIN_GEOMETRIES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        label = f"train {hw[0]}x{hw[1]} b{batch}"
+        with pinned():  # as fit runs
+            for _ in range(3):
+                state, _ = train_step(state, *synthetic_matting_batch(gen, batch, hw))
+            frames, gt = synthetic_matting_batch(gen, batch, hw)
+
+            def loss():
+                return matting_loss(model(frames), gt, frames)[0]
+
+            def grads():
+                return torch.autograd.grad(loss(), params)
+
+            g = dict(zip(state.params, grads()))
+            scratch = tx.init(state.params)
+            stages = {"synthetic batch": _event_ms(
+                          lambda: synthetic_matting_batch(gen, batch, hw))[0],
+                      "forward + loss": _event_ms(loss)[0],
+                      "forward + loss + backward": _event_ms(grads)[0],
+                      "optimizer update": _event_ms(
+                          lambda: tx.update(g, scratch, state.params))[0],
+                      "whole step (train_step)": _event_ms(
+                          lambda: train_step(state, frames, gt))[0]}
+            print(f"[{label}] pico MatteNetHD bf16, CUDA events, mean of 5 ({smi}):",
+                  flush=True)
+            for k, v in stages.items():
+                print(f"  {k:56s} {v:8.3f} ms")
+
+            def whole():
+                nonlocal state
+                state, _ = train_step(state, *synthetic_matting_batch(gen, batch, hw))
+
+            _profile_steps(whole, steps, label, "batch + train_step")
+    del model, state
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=64)
     ap.add_argument("--steps", type=int, default=4)
-    ap.add_argument("--config", nargs="*", default=list(CONFIGS), choices=list(CONFIGS))
+    ap.add_argument("--config", nargs="*", default=list(CONFIGS),
+                    choices=[*CONFIGS, "train"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a card")
@@ -313,7 +385,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     for config in args.config:
-        profile(config, args.streams, args.steps, smi)
+        if config == "train":
+            profile_train(args.steps, smi)
+        else:
+            profile(config, args.streams, args.steps, smi)
 
 
 if __name__ == "__main__":

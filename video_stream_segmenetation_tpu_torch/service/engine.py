@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from video_stream_segmenetation_tpu_torch.models.backbones import freeze
 from video_stream_segmenetation_tpu_torch.models.blazeface import (
     FaceFinder,
     init_face_finder_params,
@@ -140,6 +141,11 @@ class Engine:
             self.face_models = FaceModels(
                 face=FaceFinder(face_params["face"], st.fd_size, device=self.device),
                 lmk=LandmarkNet(face_params["lmk"], device=self.device))
+        # served models are frozen (not inference_mode, whose tensors refuse
+        # the rounds' in-place row writes)
+        for m in (self.model, *((self.face_models.face, self.face_models.lmk)
+                                if self.face_models else ())):
+            freeze(m)
         self._step = make_step(self.model, st, self.face_models)
         self._range_step = make_range_step(self.model, st, self.face_models)
         self._round_steps: dict = {}

@@ -1,0 +1,135 @@
+"""The training step for the matting nets (port of ``train/step.py``).
+
+The optimizer is optax's ``chain(clip_by_global_norm(1.0), adamw(lr,
+weight_decay))`` written out step for step, so that it gives optax's numbers:
+the gradients scaled by ``1 / norm`` where their global norm is at least 1
+(no epsilon on the norm, unlike ``torch.nn.utils.clip_grad_norm_``), Adam's
+bias-corrected moments, then ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd *
+p)``, weight decay on every leaf.  The leaves are every parameter of the
+module, the BatchNorm's ``mean`` and ``var`` included: the reference's
+``TrainState.params`` is flax's whole ``variables`` dict, ``batch_stats``
+and all, so ``jax.grad`` differentiates the running statistics and AdamW
+updates them.  Parameters and moments are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: torch.Tensor  # int32 scalar: updates taken
+    mu: dict  # first moments, by parameter name
+    nu: dict  # second moments
+
+
+# optax's defaults, as the reference's make_optimizer takes them
+MAX_NORM, B1, B2, EPS = 1.0, 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass
+class ClipAdamW:
+    """optax ``chain(clip_by_global_norm(MAX_NORM), adamw(lr, B1, B2, EPS,
+    weight_decay))`` over a dict of tensors: :meth:`init` and
+    :meth:`update` as optax's ``GradientTransformation``."""
+
+    lr: float
+    weight_decay: float = 1e-5
+
+    def init(self, params: dict) -> AdamWState:
+        first = next(iter(params.values()))
+        return AdamWState(
+            count=torch.zeros((), dtype=torch.int32, device=first.device),
+            mu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                for k, p in params.items()},
+            nu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamWState, params: dict):
+        """-> (updates, state); the moments are updated in place."""
+        g_norm = global_norm(grads)
+        # clip_by_global_norm: select(norm < max, g, g / norm * max)
+        keep = g_norm < MAX_NORM
+        grads = {k: torch.where(keep, g, (g / g_norm) * MAX_NORM) for k, g in grads.items()}
+        state.count = state.count + 1
+        count = state.count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.full_like(count, B1), count)
+        bc2 = 1 - torch.pow(torch.full_like(count, B2), count)
+        updates = {}
+        for k, g in grads.items():
+            mu, nu = state.mu[k], state.nu[k]
+            mu.copy_((1 - B1) * g + B1 * mu)
+            nu.copy_((1 - B2) * (g ** 2) + B2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+            updates[k] = -self.lr * (u + self.weight_decay * params[k])
+        return updates, state
+
+
+def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5) -> ClipAdamW:
+    return ClipAdamW(lr, weight_decay)
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """optax ``global_norm``: sqrt of the sum of every leaf's sum of
+    squares, the leaf sums added in order."""
+    total = None
+    for g in tree.values():
+        s = torch.sum(g * g)
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def apply_updates(params: dict, updates: dict) -> None:
+    """``p += u`` for every parameter, in place."""
+    with torch.no_grad():
+        for k, p in params.items():
+            p.add_(updates[k])
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict  # name -> the module's nn.Parameter (live)
+    opt_state: AdamWState
+    step: int
+
+
+def init_train_state(model: torch.nn.Module, tx: ClipAdamW | None = None):
+    """``(TrainState over model's parameters, tx)``; the module holds the
+    parameters (built from a seed or a tree, models/mattenet_hd.py)."""
+    tx = tx or make_optimizer()
+    params = dict(model.named_parameters())
+    return TrainState(params=params, opt_state=tx.init(params), step=0), tx
+
+
+def make_train_step(model: torch.nn.Module, tx: ClipAdamW,
+                    loss_fn: Callable | None = None):
+    """``train_step(state, frames [B, H, W, 3], alpha_gt [B, H, W]) ->
+    (state, metrics)``.  ``loss_fn(frames, alpha_gt) -> (loss, metrics)``
+    overrides the default matting loss of ``model``'s outputs (e.g.
+    losses.make_pipeline_loss: backprop through the serving refine chain).
+    The metrics carry ``grad_norm``, the gradients' global norm before
+    clipping."""
+    if loss_fn is None:
+        def loss_fn(frames, alpha_gt):
+            return matting_loss(model(frames), alpha_gt, frames)
+
+    def train_step(state: TrainState, frames: torch.Tensor, alpha_gt: torch.Tensor):
+        names = list(state.params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(frames, alpha_gt)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        grads = dict(zip(names, grads))
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    return train_step
