@@ -218,6 +218,86 @@ def _trunk_entry(name: str, x0, tp, tol: float) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def trunk_launches(x0, tp) -> list[dict]:
+    """The pico/nano trunk's 11 launches (kernels/trunk_int8.py::_nano_u1,
+    then the head) one by one on ``x0``, each with its own multiply-adds
+    and the bytes it reads and writes (inputs once, output once), and for
+    the 1x1 convs the (M, K, N) of their product."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+
+    lib, stream = TK._launcher(x0)
+    f32, i8 = torch.float32, torch.int8
+    rows, acts = [], {"x0": x0}
+
+    def conv(name, src, out_dtype, stride=1, dil=1, mode=0, res=None, up=None):
+        layer, x = tp[name], acts[src]
+        r, u = acts.get(res), acts.get(up)
+
+        def fn():
+            return TK._conv(lib, stream, x, layer, out_dtype, stride=stride, dil=dil,
+                            mode=mode, res=r, up=u)
+        y = acts[name] = fn()
+        cout, kh, kw, cin = layer["w"].shape
+        m = y.numel() // cout
+        rows.append({"name": name, "fn": fn, "macs": m * kh * kw * cin * cout,
+                     "bytes": _nbytes(x, r, u, y, *layer.values()),
+                     "mkn": (m, cin, cout) if kh == kw == 1 else None, "x": x,
+                     "w": layer["w"]})
+
+    conv("d2dn", "x0", i8, stride=2)
+    conv("d2b", "d2dn", i8)
+    conv("d3dn", "d2b", i8, stride=2)
+    conv("d3b", "d3dn", i8)
+    conv("ctx", "d3b", f32, dil=3, mode=2, res="d3b")
+    ctx_f = acts["ctx"]
+    se = tp["se"]
+    acts["se"] = TK._se_requant(lib, stream, ctx_f, se)
+    rows.append({"name": "se", "fn": lambda: TK._se_requant(lib, stream, ctx_f, se),
+                 "macs": ctx_f.shape[0] * (se["k0"].numel() + se["k1"].numel()),
+                 "bytes": _nbytes(ctx_f, acts["se"], *se.values()), "mkn": None})
+    conv("u2red_up", "se", f32, mode=1)
+    conv("u2red_skip", "d2b", i8, up="u2red_up")
+    conv("u1red_up", "u2red_skip", f32, mode=1)
+    conv("u1red_skip", "x0", i8, up="u1red_up")
+    u1, head = acts["u1red_skip"], tp["alpha"]
+    logits = TK._alpha_head(lib, stream, u1, head)
+    k = head["w"].shape[0]
+    rows.append({"name": "alpha head", "fn": lambda: TK._alpha_head(lib, stream, u1, head),
+                 "macs": logits.numel() // k * 9 * u1.shape[-1] * k,
+                 "bytes": _nbytes(u1, logits, *head.values()), "mkn": None})
+    return rows
+
+
+def print_trunk_launches(name: str, x0, tp) -> None:
+    """Each launch's CUDA-event time beside its own bound, and, for the 1x1
+    convs, ``torch._int_mm``'s time for the same M x K x N product (a
+    yardstick for the product alone; the port never calls it)."""
+    total = {"ms": 0.0, "bound": 0.0}
+    for r in trunk_launches(x0, tp):
+        ms = cuda_time_ms(r["fn"], 20)
+        b_ms, b_by = bound(r["bytes"], 2 * r["macs"], INT8_OPS_PER_S)
+        line = (f"  {name} launch {r['name']:10s}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{r['macs'] / 1e9:.2f} G MAC, {r['bytes'] / 1e6:.1f} MB)")
+        if r["mkn"] is not None:
+            m, kk, n = r["mkn"]
+            a = r["x"].reshape(m, kk)
+            b = r["w"].reshape(n, kk).t()
+            try:
+                mm_ms = cuda_time_ms(lambda: torch._int_mm(a, b), 20)
+                line += f"; torch._int_mm {m}x{kk}x{n}: {mm_ms:.4f} ms"
+            except RuntimeError as err:  # a yardstick only: say why it has none
+                line += f"; torch._int_mm {m}x{kk}x{n}: refused ({str(err)[:80]})"
+        say(line)
+        total["ms"] += ms
+        total["bound"] += b_ms
+    say(f"  {name} launches summed: {total['ms']:.4f} ms, their bounds summed "
+        f"{total['bound']:.4f} ms")
+
+
 def check_trunk(dev) -> list[dict]:
     """The trunk kernel at S=64, 720p: the one-class head at the pico
     widths (seeded weights, random s8 stem output), then the K=4 head at
@@ -236,6 +316,7 @@ def check_trunk(dev) -> list[dict]:
     x0 = torch.randint(0, 128, (S, hp, wp, 128), generator=gen, device=dev,
                        dtype=torch.int32).to(torch.int8)
     entries = [_trunk_entry("trunk_int8", x0, tp, TRUNK_TOL)]
+    print_trunk_launches("trunk_int8", x0, tp)
     clip, _ = bridge.load_frames()
     frames_p = space_to_depth(torch.as_tensor(clip[np.arange(S) % 2], device=dev),
                               blk).contiguous()
@@ -494,9 +575,11 @@ def check_conv(dev) -> dict:
     72x128x128 (b1), 36x64x192 (d2b), 18x32x256 (d3b; ctx2 at dilation 2,
     ctx4 at 4), s8 activations on the relu6 lattice.  Times and bound are
     those of the four layers the 'pallas' route serves, in their served
-    form (act, no residual)."""
+    form (act, no residual), with the trunk's own conv (which the 'xla'
+    route serves) timed on the same inputs beside them."""
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
     from video_stream_segmenetation_tpu_torch.models import quantized as Q
 
     tp = Q.trunk_params(bridge.load_export(bridge.WEIGHTS_DIR / "mattenet_hd10.npz"), dev)
@@ -535,11 +618,21 @@ def check_conv(dev) -> dict:
                                                       dilation=dil), 10)
         plain_ms = cuda_time_ms(lambda: TC.conv3x3_i8_plain(x, wq, layer["mult"],
                                                             layer["bias"], dilation=dil), 2)
+        # the same 3x3 requant through the trunk's own conv (int8_conv_impl='xla')
+        lib, stream = TK._launcher(x)
+        trunk_err = (TK._conv(lib, stream, x, layer, torch.int8, dil=dil).int()
+                     - TC.conv3x3_i8_plain(x, wq, layer["mult"], layer["bias"],
+                                           dilation=dil).int()).abs().max().item()
+        if trunk_err > CONV_TOL:
+            raise AssertionError(f"the trunk's conv disagrees with the plain 3x3 conv at "
+                                 f"{name}: {trunk_err}")
+        trunk_ms = cuda_time_ms(lambda: TK._conv(lib, stream, x, layer, torch.int8, dil=dil), 10)
         macs = x.numel() * 9 * cout
         bytes_moved = x.numel() + x.numel() // cin * cout + wq.numel() + 8 * cout
         b_ms, b_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
         say(f"  conv3x3_i8_fused {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {macs / 1e9:.2f} G MAC, {bytes_moved / 1e6:.1f} MB)")
+            f"{b_ms:.4f} ms ({b_by}; {macs / 1e9:.2f} G MAC, {bytes_moved / 1e6:.1f} MB); "
+            f"the trunk's conv on the same inputs {trunk_ms:.4f} ms (max_abs_err {trunk_err})")
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", bytes_moved),
                      ("macs", macs)):
             total[k] += v

@@ -342,6 +342,86 @@ def test_u1_trunk_kernel_matches_plain(card, plan):
     assert got.shape == (2, 72, 128, 128) and torch.equal(got, want)
 
 
+def _conv_i8_plain(x, layer, stride=1, dil=1, mode=0, res=None, up=None, in_up=False):
+    """One ``trunk_int8._conv`` launch in plain PyTorch, in the plain
+    trunks' f32 order: ``acc * mult + bias``, then mode 1 as it is, mode 2
+    ``clip(y + res * 6/127, 0, 6)``, mode 0 ``requant(up + y [+ res *
+    6/127])`` with ``up`` at the output grid or at half of it."""
+    y = Q._conv_i8(Q._nearest_x2(x) if in_up else x, layer, stride, dil)
+    if mode == 1:
+        return y
+    if mode == 2:
+        return torch.clamp(y + res.to(torch.float32) * Q.ACT_SCALE, 0.0, 6.0)
+    if up is not None:
+        y = (up if up.shape[1:3] == y.shape[1:3] else Q._nearest_x2(up)) + y
+    if res is not None:
+        y = y + res.to(torch.float32) * Q.ACT_SCALE
+    return Q._requant(y)
+
+
+# (id, streams, grid, Cin, Cout, kernel size, stride, dilation, mode, with a
+# residual, the addend's grid ('same' or 'half' of the output's), in_shift)
+CONV_EDGES = [
+    ("1x1-one-tile", 1, (8, 16), 128, 128, 1, 1, 1, 1, False, None, False),
+    ("3x3-s1", 1, (16, 32), 128, 128, 3, 1, 1, 0, False, None, False),
+    ("3x3-s3", 3, (16, 32), 128, 128, 3, 1, 1, 0, False, None, False),
+    ("ragged-m", 3, (18, 30), 192, 192, 3, 1, 1, 0, False, None, False),
+    ("under-one-tile", 1, (6, 10), 128, 256, 3, 1, 1, 0, False, None, False),
+    ("stride2-c192", 3, (16, 32), 128, 192, 3, 2, 1, 0, False, None, False),
+    ("stride2-c256-odd", 1, (18, 30), 192, 256, 3, 2, 1, 0, False, None, False),
+    ("dil2", 2, (18, 32), 256, 256, 3, 1, 2, 0, False, None, False),
+    ("dil3-mode2", 3, (18, 32), 192, 192, 3, 1, 3, 2, True, None, False),
+    ("dil4-mode1", 2, (18, 32), 256, 256, 3, 1, 4, 1, False, None, False),
+    ("residual", 1, (16, 32), 128, 128, 3, 1, 1, 0, True, None, False),
+    ("1x1-up-half", 3, (16, 32), 128, 128, 1, 1, 1, 0, False, "half", False),
+    ("1x1-up-half-c192", 1, (18, 32), 192, 192, 1, 1, 1, 0, False, "half", False),
+    ("3x3-up-same", 2, (16, 32), 192, 128, 3, 1, 1, 0, False, "same", False),
+    ("in-shift", 2, (16, 32), 256, 192, 3, 1, 1, 1, False, None, True),
+    ("1x1-mode1-c192", 3, (9, 16), 256, 192, 1, 1, 1, 1, False, None, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CONV_EDGES, ids=[c[0] for c in CONV_EDGES])
+def test_conv_kernel_edges_match_plain(card, case):
+    """The trunk's tensor-core conv (one ``vst_conv_i8`` launch) at its
+    edges: ragged M (tiles that end inside a stream or past the last),
+    Cout 128/192/256, stride 2 with odd output grids, dilations 2/3/4, the
+    residual, the addend at the output's grid and at half of it, the input
+    read through a nearest x2 upsample, the three modes; bit for bit the
+    plain version (tolerance 0)."""
+    from video_stream_segmenetation_tpu_torch.kernels import _build
+
+    _, s, hw, cin, cout, k, stride, dil, mode, with_res, up_grid, in_up = case
+    g = np.random.default_rng(len(CONV_EDGES) + cout + cin + k)
+    t = lambda a: torch.as_tensor(a, device=card)  # noqa: E731
+    xhw = (hw[0] // 2, hw[1] // 2) if in_up else hw
+    x = t(g.integers(0, 128, (s, *xhw, cin), dtype=np.int8))
+    layer = {"w": t(g.integers(-127, 128, (cout, k, k, cin), dtype=np.int8)),
+             # y = acc * mult + bias spread over about 2 +- 3: the lattice's
+             # whole range, not only its two ends
+             "mult": t(((0.5 + g.random(cout)) * 6e-4 / np.sqrt(k * k * cin))
+                       .astype(np.float32)),
+             "bias": t((g.random(cout) + 1.5).astype(np.float32))}
+    ho, wo = -(-hw[0] // stride), -(-hw[1] // stride)
+    res = t(g.integers(0, 128, (s, ho, wo, cout), dtype=np.int8)) if with_res else None
+    up = None
+    if up_grid is not None:
+        uh, uw = (ho, wo) if up_grid == "same" else (ho // 2, wo // 2)
+        up = t((g.random((s, uh, uw, cout)) * 4.0 - 1.0).astype(np.float32))
+    out_dtype = torch.int8 if mode == 0 else torch.float32
+    got = TK._conv(_build.library(), torch.cuda.current_stream(card).cuda_stream, x, layer,
+                   out_dtype, stride=stride, dil=dil, mode=mode, res=res, up=up, in_up=in_up)
+    want = _conv_i8_plain(x, layer, stride, dil, mode, res, up, in_up)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape == (s, ho, wo, cout)
+    if mode == 0:
+        # most outputs inside the lattice, not at its ends
+        inside = ((want > 0) & (want < 127)).float().mean().item()
+        assert inside > 0.3, inside
+    assert torch.equal(got, want), (got.double() - want.double()).abs().max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("conv_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("plan", ["full", "light", "micro"])
@@ -601,6 +681,90 @@ def test_fast_refine_kernel_matches_plain(card, hw, form, out_dtype):
     assert got.dtype == out_dtype
     assert (got_prev - want_prev).abs().max().item() <= (0 if not lowres else 2e-5)
     assert (got.float() - want.float()).abs().max().item() <= (0 if not lowres else tol)
+
+
+REFINE_FORMS = ["analytic-bf16", "analytic-f32", "plane", "fused_refine", "lowres", "lanes",
+                "lowres+lanes", "lowres-same-grid"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", REFINE_FORMS)
+def test_refine_forms_at_ragged_tiles(card, form):
+    """Every form of the refine body at a plane whose width (200) is not a
+    multiple of a block's strip (86 columns) and whose height (148) ends
+    inside a block's segment (72 rows): three strips and three segments,
+    the zero border only at the plane's edges.  Held as each form's own
+    test holds it: new_prev within 2e-5, the refined alpha within 4e-3
+    (bf16) or 2e-5 (f32); the lanes form exact."""
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    hw = (148, 200)
+    logits, alpha, guide, lanes, prev, affine, use_warp, init, pp, has_prior, knobs = \
+        _fast_inputs(card, 3, hw, seed=3)
+    # the prior ellipse inside the plane, near its bottom-right strip
+    pp = pp * torch.tensor([5.0, 6.0, 3.0, 3.0], device=card)
+    yi, xi = separable_warp_indices(affine, hw)
+    f32, bf16 = torch.float32, torch.bfloat16
+    if form == "fused_refine":
+        plane = _plane(pp, has_prior, hw)
+        got = TR.fused_refine(alpha, guide, plane, has_prior, knobs)
+        want = TR.fused_refine_plain(alpha, guide, plane, TR.refine_table(knobs, has_prior))
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 2e-5
+        return
+    if form == "plane":
+        plane = _plane(pp, has_prior, hw)
+        table = TR.scalar_table(knobs, use_warp, init, 0.3, torch.zeros_like(pp), has_prior)
+        got_prev, got = TR.fused_temporal_refine_plane(alpha, prev, affine, use_warp, init, 0.3,
+                                                       guide, plane, has_prior, knobs,
+                                                       out_dtype=f32)
+        want_prev, want = TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table, f32,
+                                                         plane)
+        tol_prev, tol = 2e-5, 2e-5
+    elif form.startswith("analytic"):
+        out_dtype = bf16 if form.endswith("bf16") else f32
+        table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+        got_prev, got = TR.fused_temporal_refine(alpha, prev, affine, use_warp, init, 0.3,
+                                                 guide, pp, has_prior, knobs,
+                                                 out_dtype=out_dtype)
+        want_prev, want = TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table,
+                                                         out_dtype)
+        tol_prev, tol = 2e-5, (4e-3 if out_dtype == bf16 else 2e-5)
+    else:
+        lowres, use_lanes = "lowres" in form, "lanes" in form
+        if form == "lowres-same-grid":
+            # logits on the plane's own grid: a strip reads one more
+            # head-grid column than it has columns
+            logits = torch.as_tensor((np.random.default_rng(4).random((3, *hw), dtype=np.float32)
+                                      - 0.5) * 8, device=card)
+        a_src, g_src = (logits if lowres else alpha), (lanes if use_lanes else guide)
+        lhw, geom = (hw if lowres else None), ((4, 4) if use_lanes else None)
+        table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+        got_prev, got = TR.fused_temporal_refine_fast(a_src, prev, affine, use_warp, init, 0.3,
+                                                      g_src, pp, has_prior, knobs,
+                                                      alpha_lowres_hw=lhw, guide_lanes_geom=geom)
+        with pinned():
+            want_prev, want = TR.fused_temporal_refine_plain(a_src, prev, yi, xi, g_src, table,
+                                                             bf16, None, lhw, geom)
+        tol_prev, tol = (2e-5, 4e-3) if lowres else (0, 0)
+    torch.cuda.synchronize()
+    assert bool(has_prior.any()) and float((want.float() > 0.5).float().mean()) > 0.05
+    assert (got_prev - want_prev).abs().max().item() <= tol_prev
+    assert got.dtype == want.dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_fast_refine_refuses_logits_larger_than_the_plane(card):
+    """The kernel takes head-grid logits no larger than the plane (a strip
+    of the plane reads at most one head-grid column more than it has)."""
+    logits, _, guide, _, prev, affine, use_warp, init, pp, has_prior, knobs = \
+        _fast_inputs(card, 2, (40, 72))
+    big = torch.zeros((2, 40, 80), device=card)
+    with pytest.raises(ValueError, match="larger than the plane"):
+        TR.fused_temporal_refine_fast(big, prev, affine, use_warp, init, 0.3, guide, pp,
+                                      has_prior, knobs, alpha_lowres_hw=(40, 72))
 
 
 def _two_tap_alpha(logits, hw):

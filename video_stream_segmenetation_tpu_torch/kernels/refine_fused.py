@@ -24,8 +24,9 @@ new_prev stays f32; the temporal forms' refined alpha is bf16 or f32
 (``out_dtype``, the reference's ``refined_dtype``), fused_refine's f32.
 
 Bound on an H100: bytes (15-23 bytes a pixel) -- see the source's header
-for the row-tiled design.  One call is one launch and counts once in its
-wrapper's ``launches``.
+for the design (a block rolls down one stream's strip of columns, a row a
+step, its stages chained through rings of rows in shared memory).  One call
+is one launch and counts once in its wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -150,6 +151,9 @@ def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfl
     if lowres and tuple(alpha_lowres_hw) != (h, w):
         raise ValueError(f"alpha_lowres_hw {alpha_lowres_hw} is not prev_alpha's {(h, w)}")
     h0, w0 = alpha_src.shape[-2:] if lowres else (h, w)
+    if h0 > h or w0 > w:
+        raise ValueError(f"fused_temporal_refine: head-grid logits {(h0, w0)} larger than "
+                         f"the plane {(h, w)}")
     fy, fx = guide_lanes_geom if lanes else (1, 1)
     if h % fy or w % fx:
         raise ValueError(f"guide_lanes_geom {(fy, fx)} does not divide {(h, w)}")

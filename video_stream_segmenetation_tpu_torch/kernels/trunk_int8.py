@@ -64,6 +64,14 @@ def _conv(lib, stream, x, layer, out_dtype, stride=1, dil=1, mode=0,
     if cin % 32 or wt.shape[3] != cin:
         raise ValueError(f"conv_i8: input channels {cin} must match the weights "
                          f"and be a multiple of 32")
+    if cout % 64 or not 64 <= cout <= 256:
+        raise ValueError(f"conv_i8: {cout} output channels; the kernel takes a multiple "
+                         f"of 64 up to 256")
+    mult, bias = layer["mult"], layer["bias"]
+    if not all(t.is_contiguous() for t in (x, wt, mult, bias)) or \
+            (x.data_ptr() | wt.data_ptr() | mult.data_ptr() | bias.data_ptr()) % 16:
+        raise ValueError("conv_i8: x, the weights, mult and bias must be contiguous and "
+                         "16-byte aligned")
     pt, _ = Q.same_pads(h, kh, stride, dil)
     pl, _ = Q.same_pads(w, kw, stride, dil)
     ho, wo = -(-h // stride), -(-w // stride)
@@ -76,8 +84,8 @@ def _conv(lib, stream, x, layer, out_dtype, stride=1, dil=1, mode=0,
                              f"output grid {(ho, wo)} nor half of it")
     out = torch.empty((s, ho, wo, cout), dtype=out_dtype, device=x.device)
     _build.check(lib, lib.vst_conv_i8(
-        x.data_ptr(), wt.data_ptr(), layer["mult"].data_ptr(),
-        layer["bias"].data_ptr(), _ptr(res), _ptr(up), out.data_ptr(),
+        x.data_ptr(), wt.data_ptr(), mult.data_ptr(), bias.data_ptr(), _ptr(res), _ptr(up),
+        out.data_ptr(),
         s, h, w, cin, ho, wo, cout, kh, kw, stride, dil, pt, pl, mode, int(in_up),
         up_shift, stream,
     ), "conv_i8")

@@ -13,8 +13,8 @@ up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
     the trunk -- for micro its convolutions and its decoder levels plus
-    head apart; the kernels of micro's decoder and of the full and light
-    trunks one by one by torch.profiler --,
+    head apart; the kernels of micro's decoder and of the pico/nano, full
+    and light trunks one by one by torch.profiler --,
     upsample, guide, face subpath, refine kernel, packed composite,
     unpack; for the multi-class presets: the K=4 trunk, the per-class
     upsample and softmax, the simplex EMA, the per-class composite and its
@@ -84,7 +84,8 @@ def _trunk_stages(model, x0, stages):
     """Time the served trunk.  Micro's is timed as the two functions
     ``micro_trunk_alpha`` runs (its convolutions, then its decoder levels
     and head), and the second's kernels are listed one by one; so are the
-    full and light trunks' kernels.  Returns (logits, that list)."""
+    pico/nano (its 11 launches), full and light trunks' kernels.  Returns
+    (logits, that list)."""
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
     if model.decoder in ("full", "light"):
@@ -96,7 +97,7 @@ def _trunk_stages(model, x0, stages):
         head = f", K={model.num_classes} head" if model.num_classes > 1 else ""
         stages[f"{model.decoder} trunk kernel (11 launches{head})"], logits = _event_ms(
             lambda: model.trunk_logits(x0))
-        return logits, []
+        return logits, _kernel_ms(lambda: model.trunk_logits(x0))
     tp = model.trunk
     stages["micro_encoder: d2dn, d2b block, d3dn, d3b block, ctx, SE"], (d2, ctx) = \
         _event_ms(lambda: TK.micro_encoder(x0, tp))

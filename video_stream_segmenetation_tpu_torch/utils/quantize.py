@@ -43,6 +43,22 @@ def _dtype_name(leaf) -> str:
     return str(leaf.dtype).removeprefix("torch.")
 
 
+def _is_float_np(dtype: np.dtype) -> bool:
+    """Floating by the reference's ``jnp.issubdtype(dtype, jnp.floating)``:
+    numpy's own floats and the ``ml_dtypes`` ones (bfloat16, the float8
+    kinds), which numpy sees as kind ``'V'``.  A name test, so that
+    ``ml_dtypes`` need not be importable: any array of such a dtype means
+    it is loaded."""
+    return np.issubdtype(dtype, np.floating) or (
+        dtype.kind == "V" and dtype.name.startswith(("bfloat", "float")))
+
+
+def _as_f32(leaf) -> torch.Tensor:
+    if isinstance(leaf, np.ndarray):
+        return torch.from_numpy(leaf.astype(np.float32))
+    return torch.as_tensor(leaf).float()
+
+
 def _is_quant(leaf) -> bool:
     return isinstance(leaf, dict) and bool(leaf.get("__quant__"))
 
@@ -56,9 +72,9 @@ def quantize_tree(params, bits: int = 8, min_size: int = 1024):
 
     def quant(leaf):
         if isinstance(leaf, np.ndarray):
-            if leaf.size < min_size or not np.issubdtype(leaf.dtype, np.floating):
+            if leaf.size < min_size or not _is_float_np(leaf.dtype):
                 return leaf
-            x = torch.as_tensor(leaf.astype(np.float32))
+            x = _as_f32(leaf)
         elif isinstance(leaf, torch.Tensor):
             if leaf.numel() < min_size or not leaf.is_floating_point():
                 return leaf
@@ -79,7 +95,8 @@ def quantize_tree(params, bits: int = 8, min_size: int = 1024):
 
 def dequantize_tree(qparams):
     """Quantized leaves back to ``q * scale`` in f32, cast to the leaf's
-    original dtype; other leaves pass through."""
+    original dtype (a numpy ``bfloat16`` by its name, which ``ml_dtypes``
+    registers); other leaves pass through."""
     def dequant(leaf):
         if not _is_quant(leaf):
             return leaf
@@ -97,7 +114,7 @@ def quantization_error(params, bits: int = 8) -> float:
     deq = dequantize_tree(quantize_tree(params, bits))
     errs = []
     for a, b in zip(_leaves(params), _leaves(deq)):
-        a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+        a, b = _as_f32(a), _as_f32(b)
         denom = torch.clamp(a.abs().max(), min=1e-12)
         errs.append(float((a - b).abs().max() / denom))
     return max(errs) if errs else 0.0
