@@ -15,8 +15,12 @@ Phases, each announced by one line on stdout:
      its one-class head, the trunk with its K=4 head at the pico and the nano
      widths (trained multi-class weights, exact), the fused temporal refine
      (bf16 and f32 refined alpha), the int8 decoder level at micro's u2 and
-     u1 levels, the fused 3x3 conv in its four forms (act or not, residual
-     or not) at plan B's layer shapes, the u1-out trunk at pico widths, the
+     u1 levels (beside it, on the same inputs, the trunk's split form of
+     the same function: two conv launches, held and timed as its
+     yardstick), the fused 3x3 conv in its four forms (act or not, residual
+     or not; given the OHWI weights and not) at plan B's layer shapes
+     (beside it the trunk's own conv on the same inputs, held and timed as
+     its yardstick), the u1-out trunk at pico widths, the
      natural layout's fused composite (720p, 288x512 alpha), the
      plane-prior temporal refine, fused_refine (f32 out), the fast
      form of the temporal refine in its three forms (head-grid logits
@@ -509,16 +513,21 @@ def check_refine_fast(dev) -> dict:
 
 def check_decoder(dev) -> dict:
     """The int8 decoder level at micro's two levels (720p, S=64), trained
-    micro weights, s8 activations on the relu6 lattice."""
+    micro weights, s8 activations on the relu6 lattice; beside it, on the
+    same inputs, the trunk's split form of the same function (an f32
+    up-path conv, then the skip conv adding it: two launches of the
+    trunk's conv), held bit for bit too and timed as the yardstick."""
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
     from video_stream_segmenetation_tpu_torch.models import quantized as Q
 
     tp = Q.trunk_params(bridge.load_export(bridge.WEIGHTS_DIR / "mattenet_hd10_micro.npz"),
                       dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     hp, wp = FRAME_HW[0] // 10, FRAME_HW[1] // 10
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    forms = {}
     for level, (sh, sw), (ca, cb) in (("u2", (hp // 4, wp // 4), (256, 192)),
                                       ("u1", (hp // 2, wp // 2), (192, 128))):
         up, skip_l = tp[f"{level}red_up"], tp[f"{level}red_skip"]
@@ -526,19 +535,30 @@ def check_decoder(dev) -> dict:
                               dtype=torch.int32).to(torch.int8)
         skip = torch.randint(0, 128, (S, 2 * sh, 2 * sw, cb), generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int8)
+        lib, stream = TK._launcher(small)
+
+        def split():
+            ya = TK._conv(lib, stream, small, up, torch.float32, mode=1)
+            return TK._conv(lib, stream, skip, skip_l, torch.int8, up=ya)
         got = DK.fused_decoder_level(small, skip, up, skip_l)
+        got_split = split()
         want = Q.split_conv_up(small, skip, up, skip_l)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        split_err = (got_split.float() - want.float()).abs().max().item()
         hist = torch.bincount(want.flatten().to(torch.int64), minlength=128)
         say(f"  decoder_int8 {level}: small {tuple(small.shape)} skip {tuple(skip.shape)} "
-            f"-> {tuple(got.shape)} max_abs_err {err:g} (tolerance {DECODER_TOL}); "
-            f"out at 0: {hist[0].item() / want.numel():.3f}, at 127: "
-            f"{hist[127].item() / want.numel():.3f}")
+            f"-> {tuple(got.shape)} max_abs_err {err:g} (tolerance {DECODER_TOL}); the "
+            f"trunk's split form {split_err:g}; out at 0: {hist[0].item() / want.numel():.3f}"
+            f", at 127: {hist[127].item() / want.numel():.3f}")
         if got.dtype != torch.int8 or err > DECODER_TOL:
             raise AssertionError(f"decoder kernel disagrees with its plain version at "
                                  f"{level}: {err}")
+        if got_split.dtype != torch.int8 or split_err > DECODER_TOL:
+            raise AssertionError(f"the trunk's split form disagrees with the plain decoder "
+                                 f"level at {level}: {split_err}")
         ms = cuda_time_ms(lambda: DK.fused_decoder_level(small, skip, up, skip_l), 20)
+        split_ms = cuda_time_ms(split, 20)
         plain_ms = cuda_time_ms(
             lambda: Q.split_conv_up(small, skip, up, skip_l), 3)
         cout = up["w"].shape[0]
@@ -547,19 +567,24 @@ def check_decoder(dev) -> dict:
         macs = (small.numel() + skip.numel()) * cout
         b_ms, b_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
         say(f"  decoder_int8 {level}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {bytes_moved / 1e6:.1f} MB, {macs / 1e9:.2f} G MAC)")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", bytes_moved),
-                     ("macs", macs)):
+            f"{b_ms:.4f} ms ({b_by}; {bytes_moved / 1e6:.1f} MB, {macs / 1e9:.2f} G MAC); "
+            f"the trunk's split form (two conv launches) on the same inputs {split_ms:.4f} ms")
+        forms[level] = ms
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("split_ms", split_ms),
+                     ("bytes", bytes_moved), ("macs", macs)):
             total[k] += v
         total["err"] = max(total["err"], err)
+    forms["trunk split"] = total["split_ms"]
     bound_ms, bound_by = bound(total["bytes"], 2 * total["macs"], INT8_OPS_PER_S)
     say(f"  decoder_int8 both levels: {total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms,"
-        f" bound {bound_ms:.4f} ms ({bound_by})")
+        f" bound {bound_ms:.4f} ms ({bound_by}); the trunk's split form "
+        f"{total['split_ms']:.4f} ms")
     return {"name": "decoder_int8", "route": "cuda",
             "source": "video_stream_segmenetation_tpu_torch/csrc/decoder_int8.cu",
             "replaces": "video_stream_segmenetation_tpu/kernels/decoder_int8.py:100",
             "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "forms_ms": forms}
 
 
 # plan B's 3x3 stride-1 layers at S=64, 720p: (name, the stem-grid shift
@@ -585,7 +610,8 @@ def check_conv(dev) -> dict:
     tp = Q.trunk_params(bridge.load_export(bridge.WEIGHTS_DIR / "mattenet_hd10.npz"), dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     hp, wp = FRAME_HW[0] // 10, FRAME_HW[1] // 10
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "trunk_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    forms = {}
     for name, shift, dil, routed in CONV_LAYERS:
         pfx, _, sub = name.partition("/")
         layer = tp[pfx][sub] if sub else tp[pfx]
@@ -600,11 +626,14 @@ def check_conv(dev) -> dict:
         for r in (None, res):
             for act in (True, False):
                 args = (x, wq, layer["mult"], layer["bias"], r, act, dil)
-                got = TC.conv3x3_i8_fused(*args)
+                # the OHWI copy the trunks pass (_qconv), and without it
+                got = TC.conv3x3_i8_fused(*args, w_ohwi=layer["w"])
+                got_t = TC.conv3x3_i8_fused(*args)
                 want = TC.conv3x3_i8_plain(*args)
                 torch.cuda.synchronize()
-                errs.append((got.int() - want.int()).abs().max().item()
-                            if got.dtype == want.dtype == torch.int8 else math.inf)
+                errs += [(g.int() - want.int()).abs().max().item()
+                         if g.dtype == want.dtype == torch.int8 else math.inf
+                         for g in (got, got_t)]
         err = max(errs)
         say(f"  conv3x3_i8_fused {name}: x {tuple(x.shape)} -> {cout} channels, dilation "
             f"{dil}; max_abs_err over the four forms {err:g} (tolerance {CONV_TOL})")
@@ -615,7 +644,7 @@ def check_conv(dev) -> dict:
         if not routed:
             continue
         ms = cuda_time_ms(lambda: TC.conv3x3_i8_fused(x, wq, layer["mult"], layer["bias"],
-                                                      dilation=dil), 10)
+                                                      dilation=dil, w_ohwi=layer["w"]), 10)
         plain_ms = cuda_time_ms(lambda: TC.conv3x3_i8_plain(x, wq, layer["mult"],
                                                             layer["bias"], dilation=dil), 2)
         # the same 3x3 requant through the trunk's own conv (int8_conv_impl='xla')
@@ -633,17 +662,21 @@ def check_conv(dev) -> dict:
         say(f"  conv3x3_i8_fused {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {macs / 1e9:.2f} G MAC, {bytes_moved / 1e6:.1f} MB); "
             f"the trunk's conv on the same inputs {trunk_ms:.4f} ms (max_abs_err {trunk_err})")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", bytes_moved),
-                     ("macs", macs)):
+        forms[name] = ms
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("trunk_ms", trunk_ms),
+                     ("bytes", bytes_moved), ("macs", macs)):
             total[k] += v
+    forms["trunk conv"] = total["trunk_ms"]
     bound_ms, bound_by = bound(total["bytes"], 2 * total["macs"], INT8_OPS_PER_S)
     say(f"  conv3x3_i8_fused, plan B's four routed layers: {total['ms']:.4f} ms, plain "
-        f"{total['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{total['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); the trunk's "
+        f"conv on the same inputs {total['trunk_ms']:.4f} ms")
     return {"name": "conv3x3_i8_fused", "route": "cuda",
             "source": "video_stream_segmenetation_tpu_torch/csrc/conv_int8.cu",
             "replaces": "video_stream_segmenetation_tpu/kernels/conv_int8.py:116",
             "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "forms_ms": forms}
 
 
 def check_u1_trunk(dev) -> dict:

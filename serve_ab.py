@@ -60,7 +60,7 @@ _build.build()
 dev = torch.device('cuda', 0)
 times = {}
 for check in (C.check_trunk, C.check_u1_trunk, C.check_refine, C.check_refine_plane,
-              C.check_fused_refine, C.check_refine_fast, C.check_conv):
+              C.check_fused_refine, C.check_refine_fast, C.check_decoder, C.check_conv):
     got = check(dev)
     for e in got if isinstance(got, list) else [got]:
         times[e['name']] = e['ms']

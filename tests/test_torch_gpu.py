@@ -119,26 +119,62 @@ def _micro_tp(device):
     return trunk_params(quantize_mattenet_hd(init_params("micro", 0, 10), 10, "micro"), device)
 
 
+# (id, streams, small's grid, Ca, Cb, Cout, the level of a plan's seeded
+# weights or None for random 1x1 weights): micro's and plan C's u2 and u1
+# at the 720p grids; one stream; tiles of 64 parents that end inside a
+# stream (5x7) or past the last parent (3x5, 5x7); Ca and Cb of 128, 192
+# and 256; Cout 128 and 192, one not a multiple of the N tile (odd), one
+# over two N tiles (320)
+DECODER_CASES = [
+    ("micro-u2", 2, (18, 32), 256, 192, 192, ("micro", "u2")),
+    ("micro-u1", 2, (36, 64), 192, 128, 128, ("micro", "u1")),
+    ("light-u2", 2, (18, 32), 256, 192, 192, ("light", "u2")),
+    ("light-u1", 2, (36, 64), 192, 128, 128, ("light", "u1")),
+    ("micro-u1-ragged-3x5", 2, (3, 5), 192, 128, 128, ("micro", "u1")),
+    ("s1-u1", 1, (36, 64), 192, 128, 128, None),
+    ("ragged-5x7", 3, (5, 7), 256, 192, 192, None),
+    ("ca128-cb256", 2, (5, 7), 128, 256, 128, None),
+    ("ca256-cb128", 2, (9, 16), 256, 128, 192, None),
+    ("ca192-cb192", 1, (9, 16), 192, 192, 192, None),
+    ("cout-odd-37", 2, (5, 7), 128, 128, 37, None),
+    ("cout-320", 1, (5, 7), 128, 192, 320, None),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("level,grid,ca,cb", [("u2", (18, 32), 256, 192),
-                                              ("u1", (36, 64), 192, 128),
-                                              ("u1", (3, 5), 192, 128)])
-def test_decoder_kernel_matches_plain(card, level, grid, ca, cb):
-    """Bit-exact s8 at micro's two levels (720p grids, and a ragged one)."""
+@pytest.mark.parametrize("case", DECODER_CASES, ids=[c[0] for c in DECODER_CASES])
+def test_decoder_kernel_matches_plain(card, case):
+    """The decoder level, one launch, bit-exact s8 (tolerance 0) against the
+    plain split conv at micro's and plan C's levels and at the tile's
+    edges (see DECODER_CASES)."""
     from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
 
-    tp = _micro_tp(card)
-    g = np.random.default_rng(1)
-    small = torch.as_tensor(g.integers(0, 128, (2, *grid, ca), dtype=np.int8), device=card)
-    skip = torch.as_tensor(g.integers(0, 128, (2, 2 * grid[0], 2 * grid[1], cb),
-                                      dtype=np.int8), device=card)
-    up, sk = tp[f"{level}red_up"], tp[f"{level}red_skip"]
+    _, s, grid, ca, cb, cout, level = case
+    g = np.random.default_rng(len(DECODER_CASES) + ca + 2 * cb + cout)
+    t = lambda a: torch.as_tensor(a, device=card)  # noqa: E731
+    if level is not None:
+        tp = _k_trunk(card, level[0], 1)
+        up, sk = tp[f"{level[1]}red_up"], tp[f"{level[1]}red_skip"]
+    else:
+        # y spread over about 2 +- 4: the lattice's whole range
+        mult = t(((0.5 + g.random(cout)) * 4e-4 / np.sqrt(ca + cb)).astype(np.float32))
+        up = {"w": t(g.integers(-127, 128, (cout, 1, 1, ca), dtype=np.int8)), "mult": mult,
+              "bias": t((g.random(cout) + 1.5).astype(np.float32))}
+        sk = {"w": t(g.integers(-127, 128, (cout, 1, 1, cb), dtype=np.int8)), "mult": mult,
+              "bias": torch.zeros_like(mult)}
+    assert tuple(up["w"].shape) == (cout, 1, 1, ca) and tuple(sk["w"].shape) == (cout, 1, 1, cb)
+    small = t(g.integers(0, 128, (s, *grid, ca), dtype=np.int8))
+    skip = t(g.integers(0, 128, (s, 2 * grid[0], 2 * grid[1], cb), dtype=np.int8))
     n = DK.fused_decoder_level.launches
     got = DK.fused_decoder_level(small, skip, up, sk)
     want = Q.split_conv_up(small, skip, up, sk)
     torch.cuda.synchronize()
     assert DK.fused_decoder_level.launches == n + 1
-    assert torch.equal(got, want)
+    assert got.shape == want.shape == (s, 2 * grid[0], 2 * grid[1], cout)
+    if level is None:
+        inside = ((want > 0) & (want < 127)).float().mean().item()
+        assert inside > 0.3, inside
+    assert torch.equal(got, want), (got.double() - want.double()).abs().max().item()
 
 
 @pytest.mark.gpu
@@ -305,14 +341,17 @@ def _conv_case(device, cin, cout, hw, seed=4):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dilation,cin,cout,hw", [
     (1, 128, 128, (72, 128)), (1, 192, 192, (36, 64)), (2, 256, 256, (18, 32)),
-    (4, 256, 256, (18, 32)), (3, 64, 100, (5, 7))],
-    ids=["d1-72x128", "d1-36x64", "d2-18x32", "d4-18x32", "d3-ragged"])
+    (4, 256, 256, (18, 32)), (3, 64, 100, (5, 7)), (1, 32, 128, (9, 16)),
+    (2, 128, 260, (9, 16))],
+    ids=["d1-72x128", "d1-36x64", "d2-18x32", "d4-18x32", "d3-ragged", "cin32",
+         "cout260-two-n-tiles"])
 @pytest.mark.parametrize("act", [True, False], ids=["act", "noact"])
 @pytest.mark.parametrize("residual", [False, True], ids=["nores", "res"])
 def test_conv3x3_kernel_matches_plain(card, residual, act, dilation, cin, cout, hw):
-    """conv3x3_i8_fused's four forms at plan B's layer shapes and a ragged
-    one (output channels not a multiple of the 64-channel tile, pixels not
-    a multiple of 64): bit for bit the plain version."""
+    """conv3x3_i8_fused's four forms at plan B's layer shapes, a ragged one
+    (output channels not a multiple of the 64-channel tile, pixels not a
+    multiple of the 128-pixel tile), 32 input channels and 260 output
+    channels (two N tiles): bit for bit the plain version."""
     from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
 
     x, wq, mult, bias, res = _conv_case(card, cin, cout, hw)
@@ -343,15 +382,21 @@ def test_u1_trunk_kernel_matches_plain(card, plan):
 
 
 def _conv_i8_plain(x, layer, stride=1, dil=1, mode=0, res=None, up=None, in_up=False):
-    """One ``trunk_int8._conv`` launch in plain PyTorch, in the plain
-    trunks' f32 order: ``acc * mult + bias``, then mode 1 as it is, mode 2
-    ``clip(y + res * 6/127, 0, 6)``, mode 0 ``requant(up + y [+ res *
-    6/127])`` with ``up`` at the output grid or at half of it."""
+    """One launch of the conv tile in plain PyTorch, in the plain trunks'
+    f32 order: ``acc * mult + bias``, then mode 1 as it is, mode 2
+    ``clip(y + res * 6/127, 0, 6)``, mode 3 (conv3x3_i8_fused's no-act
+    form) ``clip(rint((y [+ res * 6/127]) * 127/6), -127, 127)``, mode 0
+    ``requant(up + y [+ res * 6/127])`` with ``up`` at the output grid or
+    at half of it."""
     y = Q._conv_i8(Q._nearest_x2(x) if in_up else x, layer, stride, dil)
     if mode == 1:
         return y
     if mode == 2:
         return torch.clamp(y + res.to(torch.float32) * Q.ACT_SCALE, 0.0, 6.0)
+    if mode == 3:
+        if res is not None:
+            y = y + res.to(torch.float32) * Q.ACT_SCALE
+        return torch.clamp(torch.round(y * Q.RELU6_SCALE), -127, 127).to(torch.int8)
     if up is not None:
         y = (up if up.shape[1:3] == y.shape[1:3] else Q._nearest_x2(up)) + y
     if res is not None:
@@ -378,19 +423,25 @@ CONV_EDGES = [
     ("3x3-up-same", 2, (16, 32), 192, 128, 3, 1, 1, 0, False, "same", False),
     ("in-shift", 2, (16, 32), 256, 192, 3, 1, 1, 1, False, None, True),
     ("1x1-mode1-c192", 3, (9, 16), 256, 192, 1, 1, 1, 1, False, None, False),
+    # mode 3 is the routed instantiation's (conv3x3_i8_fused, act=False)
+    ("noact-ragged-m", 3, (18, 30), 192, 192, 3, 1, 1, 3, False, None, False),
+    ("noact-res-dil2", 2, (18, 32), 256, 256, 3, 1, 2, 3, True, None, False),
+    ("noact-cout100", 1, (6, 10), 64, 100, 3, 1, 1, 3, False, None, False),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CONV_EDGES, ids=[c[0] for c in CONV_EDGES])
 def test_conv_kernel_edges_match_plain(card, case):
-    """The trunk's tensor-core conv (one ``vst_conv_i8`` launch) at its
+    """The tensor-core conv tile (one launch: ``vst_conv_i8``, or for mode 3
+    ``conv3x3_i8_fused`` without act, its routed instantiation) at its
     edges: ragged M (tiles that end inside a stream or past the last),
-    Cout 128/192/256, stride 2 with odd output grids, dilations 2/3/4, the
-    residual, the addend at the output's grid and at half of it, the input
-    read through a nearest x2 upsample, the three modes; bit for bit the
-    plain version (tolerance 0)."""
+    Cout 100/128/192/256, stride 2 with odd output grids, dilations 2/3/4,
+    the residual, the addend at the output's grid and at half of it, the
+    input read through a nearest x2 upsample, the four modes; bit for bit
+    the plain version (tolerance 0)."""
     from video_stream_segmenetation_tpu_torch.kernels import _build
+    from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
 
     _, s, hw, cin, cout, k, stride, dil, mode, with_res, up_grid, in_up = case
     g = np.random.default_rng(len(CONV_EDGES) + cout + cin + k)
@@ -409,13 +460,21 @@ def test_conv_kernel_edges_match_plain(card, case):
     if up_grid is not None:
         uh, uw = (ho, wo) if up_grid == "same" else (ho // 2, wo // 2)
         up = t((g.random((s, uh, uw, cout)) * 4.0 - 1.0).astype(np.float32))
-    out_dtype = torch.int8 if mode == 0 else torch.float32
-    got = TK._conv(_build.library(), torch.cuda.current_stream(card).cuda_stream, x, layer,
-                   out_dtype, stride=stride, dil=dil, mode=mode, res=res, up=up, in_up=in_up)
+    if mode == 3:
+        n = TC.conv3x3_i8_fused.launches
+        got = TC.conv3x3_i8_fused(x, layer["w"].permute(1, 2, 3, 0).contiguous(),
+                                  layer["mult"], layer["bias"], res, act=False, dilation=dil,
+                                  w_ohwi=layer["w"])
+        assert TC.conv3x3_i8_fused.launches == n + 1
+    else:
+        out_dtype = torch.int8 if mode == 0 else torch.float32
+        got = TK._conv(_build.library(), torch.cuda.current_stream(card).cuda_stream, x,
+                       layer, out_dtype, stride=stride, dil=dil, mode=mode, res=res, up=up,
+                       in_up=in_up)
     want = _conv_i8_plain(x, layer, stride, dil, mode, res, up, in_up)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape == (s, ho, wo, cout)
-    if mode == 0:
+    if mode in (0, 3):
         # most outputs inside the lattice, not at its ends
         inside = ((want > 0) & (want < 127)).float().mean().item()
         assert inside > 0.3, inside

@@ -1,13 +1,15 @@
 """Build and load the package's CUDA kernels.
 
 Every ``*.cu`` under the package's ``csrc/`` is compiled with ``nvcc`` for
-``sm_90a`` (one ``nvcc`` process for each source, all started together),
+``sm_90a`` (one ``nvcc`` process for each source, all started together;
+the ``*.cuh`` headers beside them are included, not compiled alone),
 linked into one shared library with a plain C interface, and loaded with
 ``ctypes``.  PyTorch's extension builder is not used: a source that
 includes PyTorch's headers takes minutes to compile, these take seconds.
 
 The library goes to ``build/`` at the repository root at first use and is
-rebuilt when a source or a flag changes (its file name carries their hash).
+rebuilt when a source, a header or a flag changes (its file name carries
+their hash).
 ``nvcc`` is looked for on ``PATH``, then under ``$CUDA_HOME/bin``, then at
 ``/usr/local/cuda/bin/nvcc``.
 """
@@ -77,9 +79,14 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -194,7 +194,8 @@ def _qconv(lib, stream, x, layer, conv_impl, dil=1):
     ``conv_impl`` (its ``_qconv``): kernels/conv_int8.py with 'pallas',
     the trunk's conv kernel with 'xla' (the same numerics)."""
     if conv_impl == "pallas":
-        return conv3x3_i8_fused(x, layer["wq"], layer["mult"], layer["bias"], dilation=dil)
+        return conv3x3_i8_fused(x, layer["wq"], layer["mult"], layer["bias"], dilation=dil,
+                                w_ohwi=layer["w"])
     return _conv(lib, stream, x, layer, torch.int8, dil=dil)
 
 
