@@ -29,9 +29,10 @@ Phases, each announced by one line on stdout:
      +-inf, NaNs, values next to bf16's largest, normals at many scales):
      bit for bit, every output one of its two bf16 neighbours, a block of
      one value rounded up at its probability within 5 sigma;
-  4-16. serve: Engine(64, ...) answers 8 steps of 720p frames in thirteen
+  4-19. serve: Engine(64, ...) answers 8 steps of 720p frames in sixteen
      phases, each with every launch count set to 0 just before it and read
-     just after:
+     just after, and none of its steps a passthrough (the engine's count of
+     them must stay 0):
        4. fast_int8_pico with the face path off, seeded weights, synthetic
           frames (a bright ellipse moving over noise);
        5. fast_int8_pico as its preset stands (face path on, fd/lmk 128,
@@ -53,6 +54,15 @@ Phases, each announced by one line on stdout:
       13-16. active (the float MatteNet over natural frames) as it stands,
           with use_fused_composite=True, prior_impl='plane' and
           warp_impl='exact';
+      17-19. the colour and blur backgrounds: fast_int8_pico with
+          background='color' (the packed colour), active with
+          use_fused_composite=True and background='color' (the composite
+          kernel with a one-row u8 background, held against its plain
+          version on the last step's inputs bit for bit) and active with
+          background='blur' (the frames blurred, the plain composite);
+          each with its image-background phase's IoU bar, and where the
+          served alpha upsamples to 0 the frame must be the background
+          exactly;
      each checks shapes, dtypes, value ranges, the alpha against the frames'
      ground truth (phases 5-12) or the ellipse (phase 4), that each counted
      wrapper ran its expected number of times (every other one none), with
@@ -61,7 +71,27 @@ Phases, each announced by one line on stdout:
      IoU is at most 0.02 below the reference engine's, and in phases 5-12
      that the served trunk equals its plain version on two streams; each
      prints its median step time and the peak device memory;
-  17. rotation, the production serving loop: StreamScheduler(Engine(400,
+  20. degrade: Engine(64, fast_int8_pico) with the trained weights loaded
+     through load_matting_params/load_face_params from weights/*.npz, its
+     step replaced by one that raises, through process and through
+     dispatch/collect: two passthrough failures, 'degraded' after the
+     third, a fourth call served as passthrough without running the step,
+     each passthrough frame equal to its input byte for byte and alpha f32
+     ones; the step restored and the probe due, the probe serves and
+     health reads 'ok'; then one real failure on the card each of an
+     out-of-memory and a launch the alpha head's C entry point refuses;
+  21. render: the sample background templates at each privacy level,
+     rendered at 720p with PIL (background/render.py) and served;
+  22. server: a ControlServer on that engine at 127.0.0.1 on a free port:
+     /stats, /healthz (503 while degraded), knobs, reset, a background
+     colour, the privacy level and a template between served steps;
+  23. chunked, packed: process_chunked(frames, 16) against process on a
+     second engine, element by element; output_layout='packed' after
+     depth_to_space against 'natural', byte for byte;
+  24. api: segment, composite (colour, blur, image) and process_frame on
+     the committed frames with weights/mattenet.npz, the mask IoU within
+     0.02 of the active phase's;
+  25. rotation, the production serving loop: StreamScheduler(Engine(400,
      fast_int8_pico with refine_alpha_src='lowres', guide_kernel_unfold=
      True, guide_source='host'), group_sizes=[96, 96, 96, 96, 16],
      fused_rounds=True) over the port's native FramePool (48 guide lanes
@@ -73,13 +103,19 @@ Phases, each announced by one line on stdout:
      one more round whose trunk and fast refine inputs are kept at each
      group size (96 and 16), and each kernel held against its plain
      version on them at the kernels phase's tolerances;
-  18. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
+  26. rotation failure: on that rotation, one round failing after its
+     first two groups wrote their rows: every group's input back as
+     passthrough, the state restored from the failing dispatch's snapshot
+     (affine, has_affine, frame_idx; a cold EMA), three rounds served,
+     then one more round with its snapshot under
+     set_sync_debug_mode('error');
+  27. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
      frames through that route with fused rounds and through
      fast_int8_pico as its preset stands under per-group step_pipelined:
      prev_alpha within 1e-5, the refined alpha within 1e-2, IoU within
-     0.001; then on each route a round held as in phase 17 (trunk, fast
+     0.001; then on each route a round held as in phase 25 (trunk, fast
      and analytic refine at 24 and 16 streams);
-  19. train: the plan-D pico MatteNetHD at its full widths, fit on the
+  28. train: the plan-D pico MatteNetHD at its full widths, fit on the
      card with tools/train_flagship.py's schedule at fewer steps (20 at
      240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
      grad_norm finite and every leaf moved; one step's forward and
@@ -818,14 +854,18 @@ def check_composite(dev) -> dict:
     alpha[::3, :40] = 0.0
     alpha[1::3, -40:] = 1.0
     got = KC.fused_composite(frames, alpha, bg)
+    # the one-row background (a colour background's form, bg_stride 0)
+    bg1 = bg[:1].contiguous()
+    got1 = KC.fused_composite(frames, alpha, bg1)
     with pinned():
         want = KC.fused_composite_plain(frames, alpha, bg)
+        want1 = KC.fused_composite_plain(frames, alpha, bg1)
     torch.cuda.synchronize()
     diff = (got.int() - want.int()).abs()
-    err = diff.max().item()
-    say(f"  composite_fused: frames {tuple(frames.shape)} alpha {tuple(alpha.shape)} "
-        f"max_abs_err {err} u8 steps (tolerance {COMPOSITE_TOL}), values apart "
-        f"{(diff > 0).sum().item()}")
+    err = max(diff.max().item(), (got1.int() - want1.int()).abs().max().item())
+    say(f"  composite_fused: frames {tuple(frames.shape)} alpha {tuple(alpha.shape)}, "
+        f"background of S rows and of one row: max_abs_err {err} u8 steps (tolerance "
+        f"{COMPOSITE_TOL}), values apart {(diff > 0).sum().item()}")
     if got.dtype != torch.uint8 or err > COMPOSITE_TOL:
         raise AssertionError(f"composite kernel disagrees with its plain version: {err}")
     ms = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg), 20)
@@ -836,8 +876,12 @@ def check_composite(dev) -> dict:
     # taps, the clip, and per channel the blend and the rounding (~6)
     ops = S * fh * (mw * 3 + fw * (5 + 3 * 6))
     bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
+    ms1 = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg1), 20)
+    bound1_ms, bound1_by = bound(2 * frames.numel() + bg1.numel() + 4 * alpha.numel(), ops,
+                                 F32_OPS_PER_S)
     say(f"  composite_fused: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {bytes_moved / 1e6:.1f} MB)")
+        f"({bound_by}; {bytes_moved / 1e6:.1f} MB); one-row background {ms1:.3f} ms, bound "
+        f"{bound1_ms:.4f} ms ({bound1_by})")
     return {"name": "composite_fused", "route": "cuda",
             "source": "video_stream_segmenetation_tpu_torch/csrc/composite_fused.cu",
             "replaces": "video_stream_segmenetation_tpu/kernels/composite_fused.py:84",
@@ -948,7 +992,10 @@ REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980,
                  # tests/test_torch_active_720p.py, 8 steps: the separable-warp
                  # routes (the plane prior and the composites give its alpha)
                  # and the exact warp
-                 "active": 0.5460, "active_exact_warp": 0.5429}
+                 "active": 0.5460, "active_exact_warp": 0.5429,
+                 # tests/test_torch_api.py::test_trained_segment_iou_720p: the
+                 # reference's segment (the model's alpha, no refine)
+                 "api": 0.6680}
 IOU_SLACK = 0.02
 
 # serve phases: (label, preset, overrides, trained weights and frames,
@@ -990,6 +1037,15 @@ PHASES = (
      {"refine_fused_plane": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
     ("active, warp_impl='exact'", "active", {"warp_impl": "exact"}, True,
      {"fused_refine": 1}, REFERENCE_IOU["active_exact_warp"] - IOU_SLACK, None),
+    # the colour and blur backgrounds: the alpha does not depend on the
+    # background, so each phase has its image-background phase's bar
+    ("fast_int8_pico, background='color'", "fast_int8_pico", {"background": "color"}, True,
+     {"trunk_int8": 1, "refine_fused": 1}, 0.5, "trunk_int8"),
+    ("active, use_fused_composite=True, background='color'", "active",
+     {"use_fused_composite": True, "background": "color"}, True,
+     {"refine_fused": 1, "composite_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
+    ("active, background='blur'", "active", {"background": "blur"}, True,
+     {"refine_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
 )
 
 
@@ -1054,20 +1110,34 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     times, out, truth = [], None, None
     applied = np.zeros((num_streams,), bool)
     scores = []
+    held_composite = {}
     for t in range(steps):
         if trained:
             frames, truth = batches[t % 2]
         else:
             frames, inside = synthetic_frames(rng, base, t)
+        last = t == steps - 1
+        if last and statics.use_fused_composite is True:
+            restore = record_composite(held_composite)
         t0 = time.perf_counter()
-        out = eng.process(frames)
+        try:
+            out = eng.process(frames)
+        finally:
+            if last and statics.use_fused_composite is True:
+                restore()
         if device != "cpu":
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if out["passthrough"]:
+            raise AssertionError(f"step {t} was served as passthrough: "
+                                 f"{eng.stats()['health']}")
         applied |= out["face_applied"].cpu().numpy()
         ds = out["det_score"].cpu().numpy()
         scores.extend(ds[ds > 0].tolist())
     launches = {k: c.launches for k, c in counters.items()}
+    passthrough = eng.stats()["passthrough_steps"]
+    if passthrough:
+        raise AssertionError(f"{passthrough} passthrough steps in a serve phase")
     alpha = out["alpha"].float()
     want_dtype = (torch.bfloat16 if statics.refined_dtype == "bf16" and not multiclass
                   else torch.float32)
@@ -1080,9 +1150,14 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         raise AssertionError("alpha is not finite in [0, 1]")
     res = {"times_ms": times, "launches": launches, "health":
            eng.stats()["health"]["state"], "applied": int(applied.sum()),
+           "passthrough": passthrough,
            "det_score": float(np.mean(scores)) if scores else 0.0,
            "peak_mib": (torch.cuda.max_memory_allocated() / 2**20 if device != "cpu"
                         else None)}
+    if statics.background != "image":
+        res["bg_pixels"] = background_check(statics, frames, out)
+    if held_composite:
+        res["composite_err"] = hold_composite(held_composite)
     if multiclass:
         ca = out["class_alpha"]
         if tuple(ca.shape) != (num_streams, mh, mw, statics.num_classes) \
@@ -1121,6 +1196,68 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
             raise AssertionError(f"alpha inside the ellipse {res['alpha_in']} ~ "
                                  f"outside {res['alpha_out']}")
     return res
+
+
+def record_composite(held: dict):
+    """Keep the inputs of the step's next fused_composite call in ``held``
+    (the call itself goes on and counts); returns the undo."""
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline
+
+    orig = pipeline.fused_composite
+
+    def rec(frames, alpha, background):
+        held.setdefault("args", (frames.clone(), alpha.clone(), background.clone()))
+        return orig(frames, alpha, background)
+
+    pipeline.fused_composite = rec
+    return lambda: setattr(pipeline, "fused_composite", orig)
+
+
+def hold_composite(held: dict) -> int:
+    """The composite kernel against its plain version on a served step's
+    inputs (these launches come after the phase's counts were read)."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    frames, alpha, bg = held["args"]
+    got = KC.fused_composite(frames, alpha, bg)
+    with pinned():
+        want = KC.fused_composite_plain(frames, alpha.float(), bg)
+    err = (got.int() - want.int()).abs().max().item()
+    if err > COMPOSITE_TOL:
+        raise AssertionError(f"composite kernel on a served step's inputs (background "
+                             f"{tuple(bg.shape)}) disagrees with its plain version: {err}")
+    return err
+
+
+def background_check(statics, frames_np, out) -> int:
+    """Where the served alpha upsamples to exactly 0 (every tap on a zero
+    of the refined alpha), the served frame is the background: the colour
+    rounded to u8, or the frame blurred.  Returns the pixels checked."""
+    from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
+    from video_stream_segmenetation_tpu_torch.ops.color import denormalize_to_u8
+    from video_stream_segmenetation_tpu_torch.ops.resize import interp_matrix
+
+    fh, fw = statics.frame_hw
+    alpha = out["alpha"].double()
+    dev = alpha.device
+    a_h = interp_matrix(fh, alpha.shape[1], "half_pixel", device=dev).double()
+    a_w = interp_matrix(fw, alpha.shape[2], "half_pixel", device=dev).double()
+    zero = (a_h @ alpha @ a_w.t()) == 0
+    frame = out["frame"]
+    if statics.background == "color":
+        want = denormalize_to_u8(torch.tensor(statics.bg_color, device=dev))
+        got = frame[zero]
+        bad = (got != want).any(-1).sum().item()
+    else:
+        f = torch.as_tensor(frames_np, device=dev)
+        bg = denormalize_to_u8(gaussian_blur_auto(f.float() / 255.0, statics.bg_blur_sigma))
+        bad = (frame[zero] != bg[zero]).any(-1).sum().item()
+    checked = int(zero.sum().item())
+    if checked == 0 or bad:
+        raise AssertionError(f"background='{statics.background}': {bad} of {checked} "
+                             "pixels where the alpha is 0 are not the background")
+    return checked
 
 
 # the production rotation: 400 streams as 4 x 96 + 16, the fast refine's
@@ -1191,6 +1328,9 @@ def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
 
     def take(results):
         hit = np.zeros((n,), bool)
+        if any(res["passthrough"] for res in results):
+            raise AssertionError(f"a rotation round was served as passthrough: "
+                                 f"{eng.stats()['health']}")
         for res in results:
             i0, i1 = res["slots"]
             hit[i0:i1] = res["face_applied"].cpu().numpy()
@@ -1245,10 +1385,13 @@ def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
         t0 = time.perf_counter()
         host = [sched._group_frames(offs[g], offs[g + 1])[0] for g in range(len(sizes))]
         t1 = time.perf_counter()
-        step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g])
+        step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g])[1]
                        for g, f in enumerate(host)]
         sync()
         t2 = time.perf_counter()
+        # the checked round takes the recovery snapshot too
+        eng._dispatches = 0
+        pending = eng._snap_pending
         if device != "cpu":
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1257,6 +1400,8 @@ def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
         finally:
             if device != "cpu":
                 torch.cuda.set_sync_debug_mode("default")
+        if eng._snap_pending is pending:
+            raise AssertionError("the sync-checked round took no recovery snapshot")
         sync()
         t4 = time.perf_counter()
         res["parts_ms"] = {"assemble": (t1 - t0) * 1e3, "ingest": (t2 - t1) * 1e3,
@@ -1289,7 +1434,7 @@ def hold_round(res, r: int) -> dict:
         sched.push_frame(s, clip[(s + r) % 2])
     offs = sched.group_offsets
     step_frames = [eng._ingest(sched._group_frames(offs[g], offs[g + 1])[0],
-                               rows=offs[g + 1] - offs[g]) for g in range(len(sizes))]
+                               rows=offs[g + 1] - offs[g])[1] for g in range(len(sizes))]
     calls = {}
 
     def keep(a):
@@ -1426,6 +1571,453 @@ def phase_routes(device, sizes=(24, 24, 16), rounds=ROUNDS) -> dict:
         held[key] = max(err, held.get(key, 0.0))
     return {"a": a, "b": b, "prev_err": prev_err, "alpha_err": alpha_err,
             "iou_err": iou_err, "held": held}
+
+
+def _pico_engine(device, num_streams: int | None = None, **kw):
+    """Engine(fast_int8_pico) at 720p (statics overrides and Engine options
+    in ``kw``), the committed trained weights loaded through its numpy
+    loaders, every slot admitted, gradient backgrounds."""
+    from video_stream_segmenetation_tpu_torch.bridge import WEIGHTS_DIR
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+
+    num_streams = num_streams or S
+    opts = {k: kw.pop(k) for k in ("output_layout", "collect_sync") if k in kw}
+    eng = Engine(num_streams, preset("fast_int8_pico", **kw), device=device, **opts)
+    eng.load_matting_params(WEIGHTS_DIR / "mattenet_hd10_pico.npz")
+    eng.load_face_params(WEIGHTS_DIR / "facefinder_128.npz", WEIGHTS_DIR / "landmarknet_128.npz")
+    eng.admit_all()
+    fh, fw = FRAME_HW
+    grad = np.linspace(0, 255, fw, dtype=np.float32)[None, :, None]
+    for s in range(num_streams):
+        eng.set_background(s, np.broadcast_to(grad * ((s % 3) + 1) / 3.0,
+                                              (fh, fw, 3)).astype(np.uint8))
+    return eng
+
+
+def _committed(num_streams: int, t: int = 0):
+    """The committed frames for ``num_streams`` streams (stream s takes
+    frame (s + t) % 2) and their ground truth at the mask grid."""
+    from video_stream_segmenetation_tpu_torch import bridge
+
+    clip, gt = bridge.load_frames()
+    order = (np.arange(num_streams) + t) % 2
+    return clip[order], gt[order] > 127
+
+
+def expect_passthrough(eng, out: dict, frames_in) -> None:
+    """A passthrough result: the input frames byte for byte, alpha f32
+    ones, no face applied."""
+    mh, mw = eng.statics.mask_hw
+    want = torch.as_tensor(np.asarray(frames_in)).to(out["frame"].device)
+    a = out["alpha"]
+    if not (out["passthrough"] and torch.equal(out["frame"], want)
+            and a.dtype == torch.float32 and tuple(a.shape) == (want.shape[0], mh, mw)
+            and bool((a == 1).all()) and not bool(out["face_applied"].any())):
+        raise AssertionError(f"not a passthrough: passthrough={out['passthrough']}, frame "
+                             f"{tuple(out['frame'].shape)}, alpha {a.dtype} "
+                             f"{tuple(a.shape)}")
+
+
+def _refused_launch(device):
+    """A step that a kernel's C entry point refuses: the int8 alpha head
+    with Cin % 4 != 0 (kernels/_build.py::check raises)."""
+    from video_stream_segmenetation_tpu_torch.kernels import _build
+
+    def step(*args):
+        lib = _build.library()
+        _build.check(lib, lib.vst_alpha_head_i8(None, None, None, None, None, 1, 1, 1, 3, 1,
+                                                torch.cuda.current_stream(device).cuda_stream),
+                     "alpha head")
+    return step
+
+
+def _out_of_memory(device):
+    def step(*args):
+        torch.empty(1 << 46, dtype=torch.uint8, device=device)  # 64 TiB
+    return step
+
+
+def phase_degrade(device) -> dict:
+    """Passthrough degradation on fast_int8_pico at 720p, S=64, trained
+    weights: the step replaced by one that raises, through process and
+    through dispatch/collect: the first two failures are passthrough, health
+    reads 'degraded' after the third, a fourth call serves passthrough
+    without running the step; the step restored and the probe due, the
+    probe serves and health reads 'ok'.  Then one real failure on the
+    card each of an out-of-memory and a launch the C entry point refuses,
+    each followed by a served step."""
+    eng = _pico_engine(device)
+    frames, truth = _committed(S)
+    out = eng.process(frames)
+    if out["passthrough"] or _iou(out["alpha"], truth) < 0.5:
+        raise AssertionError(f"degrade: the first step was not served well "
+                             f"({out['passthrough']}, IoU {_iou(out['alpha'], truth)})")
+    real = eng._step
+    calls = []
+
+    def broken(*args):
+        calls.append(1)
+        raise RuntimeError("injected step failure")
+
+    res = {}
+    for label, run in (("process", lambda: eng.process(frames)),
+                       ("dispatch/collect", lambda: eng.collect(eng.dispatch(frames)))):
+        eng._step = broken
+        calls.clear()
+        states = []
+        for _ in range(4):
+            expect_passthrough(eng, run(), frames)
+            states.append(eng.health.state.value)
+        if states != ["ok", "ok", "degraded", "degraded"] or len(calls) != 3:
+            raise AssertionError(f"degrade ({label}): health {states}, step ran "
+                                 f"{len(calls)} times for 4 calls")
+        eng._step = real
+        eng.health._degraded_at = 0.0  # the probe is due
+        out = run()
+        if out["passthrough"] or eng.health.state.value != "ok":
+            raise AssertionError(f"degrade ({label}): the probe did not serve")
+        res[label] = states
+    for label, step in (("out of memory", _out_of_memory(device)),
+                        ("refused launch", _refused_launch(device))):
+        eng._step = step
+        expect_passthrough(eng, eng.process(frames), frames)
+        err = eng.health.last_error
+        eng._step = real
+        out = eng.process(frames)
+        if out["passthrough"] or eng.health.state.value != "ok":
+            raise AssertionError(f"degrade ({label}): no served step after it ({err})")
+        res[label] = err
+    res["iou"] = _iou(out["alpha"], truth)
+    res["passthrough"] = eng.stats()["passthrough_steps"]
+    res["engine"] = eng
+    return res
+
+
+def _http(port: int, method: str, path: str, body=None):
+    """One request to the control server on localhost (http.client: no
+    proxy is consulted)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def phase_render(eng) -> dict:
+    """The personalised backgrounds (background/render.py, PIL) at 720p:
+    each sample template at each privacy level, rendered and set as stream
+    backgrounds; a served step over them.  Returns the renderers by slot
+    (slot 0: the demo employee's default template) and the figures."""
+    from video_stream_segmenetation_tpu_torch import background as bgm
+
+    data = bgm.sample_app_data()
+    rendered, times = {}, []
+    slot = 0
+    for tid, template in data.templates.items():
+        for level in ("low", "medium", "high"):
+            r = bgm.BackgroundRenderer(template, data.employees["demo"], privacy=level,
+                                       canvas_hw=FRAME_HW)
+            t0 = time.perf_counter()
+            img = r.render()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if img.shape != (*FRAME_HW, 3) or img.dtype != np.uint8 or not img.any():
+                raise AssertionError(f"render {tid}/{level}: {img.shape} {img.dtype}")
+            rendered[(tid, level)] = img
+            eng.set_background(slot % eng.num_streams, img)
+            slot += 1
+    # each level up shows more of badge_left's layers
+    badge = [rendered[("badge_left", lv)] for lv in ("low", "medium", "high")]
+    if np.array_equal(badge[0], badge[1]) or np.array_equal(badge[1], badge[2]):
+        raise AssertionError("render: a privacy level renders what the level below does")
+    painted = {f"{tid}/{lv}": int((img.sum(-1) > 0).sum()) for (tid, lv), img in rendered.items()}
+    frames, _ = _committed(S)
+    if eng.process(frames)["passthrough"]:
+        raise AssertionError("render: the step over the rendered backgrounds passed through")
+    emp = data.employees["demo"]
+    renderers = {0: bgm.BackgroundRenderer(data.templates[emp.default_template_id], emp,
+                                           canvas_hw=FRAME_HW)}
+    return {"renderers": renderers, "painted": painted, "render_ms": times}
+
+
+def phase_server(eng, renderers) -> dict:
+    """The control server (service/server.py) on the degrade phase's engine
+    at 127.0.0.1 on a free port: /stats, /healthz (503 while degraded),
+    knobs, reset, a background colour, the privacy level and a template
+    (re-rendered) between served steps."""
+    from video_stream_segmenetation_tpu_torch.service.server import ControlServer
+
+    frames, _ = _committed(S)
+    real = eng._step
+    seen = {}
+    srv = ControlServer(eng, renderers=renderers).start()
+    try:
+        code, body = _http(srv.port, "GET", "/stats")
+        if code != 200 or not {"fps", "health", "passthrough_steps"} <= set(body):
+            raise AssertionError(f"/stats: {code} {sorted(body)}")
+        seen["/healthz ok"] = _http(srv.port, "GET", "/healthz")
+
+        def broken(*args):
+            raise RuntimeError("injected step failure")
+
+        eng._step = broken
+        for _ in range(3):
+            eng.process(frames)
+        seen["/healthz degraded"] = _http(srv.port, "GET", "/healthz")
+        eng._step = real
+        eng.health._degraded_at = 0.0
+        eng.process(frames)
+        seen["/healthz probed"] = _http(srv.port, "GET", "/healthz")
+        if [c for c, _ in seen.values()] != [200, 503, 200] \
+                or seen["/healthz degraded"][1] != {"state": "degraded"}:
+            raise AssertionError(f"/healthz: {seen}")
+        slot = 3
+        code, _ = _http(srv.port, "POST", f"/streams/{slot}/knobs",
+                        {"gamma": 1.9, "use_bilateral": False})
+        served = [eng.process(frames)]
+        gamma = eng.knobs.gamma[slot].item()
+        code2, _ = _http(srv.port, "POST", f"/streams/{slot}/reset")
+        served.append(eng.process(frames))
+        gamma_reset = eng.knobs.gamma[slot].item()
+        code3, _ = _http(srv.port, "POST", f"/streams/{slot}/background",
+                         {"color": [10, 200, 30]})
+        bg = eng.backgrounds[slot]
+        served.append(eng.process(frames))
+        code4, streams = _http(srv.port, "GET", "/streams")
+        if (code, code2, code3, code4) != (200,) * 4 or abs(gamma - 1.9) > 1e-6 \
+                or abs(gamma_reset - 0.4) > 1e-6 or any(o["passthrough"] for o in served) \
+                or not bool((bg.reshape(-1, 3) == torch.tensor([10, 200, 30], device=bg.device,
+                                                               dtype=torch.uint8)).all()) \
+                or len(streams["streams"]) != S:
+            raise AssertionError(f"control server: codes {(code, code2, code3, code4)}, gamma "
+                                 f"{gamma} then {gamma_reset}")
+        seen["knobs gamma"] = gamma
+        seen["reset gamma"] = gamma_reset
+        seen["streams"] = streams["streams"][slot]
+        before = eng.backgrounds[0].clone()
+        seen["privacy high"] = _http(srv.port, "POST", "/streams/0/privacy", {"level": "high"})
+        after_privacy = eng.backgrounds[0].clone()
+        seen["template"] = _http(srv.port, "POST", "/streams/0/background",
+                                 {"template_id": "minimal_center"})
+        out = eng.process(frames)
+        if seen["privacy high"][0] != 200 or seen["template"][0] != 200 \
+                or torch.equal(before, after_privacy) \
+                or torch.equal(after_privacy, eng.backgrounds[0]) or out["passthrough"]:
+            raise AssertionError(f"control server: privacy {seen['privacy high']}, template "
+                                 f"{seen['template']}")
+    finally:
+        srv.stop()
+    return seen
+
+
+def phase_chunked_packed(device) -> dict:
+    """process_chunked(frames, S/4) against process on a second engine from
+    the same weights (face_batch=S: every firing stream's face round runs
+    whatever the chunk, which process_chunked's compaction per chunk would
+    otherwise change; face_min_interval_s=0), element by element over 3
+    steps; then output_layout='packed' after depth_to_space against
+    'natural', byte for byte over 2 steps."""
+    from video_stream_segmenetation_tpu_torch.ops.layout import depth_to_space
+
+    res = {}
+    a, b = (_pico_engine(device, face_batch=S) for _ in range(2))
+    for e in (a, b):
+        e.face_min_interval_s = 0.0
+    diffs, applied = [], 0
+    for t in range(3):
+        frames, _ = _committed(S, t)
+        oa, ob = a.process(frames), b.process_chunked(frames, S // 4)
+        applied += int(ob["face_applied"].sum().item())
+        for k in ("frame", "alpha", "face_applied", "det_score", "face_prior_params"):
+            if not torch.equal(oa[k], ob[k]):
+                diffs.append((t, k, (oa[k].float() - ob[k].float()).abs().max().item()))
+        if oa["passthrough"] or ob["passthrough"]:
+            raise AssertionError("chunked: a step was served as passthrough")
+    for k in ("prev_alpha", "affine", "has_affine", "frame_idx"):
+        if not torch.equal(getattr(a.state, k), getattr(b.state, k)):
+            diffs.append(("state", k, (getattr(a.state, k).float()
+                                       - getattr(b.state, k).float()).abs().max().item()))
+    if diffs:
+        raise AssertionError(f"process_chunked({S // 4}) differs from process: {diffs}")
+    res["chunked_applied"] = applied
+    del a, b
+    n, p = _pico_engine(device), _pico_engine(device, output_layout="packed")
+    for e in (n, p):
+        e.face_min_interval_s = 0.0
+    for t in range(2):
+        frames, _ = _committed(S, t)
+        on, op = n.process(frames), p.process(frames)
+        if tuple(op["frame"].shape) != (S, FRAME_HW[0] // 10, FRAME_HW[1] // 10, 300) \
+                or not torch.equal(
+                depth_to_space(op["frame"], 10), on["frame"]):
+            raise AssertionError(f"output_layout='packed' ({tuple(op['frame'].shape)}) is "
+                                 "not the natural frames packed")
+    res["packed_shape"] = tuple(op["frame"].shape)
+    return res
+
+
+def phase_api(device, active_iou: float) -> dict:
+    """api.segment / composite (colour, blur, image) / process_frame on the
+    committed 720p frames with the trained weights/mattenet.npz: the mask
+    IoU at most IOU_SLACK below the reference's segment and below the
+    active serve phase (the model's alpha without the refine scores above
+    the engine's: 0.6690 against 0.6401 on an H100 80GB HBM3 at 700 W);
+    with the mask made hard, where it upsamples to 0 the colour composite
+    is the colour and the blur composite the blurred frame; process_frame
+    equals segment then composite, for a batch and for one frame."""
+    from video_stream_segmenetation_tpu_torch import api
+    from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
+    from video_stream_segmenetation_tpu_torch.ops.color import denormalize_to_u8
+    from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear
+
+    frames, truth = _committed(2)
+    mask = api.segment(frames, device=device)
+    if tuple(mask.shape) != (2, 288, 512) or mask.dtype != torch.float32 \
+            or mask.device.type != torch.device(device).type \
+            or not bool(torch.isfinite(mask).all()):
+        raise AssertionError(f"segment: {tuple(mask.shape)} {mask.dtype} {mask.device}")
+    iou = _iou(mask, truth)
+    least = max(REFERENCE_IOU["api"], active_iou) - IOU_SLACK
+    if iou < least:
+        raise AssertionError(f"segment: IoU {iou:.4f} < {least:.4f} (the reference's segment "
+                             f"{REFERENCE_IOU['api']}, the active phase {active_iou:.4f})")
+    fh, fw = FRAME_HW
+    # the mask made hard, so that the composite has pixels of pure
+    # background to check (the model's sigmoid is never exactly 0)
+    hard = (mask > 0.5).float()
+    zero = resize_bilinear(hard, (fh, fw), method="half_pixel", channel_last=False) == 0
+    color = (20 / 255, 25 / 255, 30 / 255)
+    out_c = api.composite(frames, hard, color, device=device)
+    out_b = api.composite(frames, hard, bg_blur_sigma=8.0, device=device)
+    grad = np.linspace(0, 255, 640, dtype=np.float32)[None, :, None]
+    image = np.broadcast_to(grad, (360, 640, 3)).astype(np.uint8)
+    out_i = api.composite(frames, mask, image, device=device)
+    pf_out, pf_mask = api.process_frame(frames, background=image, device=device)
+    one, one_mask = api.process_frame(frames[0], background=color, device=device)
+    one_seg = api.segment(frames[0], device=device)
+    one_comp = api.composite(frames[0], one_seg, color, device=device)
+    f = torch.as_tensor(frames, device=mask.device)
+    blurred = denormalize_to_u8(gaussian_blur_auto(f.float() / 255.0, 8.0))
+    want_c = torch.tensor([20, 25, 30], dtype=torch.uint8, device=mask.device)
+    checks = {
+        "colour where the mask is 0": bool((out_c[zero] == want_c).all()),
+        "blur where the mask is 0": torch.equal(out_b[zero], blurred[zero]),
+        "process_frame = segment + composite": torch.equal(pf_mask, mask)
+        and torch.equal(pf_out, out_i),
+        "one frame": tuple(one.shape) == (fh, fw, 3) and tuple(one_mask.shape) == (288, 512)
+        and torch.equal(one_mask, one_seg) and torch.equal(one, one_comp),
+        "u8 frames": all(o.dtype == torch.uint8 and tuple(o.shape) == (2, fh, fw, 3)
+                         for o in (out_c, out_b, out_i)),
+    }
+    if not all(checks.values()) or int(zero.sum()) == 0:
+        raise AssertionError(f"api: {checks}, {int(zero.sum())} zero-mask pixels")
+    return {"iou": iou, "zero_pixels": int(zero.sum()), "checks": checks}
+
+
+def phase_rotation_failure(res: dict) -> dict:
+    """On the production rotation's engine and scheduler (phase A's), one
+    round made to fail after its first two groups wrote their rows:
+    collect_round serves every group's input (the pool's packed frames) as
+    passthrough; the state is restored from the snapshot the failing
+    dispatch took (affine, has_affine and frame_idx equal to it and to the
+    state before the round, read back once here; the EMA cold); the next
+    three rounds are served; then one more round's step, its snapshot
+    included, under set_sync_debug_mode('error')."""
+    from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
+
+    eng, sched, sizes = res["engine"], res["sched"], res["sizes"]
+    n = sum(sizes)
+    offs = sched.group_offsets
+    clip, gt = _committed(2)
+
+    def push(r):
+        for s in range(n):
+            sched.push_frame(s, clip[(s + r) % 2])
+
+    torch.cuda.synchronize()
+    cheap = eng._CHEAP_FIELDS
+    before = {k: getattr(eng.state, k).clone() for k in cheap}
+    real_for, real_recover = eng._round_step_for, eng._recover_state
+    kept = {}
+
+    def failing_for(group_sizes):
+        def round_fails(full_state, frames_list, bgs, knobs, face_last, now, mi):
+            for g in range(2):
+                eng._range_step(full_state, offs[g], frames_list[g], bgs, knobs, face_last,
+                                now, mi, sizes[g])
+            raise RuntimeError("injected failure in the round's third group")
+        return round_fails
+
+    def recover():
+        kept["snap"] = eng._snap_pending
+        real_recover()
+
+    eng._round_step_for, eng._recover_state = failing_for, recover
+    eng._dispatches = 0  # the failing dispatch takes the snapshot
+    passthrough0 = eng.passthrough_steps
+    try:
+        push(0)
+        if sched.step_round() is not None:
+            raise AssertionError("rotation failure: a round was in flight")
+        outs = sched.drain()
+    finally:
+        eng._round_step_for, eng._recover_state = real_for, real_recover
+    for g, out in enumerate(outs):
+        i0, i1 = offs[g], offs[g + 1]
+        want = space_to_depth(torch.as_tensor(clip[(np.arange(i0, i1)) % 2]), 10)
+        expect_passthrough(eng, out, want.numpy())
+    snap = kept.get("snap")
+    if snap is None or snap["kind"] != "cheap_packed":
+        raise AssertionError(f"rotation failure: no cheap snapshot was restored ({snap})")
+    from_snap = eng._cheap_unpack(snap["host"]["packed"])
+    st = eng.state
+    for k in cheap:
+        got = getattr(st, k)
+        if not (torch.equal(got.cpu(), from_snap[k]) and torch.equal(got, before[k])):
+            raise AssertionError(f"rotation failure: {k} is not the snapshot's")
+    if bool(st.prev_alpha.any()) or bool(st.initialized.any()):
+        raise AssertionError("rotation failure: the EMA is not cold after the recovery")
+    h = eng.health.snapshot()
+    if (h["state"], h["consecutive_failures"]) != ("ok", 1):
+        raise AssertionError(f"rotation failure: health {h}")
+    served = []
+    for r in range(1, 4):
+        push(r)
+        got = sched.step_round()
+        if got is not None:
+            served.append(got)
+    served.append(sched.drain())
+    ious = []
+    for r, outs in enumerate(served, start=1):
+        if any(o["passthrough"] for o in outs):
+            raise AssertionError("rotation failure: a round after the recovery passed through")
+        alpha = torch.cat([o["alpha"] for o in outs])
+        ious.append(_iou(alpha, gt[(np.arange(n) + r) % 2]))
+    if eng.passthrough_steps - passthrough0 != len(sizes) or min(ious) < 0.5:
+        raise AssertionError(f"rotation failure: {eng.passthrough_steps - passthrough0} "
+                             f"passthrough results, IoU {ious}")
+    # one more round's step with its snapshot, no host sync allowed
+    push(4)
+    host = [sched._group_frames(offs[g], offs[g + 1])[0] for g in range(len(sizes))]
+    step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g])[1] for g, f in enumerate(host)]
+    torch.cuda.synchronize()
+    eng._dispatches = 0
+    pending = eng._snap_pending
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.round_step(list(sizes), step_frames, time.monotonic())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if eng._snap_pending is pending:
+        raise AssertionError("rotation failure: the checked round took no snapshot")
+    return {"ious": ious, "health": eng.health.snapshot()["state"],
+            "frame_idx": before["frame_idx"][:3].tolist()}
 
 
 def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
@@ -1671,7 +2263,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 6 + len(PHASES)
+    steps = 12 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -1691,6 +2283,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = 0
     by_name = {k["name"]: k for k in kernels}
+    phase_iou = {}
     for i, (label, preset_name, overrides, trained, per_step, min_iou,
             trunk_entry) in enumerate(PHASES):
         say(f"[{4 + i}/{steps} serve] Engine({S}, {label}), {SERVE_STEPS} steps, "
@@ -1717,14 +2310,63 @@ def main() -> int:
                    if trained else
                    f"alpha inside/outside the ellipse {res['alpha_in']:.4f}/"
                    f"{res['alpha_out']:.4f}")
+        if "composite_err" in res:
+            by_name["composite_fused"]["max_abs_err"] = max(
+                by_name["composite_fused"]["max_abs_err"], res["composite_err"])
+            quality += (f", the composite kernel on the last step's inputs (background "
+                        f"{'one row' if overrides.get('background') == 'color' else 'S rows'})"
+                        f" vs plain {res['composite_err']} (tolerance {COMPOSITE_TOL})")
+        if "bg_pixels" in res:
+            quality += (f", the {overrides['background']} background exact on the "
+                        f"{res['bg_pixels']} pixels where the alpha is 0")
+        phase_iou[label] = res.get("iou")
         say(f"  serve: median step {med:.2f} ms over {SERVE_STEPS} steps (host clock, "
             f"synchronized; first {res['times_ms'][0]:.1f} ms), launches "
-            f"{res['launches']}, {quality}, health {res['health']}, peak device memory "
-            f"{res['peak_mib']:.0f} MiB")
+            f"{res['launches']}, {quality}, health {res['health']}, passthrough steps "
+            f"{res['passthrough']}, peak device memory {res['peak_mib']:.0f} MiB")
         torch.cuda.empty_cache()
 
+    k = 4 + len(PHASES)
+    say(f"[{k}/{steps} degrade] Engine({S}, fast_int8_pico), weights loaded with "
+        "load_matting_params/load_face_params from weights/*.npz, committed frames: the "
+        "step made to fail through process and through dispatch/collect, then an "
+        "out-of-memory and a refused launch on the card")
+    dg = phase_degrade("cuda")
+    say(f"  degrade: health after 4 failing calls {dg['process']} (process), "
+        f"{dg['dispatch/collect']} (dispatch/collect), each passthrough frame equal to its "
+        f"input byte for byte and alpha f32 ones, the probe served and health ok; out of "
+        f"memory: {dg['out of memory'][:90]!r}; refused launch: "
+        f"{dg['refused launch']!r}; each followed by a served step; alpha IoU after "
+        f"{dg['iou']:.4f}; passthrough results {dg['passthrough']}")
+    eng = dg.pop("engine")
+    say(f"[{k + 1}/{steps} render] the sample templates at each privacy level, rendered at "
+        f"720p (PIL) and served as backgrounds")
+    rd = phase_render(eng)
+    say(f"  render: pixels painted {rd['painted']}; median render "
+        f"{statistics.median(rd['render_ms']):.1f} ms (host clock); a served step over them")
+    say(f"[{k + 2}/{steps} server] ControlServer on that engine at 127.0.0.1, a free port")
+    sv = phase_server(eng, rd["renderers"])
+    say(f"  server: " + "; ".join(f"{key} {val}" for key, val in sv.items()))
+    del dg, eng, rd
+    torch.cuda.empty_cache()
+    say(f"[{k + 3}/{steps} chunked, packed] process_chunked(frames, {S // 4}) vs process (two "
+        "engines, same weights), 3 steps; output_layout='packed' vs 'natural', 2 steps")
+    cp = phase_chunked_packed("cuda")
+    say(f"  chunked: frame, alpha, face outputs and state equal element by element "
+        f"(face applied {cp['chunked_applied']} times over the 3 steps); packed "
+        f"{cp['packed_shape']} after depth_to_space equal to natural byte for byte")
+    torch.cuda.empty_cache()
+    say(f"[{k + 4}/{steps} api] segment, composite (colour, blur, image) and process_frame "
+        "on the committed frames with weights/mattenet.npz")
+    ap = phase_api("cuda", phase_iou["active"])
+    say(f"  api: mask IoU vs ground truth {ap['iou']:.4f} (least allowed: the reference's "
+        f"segment {REFERENCE_IOU['api']} and the active phase's {phase_iou['active']:.4f}, "
+        f"less {IOU_SLACK}); {ap['zero_pixels']} pixels where the hard mask is 0; "
+        + ", ".join(k2 for k2, v in ap["checks"].items() if v))
+    torch.cuda.empty_cache()
+
     n = sum(ROTATION)
-    say(f"[{4 + len(PHASES)}/{steps} rotation] StreamScheduler(Engine({n}, fast_int8_pico, "
+    say(f"[{k + 5}/{steps} rotation] StreamScheduler(Engine({n}, fast_int8_pico, "
         f"{FAST_ROUTE}), group_sizes={list(ROTATION)}, fused_rounds=True) over the native "
         f"FramePool: 1 priming + {ROUNDS} rounds and a drain, trained weights, committed "
         "frames")
@@ -1745,10 +2387,19 @@ def main() -> int:
         + f"; health {res['health']}; peak device memory "
         f"{res['peak_mib']:.0f} MiB; {smi}")
     hold(by_name, "rotation", res["held"])
-    del res
+    say(f"[{k + 6}/{steps} rotation failure] that rotation, one round failing after its "
+        "first two groups wrote their rows, then three rounds")
+    rf = phase_rotation_failure(res)
+    say(f"  rotation failure: every group's input served back as passthrough; affine, "
+        f"has_affine and frame_idx restored equal to the snapshot the failing dispatch "
+        f"took (frame_idx {rf['frame_idx']}...), the EMA cold; the next rounds served, "
+        f"alpha IoU {[round(v, 4) for v in rf['ious']]}, health {rf['health']}; one more "
+        f"round with its snapshot under set_sync_debug_mode('error')")
+    res["sched"].stop()
+    del res, rf
     torch.cuda.empty_cache()
 
-    say(f"[{5 + len(PHASES)}/{steps} routes] the same frames, S=64, group_sizes=[24, 24, "
+    say(f"[{k + 7}/{steps} routes] the same frames, S=64, group_sizes=[24, 24, "
         f"16], face_min_interval_s=0: the fast route with fused rounds vs fast_int8_pico "
         f"as it stands under per-group step_pipelined, {ROUNDS} rounds")
     rb = phase_routes("cuda")
@@ -1766,7 +2417,7 @@ def main() -> int:
     del rb
     torch.cuda.empty_cache()
 
-    say(f"[{6 + len(PHASES)}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
+    say(f"[{k + 8}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
         f"the card: fit {TRAIN_STEPS} steps at 240x320 batch 32 lr 5e-4, then {FT_STEPS} at "
         "720x1280 batch 8 lr 5e-4/3 seed 1; one step against the CPU; the trained tree "
         "stochastically rounded, quantized and served one step of Engine(8, fast_int8_pico, "

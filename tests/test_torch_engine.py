@@ -100,8 +100,10 @@ def test_state_matches_jax_engine(engines):
 def test_outputs_carry_reference_keys(engines):
     _, _, (jouts, touts) = engines
     # the reference's Engine keeps face_applied to itself; the port's
-    # returns it beside the other face outputs
-    assert set(touts[-1]) == set(jouts[-1]) | {"face_applied"}
+    # returns it beside the other face outputs, and says whether the step
+    # was served or passed through
+    assert set(touts[-1]) == set(jouts[-1]) | {"face_applied", "passthrough"}
+    assert touts[-1]["passthrough"] is False
     np.testing.assert_array_equal(touts[-1]["face_has_prior"].numpy(),
                                   np.asarray(jouts[-1]["face_has_prior"]))
     np.testing.assert_array_equal(touts[-1]["face_prior_params"].numpy(),
@@ -138,31 +140,46 @@ def test_engine_refuses_unserved_options(override):
 
 
 def test_engine_refuses_color_background():
-    """Only per-stream image backgrounds are ported."""
+    """The colour and blur backgrounds are served; a background mode the
+    reference does not have is refused, as is any background but 'image'
+    on the multi-class step (it composites by class_effects)."""
     with pytest.raises(NotImplementedError, match="background"):
-        Engine(1, preset("fast_int8_pico", background="color", **GEOM), device="cpu")
+        Engine(1, preset("fast_int8_pico", background="gradient", **GEOM), device="cpu")
+    with pytest.raises(NotImplementedError, match="background"):
+        Engine(1, preset("multiclass_fast_pico", background="color", frame_hw=(80, 160),
+                         mask_hw=(8, 16)), device="cpu")
 
 
 def test_failed_step_raises_and_is_recorded(monkeypatch):
-    """No passthrough: a failing step raises every time; health counts the
-    failures, reads 'down' after three in a row and 'ok' after a success."""
+    """A failing step is served as passthrough (the input frames, alpha f32
+    ones, no face applied) and counted; health reads 'degraded' after three
+    failures in a row, where the step is no longer run, and 'ok' after the
+    probe's success."""
     eng = Engine(1, preset("fast_int8_pico", **GEOM), device="cpu")
     eng.admit_all()
-    frames = np.zeros((1, 80, 160, 3), np.uint8)
+    frames = np.random.default_rng(0).integers(0, 256, (1, 80, 160, 3), dtype=np.uint8)
     step = eng._step
+    calls = []
 
     def broken(*args):
+        calls.append(1)
         raise RuntimeError("kernel launch failed")
 
     monkeypatch.setattr(eng, "_step", broken)
-    for n in range(1, 4):
-        with pytest.raises(RuntimeError, match="kernel launch failed"):
-            eng.process(frames)
-        h = eng.stats()["health"]
-        assert h["consecutive_failures"] == h["total_failures"] == n
-        assert h["state"] == ("down" if n == 3 else "ok")
+    for n in range(1, 6):
+        out = eng.process(frames)
+        assert out["passthrough"]
+        np.testing.assert_array_equal(out["frame"].numpy(), frames)
+        assert out["alpha"].dtype == torch.float32 and bool((out["alpha"] == 1).all())
+        assert tuple(out["alpha"].shape) == (1, 32, 64) and not out["face_applied"].any()
+        h = out["metrics"]["health"]
+        assert h["total_failures"] == min(n, 3) and len(calls) == min(n, 3)
+        assert h["state"] == ("degraded" if n >= 3 else "ok")
+        assert out["metrics"]["passthrough_steps"] == n
     monkeypatch.setattr(eng, "_step", step)
-    eng.process(frames)
+    eng.health._degraded_at = 0.0  # the probe is due
+    out = eng.process(frames)
+    assert not out["passthrough"]
     h = eng.stats()["health"]
     assert (h["state"], h["consecutive_failures"], h["total_failures"]) == ("ok", 0, 3)
     assert h["last_error"] == "RuntimeError: kernel launch failed"

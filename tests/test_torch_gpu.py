@@ -904,7 +904,7 @@ def test_dispatch_round_makes_no_host_sync(card):
     sched.drain()
     offs = sched.group_offsets
     step_frames = [eng._ingest(sched._group_frames(offs[i], offs[i + 1])[0],
-                               rows=offs[i + 1] - offs[i]) for i in range(2)]
+                               rows=offs[i + 1] - offs[i])[1] for i in range(2)]
     torch.cuda.synchronize()
     before = TR.fused_temporal_refine_fast.launches
     torch.cuda.set_sync_debug_mode("error")
@@ -943,7 +943,7 @@ def test_pool_lanes_on_card_equal_device_gathered(card):
                 fl.append((packed, pool.lanes()))
             else:
                 fl.append(frames[i0:i1])
-        step_in = [eng._ingest(f, rows=len(f[0]) if isinstance(f, tuple) else len(f))
+        step_in = [eng._ingest(f, rows=len(f[0]) if isinstance(f, tuple) else len(f))[1]
                    for f in fl]
         outs.append((step_in, eng.collect_round(eng.dispatch_round([4, 2], fl))))
     (pin, pout), (nin, nout) = outs
@@ -952,3 +952,98 @@ def test_pool_lanes_on_card_equal_device_gathered(card):
     for a, b in zip(pout, nout):
         assert torch.equal(a["alpha"], b["alpha"]) and torch.equal(a["frame"], b["frame"])
     pool.close()
+
+
+@pytest.mark.gpu
+def test_color_background_through_the_composite_kernel(card):
+    """active with use_fused_composite=True and background='color': each
+    step launches the composite kernel once with the colour as a one-row
+    u8 background (floor(c*255+0.5)), and the kernel equals its plain
+    version on that step's inputs bit for bit."""
+    from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    eng = Engine(2, preset("active", use_fused_composite=True, background="color",
+                           face_path=False, **SMALL), device=card)
+    eng.admit_all()
+    kept = []
+    orig = pipeline.fused_composite
+
+    def spy(frames, alpha, bg):
+        kept.append((frames.clone(), alpha.clone(), bg.clone()))
+        return orig(frames, alpha, bg)
+
+    g = np.random.default_rng(3)
+    n = KC.fused_composite.launches
+    pipeline.fused_composite = spy
+    try:
+        for _ in range(2):
+            out = eng.process(g.integers(0, 256, (2, 80, 160, 3), dtype=np.uint8))
+    finally:
+        pipeline.fused_composite = orig
+    torch.cuda.synchronize()
+    assert KC.fused_composite.launches == n + 2 and not out["passthrough"]
+    frames, alpha, bg = kept[-1]
+    want_row = np.floor(np.asarray(eng.statics.bg_color, np.float32) * np.float32(255)
+                        + np.float32(0.5)).astype(np.uint8)
+    assert tuple(bg.shape) == (1, 80, 160, 3) and (bg.cpu().numpy() == want_row).all()
+    with pinned():
+        want = KC.fused_composite_plain(frames, alpha.float(), bg)
+    assert torch.equal(KC.fused_composite(frames, alpha, bg), want)
+
+
+@pytest.mark.gpu
+def test_passthrough_on_the_card(card):
+    """A failing step on the card serves the input frames (on the card, as
+    passed) and f32 ones; three in a row degrade, the probe recovers; a
+    launch the C entry point refuses is one such failure; a failed round
+    restores the snapshot's cheap fields over a cold EMA."""
+    from video_stream_segmenetation_tpu_torch.kernels import _build
+
+    eng = _round_engine(card, face_path=False)
+    eng.admit_all()
+    g = np.random.default_rng(4)
+    frames = g.integers(0, 256, (6, 80, 160, 3), dtype=np.uint8)
+    assert not eng.process(frames)["passthrough"]
+    step = eng._step
+
+    def refused(*args):
+        lib = _build.library()
+        _build.check(lib, lib.vst_alpha_head_i8(None, None, None, None, None, 1, 1, 1, 3, 1,
+                                                torch.cuda.current_stream(card).cuda_stream),
+                     "alpha head")
+
+    eng._step = refused
+    for n in range(1, 4):
+        out = eng.process(frames)
+        assert out["passthrough"] and out["frame"].device.type == "cuda"
+        assert torch.equal(out["frame"].cpu(), torch.as_tensor(frames))
+        assert out["alpha"].dtype == torch.float32 and bool((out["alpha"] == 1).all())
+    assert eng.health.state.value == "degraded"
+    assert "invalid argument" in eng.health.last_error
+    eng._step = step
+    eng.health._degraded_at = 0.0
+    assert not eng.process(frames)["passthrough"] and eng.health.state.value == "ok"
+    # a round that fails after its first group wrote its rows
+    tok = eng.dispatch_round([4, 2], [frames[:4], frames[4:]])
+    eng.collect_round(tok)
+    before = eng.state.frame_idx.clone()
+    eng._dispatches = 0
+
+    def fails(group_sizes):
+        def rs(full_state, frames_list, bgs, knobs, face_last, now, mi):
+            eng._range_step(full_state, 0, frames_list[0], bgs, knobs, face_last, now, mi, 4)
+            raise RuntimeError("injected failure in the second group")
+        return rs
+
+    eng._round_step_for = fails
+    try:
+        outs = eng.collect_round(eng.dispatch_round([4, 2], [frames[:4], frames[4:]]))
+    finally:
+        del eng._round_step_for
+    assert [o["passthrough"] for o in outs] == [True, True]
+    assert torch.equal(eng.state.frame_idx, before)
+    assert not bool(eng.state.prev_alpha.any()) and not bool(eng.state.initialized.any())
+    outs = eng.collect_round(eng.dispatch_round([4, 2], [frames[:4], frames[4:]]))
+    assert not any(o["passthrough"] for o in outs)

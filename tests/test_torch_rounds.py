@@ -250,7 +250,9 @@ def test_process_range_equals_a_rounds_group(trained, round_frames, backgrounds)
 def test_ingest_forms_agree(trained, round_frames):
     """Natural frames, packed frames and a (packed, lanes) tuple are the
     same step input on the fast route; the preset's route takes the first
-    two and refuses the tuple."""
+    two and refuses the tuple.  Beside the step input, ingest keeps the
+    frames as the caller passed them (a tuple's packed frames): what a
+    passthrough serves."""
     from video_stream_segmenetation_tpu_torch.ops.layout import guide_lanes_s2d, space_to_depth
 
     _, port = trained
@@ -259,10 +261,12 @@ def test_ingest_forms_agree(trained, round_frames):
     lanes, _ = guide_lanes_s2d(packed, (80, 160), (32, 64), 10)
     for route, host in (("fast", True), ("preset", False)):
         e = Engine(S, preset("fast_int8_pico", **ROUTES[route], **GEOM), **port, device="cpu")
-        forms = [e._ingest(x) for x in (f.numpy(), packed)]
-        if host:
-            forms.append(e._ingest((packed.numpy(), lanes)))
-        else:
+        inputs = [f.numpy(), packed] + ([(packed.numpy(), lanes)] if host else [])
+        ingested = [e._ingest(x) for x in inputs]
+        for x, (frames_in, _) in zip((f, packed, packed), ingested):
+            assert torch.equal(frames_in, x)
+        forms = [step_input for _, step_input in ingested]
+        if not host:
             with pytest.raises(ValueError, match="host_lanes"):
                 e._ingest((packed.numpy(), lanes))
         for x in forms:

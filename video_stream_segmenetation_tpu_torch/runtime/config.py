@@ -97,7 +97,13 @@ class PipelineStatics:
     lmk_score_thresh: float = 0.3  # (:143)
     roi_pad: float = 0.25  # cropFaceROI pad (:139)
     affine_mode: str = "exact"  # the port serves 'exact' conjugation only
-    background: str = "image"  # the port serves 'image' only
+    # 'image' (each stream's own, Engine.set_background), 'color' (one solid
+    # bg_color for every stream) or 'blur' (each frame blurred, Gaussian of
+    # bg_blur_sigma pixels); the multi-class step composites by
+    # class_effects and serves 'image' only
+    background: str = "image"
+    bg_color: tuple[float, float, float] = (20 / 255, 25 / 255, 30 / 255)
+    bg_blur_sigma: float = 8.0
     face_path: bool = True
     face_tracking: str = "landmarks"  # the port serves 'landmarks' only
     # 'ema'; the port refuses 'hole_fill' and 'none'

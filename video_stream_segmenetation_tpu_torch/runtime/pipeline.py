@@ -23,7 +23,9 @@ multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
        3-9, the analytic or the plane prior); 'exact' (natural): the 2-D
        nearest warp and the EMA, then the fused refine kernel (5/7/8/9)
     -> natural: the fused composite kernel (use_fused_composite=True) or
-       the planar upsample and blend; s2d: the packed composite
+       the planar upsample and blend; s2d: the packed composite; over each
+       stream's image, one colour, or (background='blur') the frames
+       blurred, by the plain upsample and blend
     -> affine low-pass with the face path's updates
 
 make_range_step and make_round_step serve the scheduler's rotation: a
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,7 +51,9 @@ from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
     fused_temporal_refine_fast,
     fused_temporal_refine_plane,
 )
+from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
 from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
+from video_stream_segmenetation_tpu_torch.ops.consts import device_const
 from video_stream_segmenetation_tpu_torch.ops.detect import best_box_decode
 from video_stream_segmenetation_tpu_torch.ops.geometry import (
     affine_from_landmarks,
@@ -57,12 +62,14 @@ from video_stream_segmenetation_tpu_torch.ops.geometry import (
 )
 from video_stream_segmenetation_tpu_torch.ops.layout import (
     alpha_composite_s2d,
+    depth_to_space,
     effect_algebra,
     guide_from_s2d,
     guide_lanes_s2d,
     guide_s2d_sel,
     lanes_to_planar,
     multiclass_composite_s2d,
+    packed_color,
 )
 from video_stream_segmenetation_tpu_torch.ops.prior import face_prior_mask, face_prior_params
 from video_stream_segmenetation_tpu_torch.ops.resize import (
@@ -85,7 +92,6 @@ from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
 # (field, the only value the port serves) -- anything else is refused
 _SERVED = (
     ("upsample_method", "half_pixel"),
-    ("background", "image"),
     ("face_tracking", "landmarks"),
     ("affine_mode", "exact"),
     ("temporal_filter", "ema"),
@@ -118,8 +124,10 @@ _ALLOWED = (
     ("warp_impl", ("separable", "exact")),
     ("upsample_precision", ("fast", "exact")),
 )
-# the fast refine's inputs (single class); 'auto' resolves as off the TPU
+# the single-class step: the background, and the fast refine's inputs
+# ('auto' resolves as off the TPU)
 _ALLOWED_FAST = (
+    ("background", ("image", "color", "blur")),
     ("refine_alpha_src", ("full", "lowres", "auto")),
     ("guide_kernel_unfold", (False, True, "auto")),
     ("guide_source", ("gather", "host")),
@@ -140,7 +148,8 @@ def check_statics(statics: PipelineStatics) -> None:
     multiclass = statics.num_classes > 1
     layout = statics.frame_layout
     if multiclass:
-        served = ((("frame_layout", "s2d"), ("face_path", False)) + _SERVED
+        served = ((("frame_layout", "s2d"), ("face_path", False), ("background", "image"))
+                  + _SERVED
                   + _SERVED_LAYOUT["s2d"] + (("refine_alpha_src", "full"),
                                              ("guide_kernel_unfold", False),
                                              ("guide_source", "gather")))
@@ -397,13 +406,46 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     exact_warp = statics.warp_impl == "exact"
     # the reference's routing (runtime/pipeline.py:476-487, 835-843)
     prior_form = "plane" if exact_warp or statics.prior_impl == "plane" else "params"
-    fused_comp = natural and statics.use_fused_composite is True and fh % ROW_BLOCK == 0
+    bg_mode = statics.background
+    fused_comp = (natural and statics.use_fused_composite is True and bg_mode != "blur"
+                  and fh % ROW_BLOCK == 0)
     out_dtype = torch.bfloat16 if statics.refined_dtype == "bf16" else torch.float32
     wb = statics.warp_blend_weight
     route = fast_routing(model, statics)
     lowres = route["use_lowres_alpha"]
     lane_geom = route["lane_geom"]
     host_lanes = route["host_lanes"]
+
+    def composite(frames, a, backgrounds):
+        """The reference's stage 10 (runtime/pipeline.py:836-937), each
+        route with its own rounding of the colour: s2d packed (the colour
+        as one packed u8 patch), the composite kernel (u8 frames and
+        background: the colour as one u8 row), the plain upsample and
+        blend (float background: the colour unrounded, the blurred natural
+        frames; s2d frames with 'blur' come out natural, as the
+        reference's do)."""
+        dev = frames.device
+        if not natural and bg_mode != "blur":
+            bg = backgrounds if bg_mode == "image" else device_const(
+                ("packed_color", statics.bg_color, blk), dev,
+                lambda: packed_color(statics.bg_color, blk))
+            return alpha_composite_s2d(frames, a, bg, (fh, fw), blk)
+        if fused_comp:
+            bg = backgrounds if bg_mode == "image" else device_const(
+                ("color_row", statics.bg_color, fh, fw), dev,
+                lambda: np.ascontiguousarray(np.broadcast_to(
+                    np.floor(np.asarray(statics.bg_color, np.float32) * np.float32(255.0)
+                             + np.float32(0.5)).astype(np.uint8), (1, fh, fw, 3))))
+            return fused_composite(frames, a, bg)
+        nat = frames if natural else depth_to_space(frames, blk)
+        if bg_mode == "blur":
+            bg = gaussian_blur_auto(nat.to(torch.float32) / 255.0, statics.bg_blur_sigma)
+        elif bg_mode == "color":
+            bg = device_const(("color", statics.bg_color), dev,
+                              lambda: np.asarray(statics.bg_color, np.float32))
+        else:
+            bg = backgrounds
+        return natural_composite(nat, a, bg, bf16_pass=statics.upsample_precision == "fast")
 
     def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
         lanes = None
@@ -461,13 +503,7 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             new_prev, a = refine(alpha_raw, state.prev_alpha, state.affine, use_warp,
                                  state.initialized, wb, guide, prior, has_prior, knobs,
                                  out_dtype=out_dtype)
-        if not natural:
-            out_u8 = alpha_composite_s2d(frames, a, backgrounds, (fh, fw), blk)
-        elif fused_comp:
-            out_u8 = fused_composite(frames, a, backgrounds)
-        else:
-            out_u8 = natural_composite(frames, a, backgrounds,
-                                       bf16_pass=statics.upsample_precision == "fast")
+        out_u8 = composite(frames, a, backgrounds)
         new_affine, new_has_affine = affine_lowpass(
             state.affine, affine_update, statics.warp_gain, state.has_affine,
             has_update,
