@@ -566,11 +566,14 @@ def test_engine_defaults_to_the_reference_statics():
 
 
 @pytest.mark.parametrize("override", [
-    {"refined_dtype": "bf16"}, {"warp_blend_mode": "max"}, {"temporal_filter": "hole_fill"},
-    {"use_fused_refine": False}, {"resize_impl": "mxu"}, {"crop_impl": "mxu"},
-    {"face_input": "guide"}, {"morphology": False}, {"upsample_precision": "highest"},
-    {"guide_impl": "nearest_u8"}])
+    {"refined_dtype": "bf16"}, {"upsample_impl": "gather"}, {"affine_mode": "reference"},
+    {"face_compact": False}, {"resize_impl": "mxu"}, {"crop_impl": "mxu"},
+    {"face_input": "guide"}, {"upsample_method": "asymmetric"},
+    {"upsample_precision": "highest"}, {"guide_impl": "nearest_u8"}])
 def test_active_refuses_unserved_options(override):
+    """What active's step still does not serve is refused by name (the
+    blend, temporal-filter, morphology and unfused-refine options are
+    served since the stage chain was ported: tests/test_torch_variants.py)."""
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         Engine(1, preset("active", **override, **GEOM), device="cpu")
 

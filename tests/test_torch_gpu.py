@@ -246,6 +246,54 @@ def test_k_class_trunk_kernel_matches_plain(card, plan, k, hw):
     assert torch.equal(got, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan,hw", [("femto", (72, 128)), ("nano", (72, 128)),
+                                     ("femto", (16, 32))])
+def test_one_class_trunk_kernel_matches_plain_at_femto_and_nano(card, plan, hw):
+    """The trunk kernel at the widths of fast_int8_femto (every level at
+    128 channels) and fast_int8_nano (192/256) with the one-class head:
+    logits [S, H, W] equal to the plain trunk's (tolerance 0: exact s32
+    sums, the same f32 epilogues, the SE in float64 on both sides)."""
+    tp = _k_trunk(card, plan, 1)
+    x0 = torch.as_tensor(np.random.default_rng(5).integers(0, 128, (2, *hw, 128),
+                                                            dtype=np.int8), device=card)
+    n = TK.fused_nano_trunk_alpha.launches
+    got = TK.fused_nano_trunk_alpha(x0, tp)
+    want = Q.xla_trunk_alpha(x0, tp)
+    torch.cuda.synchronize()
+    assert TK.fused_nano_trunk_alpha.launches == n + 1
+    assert got.shape == want.shape == (2, *hw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,trunk,refine", [
+    ("fast_int8_nano", 1, 1), ("fast_int8_femto", 1, 1), ("blaze_tracking", 0, 0),
+    ("branch", 0, 0), ("rvm", 0, 0), ("u2", 0, 0), ("fast_int8_pico", 1, 0)])
+def test_zoo_engines_on_card_run_their_kernels(card, name, trunk, refine):
+    """The new presets through Engine.process on the card (small geometry,
+    seeded weights): nano and femto launch the trunk and the refine kernel
+    once a step; the chain pipelines launch neither, and pico with
+    use_fused_refine=False its trunk only."""
+    over = {"use_fused_refine": False} if name == "fast_int8_pico" else {}
+    mask = (40, 40) if name == "u2" else (64, 128)
+    eng = Engine(2, preset(name, frame_hw=(160, 320), mask_hw=mask, fd_size=64, lmk_size=48,
+                           **over), seed=0)
+    eng.face_min_interval_s = 0.0
+    eng.admit_all()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 160, 320, 3), dtype=np.uint8)
+    before = (TK.fused_nano_trunk_alpha.launches, TR.fused_temporal_refine.launches)
+    for _ in range(2):
+        out = eng.process(frames)
+    assert not out["passthrough"]
+    assert TK.fused_nano_trunk_alpha.launches == before[0] + 2 * trunk
+    assert TR.fused_temporal_refine.launches == before[1] + 2 * refine
+    assert out["alpha"].dtype == torch.float32 and tuple(out["alpha"].shape) == (2, *mask)
+    assert bool(torch.isfinite(out["alpha"]).all())
+    if name == "rvm":
+        assert all(r.is_cuda and bool(r.abs().sum() > 0) for r in eng.state.rec)
+
+
 def test_k_class_head_refuses_too_many_classes():
     """The head kernel takes 1 to ALPHA_HEAD_MAX_K classes; the wrapper
     refuses more by name before it launches (checked without a card)."""

@@ -260,18 +260,18 @@ def test_seeded_engine_state_and_evict(seeded_engines):
     the adaptive EMA branch ran (the maps moved); evict zeroes the slot's
     rec on both engines and leaves the other slot's."""
     _, je, te, (jouts, touts) = seeded_engines
-    np.testing.assert_allclose(te.state.rec.numpy(), np.asarray(je.state.rec), rtol=0,
+    np.testing.assert_allclose(te.state.rec[0].numpy(), np.asarray(je.state.rec), rtol=0,
                                atol=1e-5)
     np.testing.assert_array_equal(te.state.frame_idx.numpy(), np.asarray(je.state.frame_idx))
     np.testing.assert_allclose(te.state.prev_alpha.numpy(), np.asarray(je.state.prev_alpha),
                                rtol=0, atol=1e-5)
     moved = np.abs(touts[-1]["class_alpha"].numpy() - touts[-2]["class_alpha"].numpy())
     assert moved.max() > 1e-3
-    rec1 = te.state.rec[1].clone()
+    rec1 = te.state.rec[0][1].clone()
     for e in (je, te):
         e.evict(0)
-    assert not te.state.rec[0].any() and not np.asarray(je.state.rec)[0].any()
-    assert torch.equal(te.state.rec[1], rec1)
+    assert not te.state.rec[0][0].any() and not np.asarray(je.state.rec)[0].any()
+    assert torch.equal(te.state.rec[0][1], rec1)
     assert int(te.state.frame_idx[0]) == 0 and not bool(te.state.initialized[0])
 
 
@@ -350,7 +350,7 @@ def test_trained_engine_matches_reference(trained_engines, step):
     name, (je, te, (jouts, touts)), _, _, _ = trained_engines
     _assert_engine_outputs_match(jouts[step], touts[step], preset(name).mask_hw)
     if step == T_TRAINED - 1:
-        np.testing.assert_allclose(te.state.rec.numpy(), np.asarray(je.state.rec), rtol=0,
+        np.testing.assert_allclose(te.state.rec[0].numpy(), np.asarray(je.state.rec), rtol=0,
                                    atol=1e-5)
 
 

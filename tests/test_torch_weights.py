@@ -33,9 +33,12 @@ CKPT = Path(__file__).resolve().parents[1] / "checkpoints"
 # (checkpoint name, plan, classes)
 TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1),
           ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4),
-          ("mattenet_hd10", "full", 1), ("mattenet_hd10_lite", "light", 1))
-# float trees: the natural layout's MatteNet and the face models
-FLOAT = ("mattenet", "facefinder", "facefinder_128", "landmarknet", "landmarknet_128")
+          ("mattenet_hd10", "full", 1), ("mattenet_hd10_lite", "light", 1),
+          ("mattenet_hd10_nano", "nano", 1), ("mattenet_hd10_femto", "femto", 1))
+# float trees: the natural layout's MatteNet, RecurrentMatteNet and
+# SaliencyNet, and the face models
+FLOAT = ("mattenet", "facefinder", "facefinder_128", "landmarknet", "landmarknet_128",
+         "rvm", "u2net")
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
 FRAMES_CLIP = dict(n_frames=8, hw=(720, 1280), seed=2, features=True)
@@ -46,18 +49,23 @@ def _numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True) -> list[Path]:
-    """Write the exports into ``out_dir``; returns the files written."""
+def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True, only=None) -> list[Path]:
+    """Write the exports into ``out_dir`` (with ``only``, those of these
+    names); returns the files written."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     written = []
     for name, plan, k in TRUNKS:
+        if only is not None and name not in only:
+            continue
         model = models.MatteNetHD(stem_stride=10, head_upsample=4, num_classes=k,
                                   decoder=plan)
         q = quantize_mattenet_hd(model, restore_params(str(CKPT / name)))
         bridge.save_export(out / f"{name}.npz", bridge.load_quantized(_numpy(q)))
         written.append(out / f"{name}.npz")
     for name in FLOAT:
+        if only is not None and name not in only:
+            continue
         tree = bridge.float_tree(_numpy(restore_params(str(CKPT / name))))
         bridge.save_export(out / f"{name}.npz", tree)
         written.append(out / f"{name}.npz")
@@ -92,7 +100,8 @@ def test_loaded_exports_are_served_trees():
 
     for name, plan, k in (("fast_int8_micro", "micro", 1), ("fast_int8_pico", "pico", 1),
                           ("multiclass_fast_pico", "pico", 4), ("multiclass_fast", "nano", 4),
-                          ("fast_int8", "full", 1), ("fast_int8_lite", "light", 1)):
+                          ("fast_int8", "full", 1), ("fast_int8_lite", "light", 1),
+                          ("fast_int8_nano", "nano", 1), ("fast_int8_femto", "femto", 1)):
         w = bridge.trained_weights(preset(name))
         assert w["params"]["d2dn"]["wq"].dtype == np.int8
         assert TQ.plan_of(w["params"]) == plan and TQ.num_classes_of(w["params"]) == k
@@ -103,6 +112,9 @@ def test_loaded_exports_are_served_trees():
     assert w["params"]["params"]["Conv_2"]["kernel"].shape == (1, 1, 16, 1)
     assert w["params"]["params"]["MobileEncoder_0"]["ConvBN_0"]["Conv_0"]["kernel"].dtype \
         == np.float32
+    for name, leaf in (("rvm", ("ConvGRU_0", "Conv_0")), ("u2", ("RSU_0", "ConvBN_0"))):
+        tree = bridge.trained_weights(preset(name))["params"]["params"]
+        assert leaf[0] in tree and leaf[1] in tree[leaf[0]]
     frames, alpha = bridge.load_frames()
     assert frames.shape == (2, 720, 1280, 3) and frames.dtype == np.uint8
     assert alpha.shape == (2, 288, 512) and 0 < alpha.mean() < 255

@@ -13,8 +13,9 @@ export``, which restores the checkpoints with the reference).
   the port's own quantizer.
 * :func:`load_quantized`: the reference's already-quantized dict
   (``quantize_mattenet_hd`` output) -> the same serving dict.
-* :func:`float_tree`: a reference flax float tree (MatteNet, FaceFinder,
-  LandmarkNet) -> the numpy tree the port's float models load.
+* :func:`float_tree`: a reference flax float tree (MatteNet,
+  RecurrentMatteNet, SaliencyNet, FaceFinder, LandmarkNet) -> the numpy
+  tree the port's float models load.
 * :func:`load_export` / :func:`save_export`: one tree <-> one ``.npz``
   (``np.load(..., allow_pickle=False)``; numpy is all they need).
 * :func:`trained_weights`: the committed trained weights a preset serves,
@@ -74,7 +75,8 @@ def load_quantized(q: dict) -> dict:
 
 def float_tree(tree: dict) -> dict:
     """A reference flax float tree ``{"params", "batch_stats"}`` (MatteNet,
-    FaceFinder, LandmarkNet) -> the same tree with f32 numpy leaves."""
+    RecurrentMatteNet, SaliencyNet, FaceFinder, LandmarkNet) -> the same
+    tree with f32 numpy leaves."""
     return {k: _numpy_tree(v) for k, v in tree.items() if k in ("params", "batch_stats")}
 
 
@@ -114,25 +116,29 @@ def load_export(path) -> dict:
         return unflatten({name: z[name] for name in z.files})
 
 
-# the float MatteNet of the natural layout (the active preset)
+# the float models of the natural layout by matting_arch (the active,
+# blaze_tracking and branch presets; rvm; u2)
 MATTENET_EXPORT = "mattenet"
+FLOAT_EXPORTS = {"feedforward": MATTENET_EXPORT, "recurrent": "rvm", "saliency": "u2net"}
 # the int8 checkpoints by plan (the reference's names), one class and K=4
 EXPORTS = {"full": "mattenet_hd10", "light": "mattenet_hd10_lite",
-           "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico"}
+           "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico",
+           "nano": "mattenet_hd10_nano", "femto": "mattenet_hd10_femto"}
 MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc"}
 
 
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     """The committed trained weights of a preset: ``{"params": the float
-    MatteNet tree (``MATTENET_EXPORT``) for the natural layout's
-    ``matting_input='resized'``, else the int8 serving dict of
+    tree of the natural layout's ``matting_input='resized'`` by
+    ``matting_arch`` (``FLOAT_EXPORTS``: MatteNet, RVM, U2Net), else the
+    int8 serving dict of
     statics.matting_decoder (``EXPORTS[plan]`` for one class,
     ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face", "lmk"}}``
     (face models keyed by geometry as the reference's checkpoints are: no
     suffix at fd 256 / lmk 192, else '_<size>')."""
     d = Path(weights_dir)
     if statics.matting_input == "resized":
-        matting = MATTENET_EXPORT
+        matting = FLOAT_EXPORTS[statics.matting_arch]
     else:
         plan = statics.matting_decoder
         matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]

@@ -1,5 +1,5 @@
-"""The int8 trunks as CUDA kernels (``csrc/trunk_int8.cu``): pico and nano,
-micro, light (plan C) and full (plan B).
+"""The int8 trunks as CUDA kernels (``csrc/trunk_int8.cu``): pico, nano and
+femto, micro, light (plan C) and full (plan B).
 
 Replaces the Pallas megakernel
 ``video_stream_segmenetation_tpu/kernels/trunk_int8.py`` (pallas_call at
@@ -14,9 +14,11 @@ the K-class logits come out as ``[S, H, W, K]`` directly (the reference
 unfolds its quad columns ``qo*K + k`` to the same layout).
 
 Bound on an H100: operations (about 1.44 G int8 multiply-adds a stream at
-720p at the pico widths, 2.6 G at nano's) -- see the source's header for
-the design.  One call of :func:`fused_nano_trunk_alpha` is 11 launches
-(one per layer, SE, head) and counts once in
+720p at the pico widths, 2.6 G at nano's, 1.18 G at femto's, counted from
+the shapes) -- see the source's header for the design.  The kernels read
+the widths from the weights: femto runs every level at 128 channels.  One
+call of :func:`fused_nano_trunk_alpha` is 11 launches (one per layer, SE,
+head) and counts once in
 ``fused_nano_trunk_alpha.launches``; one call of :func:`fused_nano_trunk`
 is the same launches but the head and counts once in
 ``fused_nano_trunk.launches``.
@@ -108,7 +110,7 @@ def _launcher(x0):
 
 
 def _nano_u1(lib, stream, x0, tp):
-    """The pico/nano trunk's 10 launches: x0 -> u1 s8."""
+    """The pico/nano/femto trunk's 10 launches: x0 -> u1 s8."""
     f32, i8 = torch.float32, torch.int8
     d2 = _conv(lib, stream, x0, tp["d2dn"], i8, stride=2)
     d2 = _conv(lib, stream, d2, tp["d2b"], i8)
@@ -124,7 +126,7 @@ def _nano_u1(lib, stream, x0, tp):
 
 def fused_nano_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     """x0 [S, H, W, C0] s8 (stem output; H, W even twice over) + the trunk
-    params of models/quantized.py::trunk_params (pico or nano widths, K
+    params of models/quantized.py::trunk_params (pico, nano or femto widths, K
     head classes) -> alpha logits [S, H, W] f32 for K = 1, [S, H, W, K]
     for 1 < K <= ALPHA_HEAD_MAX_K.  A CPU tensor takes the plain version
     (the xla-style trunk models/quantized.py::xla_trunk_alpha); a CUDA
@@ -143,7 +145,7 @@ fused_nano_trunk_alpha.launches = 0
 
 def fused_nano_trunk(x0: torch.Tensor, tp: dict) -> torch.Tensor:
     """The u1-out form (the reference's ``fused_nano_trunk``,
-    trunk_int8.py:341): the pico or nano trunk without its head, x0 [S, H,
+    trunk_int8.py:341): the pico, nano or femto trunk without its head, x0 [S, H,
     W, C0] s8 -> u1 [S, H, W, C0] s8, the bf16 head's input.  A CPU tensor
     takes the plain version (models/quantized.py::xla_trunk); a CUDA tensor
     launches the kernels or raises."""

@@ -1,5 +1,5 @@
-"""int8 serving graph for MatteNetHD, the pico, nano, micro, light (plan C)
-and full (plan B) plans, one alpha class or K (port of
+"""int8 serving graph for MatteNetHD, the pico, nano, femto, micro, light
+(plan C) and full (plan B) plans, one alpha class or K (port of
 ``models/quantized.py``).
 
 * :func:`quantize_mattenet_hd`: numpy copy of the reference's quantizer --
@@ -85,13 +85,14 @@ def _dense(d):
 
 
 # serving key -> flax module, per plan (mattenet_hd.py module orders);
-# nano is pico's structure at deeper widths
+# nano and femto are pico's structure at other deep widths
 _PLAN_EF = (("d2dn", "ConvBN_1"), ("d2b", "ConvBN_2"), ("d3dn", "ConvBN_3"),
             ("d3b", "ConvBN_4"), ("ctx", "ConvBN_5"), ("u2red", "ConvBN_6"),
             ("u1red", "ConvBN_7"))
 PLAN_LAYERS = {
     "pico": _PLAN_EF,
     "nano": _PLAN_EF,
+    "femto": _PLAN_EF,
     "micro": (("d2dn", "ConvBN_1"), ("d3dn", "ConvBN_2"), ("ctx", "ConvBN_3"),
               ("u2red", "ConvBN_4"), ("u1red", "ConvBN_5")),
     "light": (("b1c", "ConvBN_1"), ("d2dn", "ConvBN_2"), ("d3dn", "ConvBN_3"),
@@ -112,7 +113,10 @@ PLAN_BLOCKS = {
 SPLIT_LAYERS = {"full": ("u2", "u1")}
 # (c2, c3) of the single-conv plans, as their d2dn and d3dn weights give
 # them (the reference's NANO_WIDTHS)
-_EF_WIDTHS = {(128, 192): "pico", (192, 256): "nano"}
+_EF_WIDTHS = {(128, 192): "pico", (192, 256): "nano", (128, 128): "femto"}
+# the single-conv plans: one trunk kernel serves them all, its widths
+# read from the weights
+NANO_PLANS = ("pico", "nano", "femto")
 # the float heads (flax module), kept for head_impl='bf16'
 FLOAT_HEADS = (("sem", "Conv_0"), ("det", "Conv_1"), ("alpha", "Conv_2"))
 
@@ -183,12 +187,12 @@ def _se_params(q: dict, pfx: str, device) -> dict:
 
 
 def plan_of(q: dict) -> str:
-    """The plan ('pico', 'nano', 'micro', 'light' or 'full') of a serving
-    dict or of its trunk layout.  By keys first, since plans B, C and
-    micro all have residual blocks at d2b/d3b and share nano's deep
+    """The plan ('pico', 'nano', 'femto', 'micro', 'light' or 'full') of a
+    serving dict or of its trunk layout.  By keys first, since plans B, C
+    and micro all have residual blocks at d2b/d3b and share nano's deep
     widths: plan B's b1 is a block (``b1/ConvBN_0``), plan C's a single
-    conv (``b1c``), micro has no b1; the single-conv plans pico and nano
-    by their widths."""
+    conv (``b1c``), micro has no b1; the single-conv plans pico, nano and
+    femto by their widths."""
     if "b1/ConvBN_0" in q or "c0" in q.get("b1", {}):
         return "full"
     if "b1c" in q:
@@ -339,7 +343,7 @@ def _down(x_i8: torch.Tensor, layer: dict) -> torch.Tensor:
 
 
 def xla_trunk(x0: torch.Tensor, tp: dict) -> torch.Tensor:
-    """Pico and nano (plans F, E): d2dn -> d2b -> d3dn -> d3b -> ctx (dil
+    """Pico, nano and femto (plans F, E, G): d2dn -> d2b -> d3dn -> d3b -> ctx (dil
     3) + residual -> SE -> u2red -> u1red.  x0 [S, H, W, C0] s8 -> u1
     [S, H, W, C0] s8 (the reference's ``fused_nano_trunk`` output)."""
     d2 = _qconv(_down(x0, tp["d2dn"]), tp["d2b"])
@@ -389,7 +393,8 @@ def xla_full_trunk(x0: torch.Tensor, tp: dict) -> torch.Tensor:
 
 
 # the plain u1-out trunk of each plan
-PLAIN_TRUNKS = {"pico": xla_trunk, "nano": xla_trunk, "micro": xla_micro_trunk,
+PLAIN_TRUNKS = {"pico": xla_trunk, "nano": xla_trunk, "femto": xla_trunk,
+                "micro": xla_micro_trunk,
                 "light": xla_light_trunk, "full": xla_full_trunk}
 
 
@@ -401,7 +406,7 @@ def alpha_head(u1: torch.Tensor, head: dict) -> torch.Tensor:
 
 
 def xla_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
-    """The pico or nano trunk and its int8 alpha head: x0 [S, H, W, C0] s8
+    """The pico, nano or femto trunk and its int8 alpha head: x0 [S, H, W, C0] s8
     -> logits [S, H, W] f32 for one class, [S, H, W, K] for K."""
     return alpha_head(xla_trunk(x0, tp), tp["alpha"])
 
@@ -441,8 +446,8 @@ class QuantizedMatteNetHD(torch.nn.Module):
     int8_conv_impl`` and ``int8_head_impl``):
     * ``conv_impl`` 'xla' | 'pallas': with 'pallas' the 3x3 stride-1 convs
       the reference's ``_qconv`` routes (micro, light, full) run through
-      kernels/conv_int8.py::conv3x3_i8_fused on the card.  The pico and
-      nano trunk is one kernel either way, as the reference's megakernel
+      kernels/conv_int8.py::conv3x3_i8_fused on the card.  The pico, nano
+      and femto trunk is one kernel either way, as the reference's megakernel
       route is on the TPU.
     * ``head_impl`` 'int8' | 'bf16': the int8 alpha head on u1 (in the
       trunk kernel), or the trunk's u1 out and :func:`bf16_head`.
@@ -486,7 +491,7 @@ class QuantizedMatteNetHD(torch.nn.Module):
         from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
         int8_head = self.head_impl == "int8"
-        if self.decoder in ("pico", "nano"):
+        if self.decoder in NANO_PLANS:
             fn = TK.fused_nano_trunk_alpha if int8_head else TK.fused_nano_trunk
             out = fn(x0, self.trunk)
         else:

@@ -36,6 +36,8 @@ from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
     quantize_mattenet_hd,
 )
+from video_stream_segmenetation_tpu_torch.models.rvm import RecurrentMatteNet, init_rvm_params
+from video_stream_segmenetation_tpu_torch.models.u2net import SaliencyNet, init_u2net_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +112,14 @@ def _registry() -> dict[str, ModelSpec]:
                                    {"input_size": 128}),
         "landmarknet": ModelSpec("landmarknet", lambda t, d: LandmarkNet(t, device=d),
                                  lambda seed: init_landmark_net_params(seed), (192, 192)),
-        "recurrent_mattenet": _unported("recurrent_mattenet", (288, 512), "4 (rvm)",
+        # recurrent matting (the rvm preset; state: models/rvm.py::init_state)
+        "recurrent_mattenet": ModelSpec("recurrent_mattenet",
+                                        lambda t, d: RecurrentMatteNet(t, device=d),
+                                        lambda seed: init_rvm_params(seed), (288, 512),
                                         stateful=True),
-        "saliencynet": _unported("saliencynet", (320, 320), "4 (u2)"),
+        # the salient-object net of the u2 preset
+        "saliencynet": ModelSpec("saliencynet", lambda t, d: SaliencyNet(t, device=d),
+                                 lambda seed: init_u2net_params(seed), (320, 320)),
     }
 
 

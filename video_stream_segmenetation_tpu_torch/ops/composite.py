@@ -1,5 +1,5 @@
-"""Alpha compositing (port of ``ops/composite.py::upsample_alpha`` and
-``alpha_composite``), and the natural layout's plain composite the
+"""Alpha compositing (port of ``ops/composite.py::upsample_alpha``,
+``alpha_composite`` and ``binarize_alpha``), and the natural layout's plain composite the
 reference's step runs (``runtime/pipeline.py:899-938``)."""
 
 from __future__ import annotations
@@ -71,3 +71,10 @@ def natural_composite(frames_u8: torch.Tensor, alpha: torch.Tensor,
     bg = (background.to(torch.float32) / 255.0 if background.dtype == torch.uint8
           else background.to(torch.float32))
     return alpha_composite(frames_u8.to(torch.float32) / 255.0, up, background=bg, out_u8=True)
+
+
+def binarize_alpha(alpha: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """Hard alpha (the soft/hard composite switch of the U2Net variant's
+    composeMatteOnCanvas, u2FrameProc.ts:78-148): 1 where ``alpha >=
+    threshold``, else 0, in ``alpha``'s dtype."""
+    return (alpha >= threshold).to(alpha.dtype)

@@ -1,4 +1,4 @@
-"""Temporal filters (port of ``ops/temporal.py``)."""
+"""Temporal filters and the affine low-pass (port of ``ops/temporal.py``)."""
 
 from __future__ import annotations
 
@@ -30,6 +30,22 @@ def temporal_ema(prev, current, ema, initialized, adapt=None):
         )
         k = k * (1.0 - ad * m)
     blended = k * prev + (1.0 - k) * current
+    new_prev = torch.where(init, blended, current)
+    return new_prev, new_prev
+
+
+def hole_filling_ema(prev, current, ema, initialized, hole_threshold: float = 0.1,
+                     hole_margin: float = 0.2, decay: float = 0.90):
+    """The reference's documented alternative temporal filter
+    (frameProcessor_branch.ts:155-180): where the current pixel is a
+    sudden hole (``current < hole_threshold`` while ``prev >
+    hole_threshold + hole_margin``) the previous value decays by
+    ``decay`` instead of the EMA blend.  ``ema``/``initialized`` are
+    ``[S]``.  Returns (new_prev, out), which are the same tensor."""
+    k = _per_stream(ema.to(current.dtype), current)
+    init = _per_stream(initialized, current)
+    is_hole = (current < hole_threshold) & (prev > hole_threshold + hole_margin)
+    blended = torch.where(is_hole, prev * decay, k * prev + (1 - k) * current)
     new_prev = torch.where(init, blended, current)
     return new_prev, new_prev
 

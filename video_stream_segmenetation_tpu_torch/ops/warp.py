@@ -1,7 +1,8 @@
-"""Affine inversion, the rotation-aware nearest warp and the separable
-nearest-warp indices (port of ``ops/warp.py::invert_affine`` and
-``warp_affine_nearest``, and of the index preparation at
-``kernels/refine_fused.py:633-647``)."""
+"""Affine inversion, the rotation-aware nearest warp, the separable
+nearest warp and its indices, and the integer translation warp (port of
+``ops/warp.py::invert_affine``, ``warp_affine_nearest``,
+``warp_affine_separable`` and ``warp_translate``, and of the index
+preparation at ``kernels/refine_fused.py:633-647``)."""
 
 from __future__ import annotations
 
@@ -72,3 +73,24 @@ def warp_separable_gather(src: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor)
     out = torch.gather(rows, 2, xc[:, None, :].expand(-1, src.shape[1], -1))
     valid = (yi >= 0)[:, :, None] & (xi >= 0)[:, None, :]
     return torch.where(valid, out, torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+def warp_affine_separable(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
+    """Nearest warp of ``src [S, H, W]`` by the diagonal and translation
+    of ``affine [S, 6]`` (the rotation and shear terms dropped): a row
+    pick, then a column pick; exact for a pure scale and translate."""
+    return warp_separable_gather(src, *separable_warp_indices(affine, src.shape[-2:]))
+
+
+def warp_translate(src: torch.Tensor, dx, dy) -> torch.Tensor:
+    """Integer translation warp (warpTranslate, frameProcessor.ts:100-114)
+    of ``src [..., H, W]``: ``dx``, ``dy`` truncated toward zero (the JS
+    ``| 0``), scalars or one a leading index; out of range reads 0."""
+    dxi = torch.trunc(torch.as_tensor(dx, dtype=torch.float32, device=src.device))
+    dyi = torch.trunc(torch.as_tensor(dy, dtype=torch.float32, device=src.device))
+    dxi, dyi = torch.broadcast_tensors(dxi, dyi)
+    one, zero = torch.ones_like(dxi), torch.zeros_like(dxi)
+    affine = torch.stack([one, zero, dxi, zero, one, dyi], dim=-1)
+    flat = src.reshape((-1,) + tuple(src.shape[-2:]))
+    affine = affine.reshape(-1, 6).expand(flat.shape[0], 6)
+    return warp_affine_nearest(flat, affine).reshape(src.shape)

@@ -1,14 +1,18 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|train ...]
+        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|nano|femto|
+                  blaze|branch|rvm|u2|train ...]
 
-For each configuration (default: all eight) it builds Engine(S, preset):
+For each configuration (default: all fourteen) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
-weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite`` and
-``active`` are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
-multiclass_fast, fast_int8, fast_int8_lite and active as their presets
-stand with the committed trained weights and frames.  It warms the engine
+weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite``,
+``active``, ``nano``, ``femto``, ``blaze``, ``branch``, ``rvm`` and ``u2``
+are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
+multiclass_fast, fast_int8, fast_int8_lite, active, fast_int8_nano,
+fast_int8_femto, blaze_tracking, branch, rvm and u2 as their presets stand
+with the committed trained weights and frames (branch with its even
+streams' affine primed, as chip_smoke.py's phase).  It warms the engine
 up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
@@ -20,7 +24,12 @@ up, then
     upsample and softmax, the simplex EMA, the per-class composite and its
     blurred guide; for active: the f32 conversion and gather resize, the
     float MatteNet, the guide, the face subpath on the frames, the refine
-    kernel, the plain composite, and the composite kernel beside it), and
+    kernel, the plain composite, and the composite kernel beside it; for
+    the natural layout's other pipelines: their model (MatteNet, the
+    RecurrentMatteNet on the engine's state, the SaliencyNet), the
+    translation subpath (blaze_tracking), and on the unfused chain the
+    warp and blend, the temporal filter, the bilateral and the
+    threshold/gamma refine apart), and
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
@@ -47,7 +56,16 @@ CONFIGS = {
     "full": ("fast_int8", {}, True),
     "lite": ("fast_int8_lite", {}, True),
     "active": ("active", {}, True),
+    "nano": ("fast_int8_nano", {}, True),
+    "femto": ("fast_int8_femto", {}, True),
+    "blaze": ("blaze_tracking", {}, True),
+    "branch": ("branch", {}, True),
+    "rvm": ("rvm", {}, True),
+    "u2": ("u2", {}, True),
 }
+# branch: the even streams start with this affine (chip_smoke.py's
+# PRIMED_AFFINE), so that its max blend runs
+PRIMED_AFFINE = (1.0, 0.0, 2.0, 0.0, 1.0, -2.0)
 # a stage timed apart that another stage's time already holds, and one
 # that the configuration could run instead of another (neither is summed)
 INSIDE = "  (inside the composite) "
@@ -127,6 +145,10 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
         eng = Engine(s, st, seed=0)
         frames = np.random.default_rng(0).integers(0, 256, (s, fh, fw, 3), dtype=np.uint8)
     eng.admit_all()
+    if name == "branch":
+        even = torch.as_tensor(np.arange(s) % 2 == 0, device=eng.device)
+        eng.state.affine[even] = torch.tensor(PRIMED_AFFINE, device=eng.device)
+        eng.state.has_affine[even] = True
     for _ in range(2):
         eng.process(frames)
 
@@ -174,15 +196,18 @@ def _packed_stages(eng, ft, stages, out_dtype):
 
 
 def _natural_stages(eng, ft, stages):
-    """active's step after the frames' copy: f32 and the gather resize, the
-    float MatteNet, the guide, the face subpath on the frames, the refine
-    kernel, the plain composite (and the composite kernel, which
-    use_fused_composite=True would run instead)."""
+    """The natural layout's step after the frames' copy: f32 and the
+    gather resize, the model (MatteNet, the RecurrentMatteNet on the
+    engine's state, the SaliencyNet), the guide, the face subpath on the
+    frames (landmarks, or blaze_tracking's translation subpath), then the
+    refine kernel (and active's composite kernel beside the plain
+    composite, which use_fused_composite=True would run instead) or, on
+    the unfused chain, its stages apart, and the plain composite."""
     from video_stream_segmenetation_tpu_torch.kernels.composite_fused import fused_composite
     from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
     from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
     from video_stream_segmenetation_tpu_torch.ops.resize import resize_frames_u8
-    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
 
     st = eng.statics
     s = ft.shape[0]
@@ -190,24 +215,74 @@ def _natural_stages(eng, ft, stages):
     dev = eng.device
     stages["f32 + asymmetric gather resize to the mask"], small = _event_ms(
         lambda: resize_frames_u8(ft, (mh, mw), "asymmetric"))
-    stages["MatteNet (bf16)"], out = _event_ms(lambda: eng.model(small))
-    alpha = out["alpha"].contiguous()
+    if st.matting_arch == "recurrent":
+        stages["RecurrentMatteNet (bf16; ConvGRU state)"], out = _event_ms(
+            lambda: eng.model(small, eng.state.rec))
+    else:
+        label = {"saliency": f"SaliencyNet (bf16, {mh}x{mw})"}.get(st.matting_arch,
+                                                                  "MatteNet (bf16)")
+        stages[label], out = _event_ms(lambda: eng.model(small))
+    alpha = out["alpha"].to(torch.float32).contiguous()
     stages["guide floor(small*255+0.5), planar u8"], guide = _event_ms(
         lambda: torch.floor(small * 255.0 + 0.5).to(torch.uint8).permute(0, 3, 1, 2)
         .contiguous())
     gate = torch.ones((s,), dtype=torch.bool, device=dev)
     fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
-    stages[f"face subpath on the frames (K={-(-s // st.lmk_interval)} of {s} streams)"], \
-        face = _event_ms(lambda: face_subpath_compact(eng.face_models, ft, fidx, gate, st))
-    prior, has_prior = face[0].contiguous(), face[1]
-    stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
-        alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
-        eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
-        out_dtype=torch.float32))
+    route = P.refine_routing(st)
+    prior = torch.zeros((s, 4) if route["analytic_prior"] else (s, mh, mw), device=dev)
+    has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
+    if st.face_path and st.face_tracking == "translation":
+        stages[f"translation subpath ({st.fd_size} resize of all {s} frames, detector)"], _ = \
+            _event_ms(lambda: P.face_translation_subpath(eng.face_models.face, ft, eng.state,
+                                                         st, gate))
+    elif st.face_path:
+        stages[f"face subpath on the frames (K={-(-s // st.lmk_interval)} of {s} streams)"], \
+            face = _event_ms(lambda: P.face_subpath_compact(
+                eng.face_models, ft, fidx, gate, st,
+                "params" if route["analytic_prior"] else "plane"))
+        prior, has_prior = face[0].contiguous(), face[1]
+    if route["use_fused_tr"]:
+        stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
+            alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
+            eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
+            out_dtype=torch.float32))
+    else:
+        a = _chain_stages(eng, alpha, guide, prior, has_prior, stages)
+    bg = (torch.tensor(st.bg_color, device=dev) if st.background == "color"
+          else eng.backgrounds)
     stages["plain composite (bf16-pass upsample, f32 blend)"], _ = _event_ms(
-        lambda: natural_composite(ft, a, eng.backgrounds))
-    stages[f"{INSTEAD}composite kernel"], _ = _event_ms(
-        lambda: fused_composite(ft, a, eng.backgrounds))
+        lambda: natural_composite(ft, a, bg))
+    if st.background == "image":
+        stages[f"{INSTEAD}composite kernel"], _ = _event_ms(
+            lambda: fused_composite(ft, a, eng.backgrounds))
+
+
+def _chain_stages(eng, alpha, guide, prior, has_prior, stages):
+    """The unfused refine chain's stages apart (runtime/pipeline.py's
+    warp_blend, temporal_filter and refine_chain's parts); returns the
+    refined alpha."""
+    from video_stream_segmenetation_tpu_torch.ops.bilateral import joint_bilateral3x3
+    from video_stream_segmenetation_tpu_torch.ops.morphology import (
+        morphological_closing_in_prior,
+        morphological_opening,
+    )
+    from video_stream_segmenetation_tpu_torch.ops.refine import refine_alpha
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
+
+    st, state, knobs = eng.statics, eng.state, eng.knobs
+    stages[f"warp ({st.warp_impl}) + blend ({st.warp_blend_mode})"], base = _event_ms(
+        lambda: P.warp_blend(state, alpha, st))
+    stages[f"temporal filter ({st.temporal_filter})"], (_, a) = _event_ms(
+        lambda: P.temporal_filter(state, base, knobs, st))
+    if st.morphology:
+        stages["opening + closing in the prior"], a = _event_ms(
+            lambda: morphological_closing_in_prior(morphological_opening(a), prior, has_prior))
+    stages["joint bilateral (per-stream toggle)"], a = _event_ms(lambda: torch.where(
+        knobs.use_bilateral[:, None, None],
+        joint_bilateral3x3(a, guide, knobs.sigma_spatial, knobs.sigma_range), a))
+    stages["threshold/gamma refine"], a = _event_ms(lambda: refine_alpha(
+        a, knobs.noise_cutoff, knobs.high_threshold, knobs.gamma, prior, has_prior))
+    return a
 
 
 def _multiclass_stages(eng, logits, fp, stages):
@@ -230,7 +305,7 @@ def _multiclass_stages(eng, logits, fp, stages):
     stages[f"x{uf} per-class upsample, softmax"], ca = _event_ms(
         lambda: eng.model.upsample(logits))
     stages["simplex EMA + renorm"], blended = _event_ms(
-        lambda: simplex_ema(ca, eng.state.rec, eng.knobs, eng.state.initialized))
+        lambda: simplex_ema(ca, eng.state.rec[0], eng.knobs, eng.state.initialized))
     effects = st.class_effects
     sigma = max(float(next(e["blur"] for e in effects if "blur" in e)) * mh / fh, 0.5)
     stages[f"{INSIDE}guide + blur at sigma {sigma:.2f}"], _ = _event_ms(

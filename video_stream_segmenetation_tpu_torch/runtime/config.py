@@ -79,9 +79,10 @@ class PipelineStatics:
     Defaults are the reference's: ``PipelineStatics()`` is its ``active``
     preset, the float MatteNet over resized natural-layout frames.  Only
     the fields the port reads or refuses are here; the port serves that
-    natural path and the reference's ``fast_int8_*`` and
+    natural path with its variants (``blaze_tracking``, ``branch``,
+    ``rvm``, ``u2``) and the reference's ``fast_int8_*`` and
     ``multiclass_fast*`` s2d paths, and runtime/pipeline.py::check_statics
-    refuses every value neither serves.
+    refuses every value none of them serves.
     """
 
     frame_hw: tuple[int, int] = (720, 1280)
@@ -91,7 +92,9 @@ class PipelineStatics:
     lmk_interval: int = 6  # LANDMARK_INTERVAL (main.ts:10)
     warp_gain: float = 0.7  # WARP_GAIN (main.ts:12)
     warp_blend_weight: float = 0.3  # WARP_BLEND_WEIGHT (frameProcessorTest.ts:108)
-    # 'lerp' (wb*warped + (1-wb)*cur); the port refuses 'max'
+    # warp blend mode: 'lerp' (active pipeline, wb*warped + (1-wb)*cur) or
+    # 'max' (the branch variant: max(cur, warped*warp_blend_weight),
+    # frameProcessor_branch.ts:83-88 with 0.75)
     warp_blend_mode: str = "lerp"
     face_score_thresh: float = 0.6  # FACE_SCORE_THRESH (:35)
     lmk_score_thresh: float = 0.3  # (:143)
@@ -105,11 +108,20 @@ class PipelineStatics:
     bg_color: tuple[float, float, float] = (20 / 255, 25 / 255, 30 / 255)
     bg_blur_sigma: float = 8.0
     face_path: bool = True
-    face_tracking: str = "landmarks"  # the port serves 'landmarks' only
-    # 'ema'; the port refuses 'hole_fill' and 'none'
+    # face tracking mode: 'landmarks' = FD -> ROI -> 468 landmarks ->
+    # Procrustes similarity (the active frameProcessorTest.ts pipeline);
+    # 'translation' = detector-center delta only (the BlazeFace variant,
+    # frameProcessor.ts:369-386: plain fd_size resize, center delta x gain,
+    # no prior; the port serves it on the natural layout's frames)
+    face_tracking: str = "landmarks"
+    translation_gain: float = 0.9  # WARP_GAIN (frameProcessor.ts:26)
+    # temporal filter: 'ema' (frameProcessorTest.ts:218-227), 'hole_fill'
+    # (the documented alternative, frameProcessor_branch.ts:155-180) or
+    # 'none' (the U2Net variant, which has no temporal stage)
     temporal_filter: str = "ema"
     ema_adapt_default: float = 0.0
-    # the port serves morphology on only
+    # opening and prior-gated closing (the blaze, branch, RVM and U2Net
+    # variants run without morphology, and then without the refine kernels)
     morphology: bool = True
     # cadence compaction: the face models run on the <= face_batch streams
     # whose cadence fires (0 = ceil(S / lmk_interval)); the port serves
@@ -126,7 +138,9 @@ class PipelineStatics:
     upsample_impl: str = "mxu"
     upsample_precision: str = "fast"
     # the refine kernels: 'auto' or True (the kernel on the card, its
-    # plain version on the CPU); the port refuses False
+    # plain version on the CPU), taken where morphology is on; False: the
+    # unfused stage chain (warp, blend, temporal filter, morphology,
+    # bilateral, refine), the reference's CPU default
     use_fused_refine: Any = "auto"
     # the face prior on the fused temporal refine: 'auto' (4 scalars, the
     # ellipse rasterised in the kernel) or 'plane' (rendered [S, H, W])
@@ -149,9 +163,13 @@ class PipelineStatics:
     # natural) or 'nearest_u8' (lanes of the packed frames; s2d)
     guide_impl: str = "bilinear"
     s2d_block: int = 5
-    # the port serves 'pico', 'micro', 'light' and 'full' with one class,
-    # 'pico' and 'nano' with K (s2d only)
+    # the port serves 'pico', 'nano', 'femto', 'micro', 'light' and 'full'
+    # with one class, 'pico' and 'nano' with K (s2d only)
     matting_decoder: str = "full"
+    # matting architecture: 'feedforward', 'recurrent' (RVM-class model
+    # threading ConvGRU state through StreamState.rec), or 'saliency'
+    # (U2Net-class SaliencyNet at its canonical square geometry)
+    matting_arch: str = "feedforward"
     # the fused temporal refine's alpha: 'full' (the model's [S, mh, mw]
     # f32 alpha) or 'lowres' (the head-grid logits; the x4 upsample and the
     # sigmoid run in the kernel, so the full-resolution alpha is never
@@ -184,6 +202,10 @@ class PipelineStatics:
     # 'xla' | 'pallas' -- with 'pallas' the micro, light and full trunks'
     # 3x3 stride-1 requant convs run through kernels/conv_int8.py
     int8_conv_impl: str = "xla"
+    # the face subpath's models: 'fast' (the FaceFinder and LandmarkNet
+    # students) or 'reference' (the imported MediaPipe graphs; the port
+    # refuses it: ROADMAP Queue 1 item 6)
+    face_models: str = "fast"
     # 'int8' | 'bf16' -- the alpha head: int8 on u1 (in the trunk kernel),
     # or u1 out of the trunk and a bf16 conv with the float head
     int8_head_impl: str = "int8"

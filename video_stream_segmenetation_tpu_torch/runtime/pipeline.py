@@ -1,12 +1,14 @@
 """The per-batch serving steps (port of ``runtime/pipeline.py::make_step``):
-the single-class step of ``active`` (the natural layout) and of the
-``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico`` and
-``fast_int8_micro`` presets (the s2d layout), face path on or off, and the
-multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
-(:func:`make_multiclass_step`).  The single-class step:
+the single-class step of ``active`` and its variants ``blaze_tracking``,
+``branch``, ``rvm`` and ``u2`` (the natural layout) and of the
+``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_nano``,
+``fast_int8_femto`` and ``fast_int8_micro`` presets (the s2d layout), face
+path on or off, and the multi-class step of ``multiclass_fast_pico`` and
+``multiclass_fast`` (:func:`make_multiclass_step`).  The single-class step:
 
   natural u8 frames [S, H, W, 3] -> f32 0..1 and the asymmetric gather
-    resize to the mask -> bf16 MatteNet, and the planar u8 guide
+    resize to the mask -> bf16 MatteNet, SaliencyNet or RecurrentMatteNet
+    (its ConvGRU state in StreamState.rec), and the planar u8 guide
     floor(small*255+0.5);
   or packed u8 frames [S, H/b, W/b, b*b*3] -> int8 MatteNetHD (bf16 stem,
     trunk kernel, x4 upsample, sigmoid), and the planar u8 guide as lanes
@@ -18,15 +20,21 @@ multi-class step of ``multiclass_fast_pico`` and ``multiclass_fast``
        on the full-resolution frames (frame coordinates) or the guide
        (mask coordinates): letterbox -> FaceFinder -> best box -> prior
        (4 scalars or the rendered plane) -> ROI crop -> LandmarkNet ->
-       Procrustes affine
-    -> warp_impl='separable': the fused temporal refine kernel (stages
-       3-9, the analytic or the plane prior); 'exact' (natural): the 2-D
-       nearest warp and the EMA, then the fused refine kernel (5/7/8/9)
+       Procrustes affine; or, face_tracking='translation', the detector
+       on a plain resize of every stream's frame -> the box centre's
+       delta as an integer translation
+    -> the refine stages by :func:`refine_routing`: the fused temporal
+       refine kernel (stages 3-9, the analytic or the plane prior); or
+       the warp (separable or 2-D nearest), the blend ('lerp' or 'max')
+       and the temporal filter ('ema', 'hole_fill', 'none') eager, then
+       the fused refine kernel (5/7/8/9) where morphology is on, else the
+       unfused chain (morphology, bilateral, threshold/gamma)
     -> natural: the fused composite kernel (use_fused_composite=True) or
        the planar upsample and blend; s2d: the packed composite; over each
        stream's image, one colour, or (background='blur') the frames
        blurred, by the plain upsample and blend
-    -> affine low-pass with the face path's updates
+    -> affine low-pass with the face path's updates (translation: the
+       update applied once, then identity)
 
 make_range_step and make_round_step serve the scheduler's rotation: a
 group of rows stepped out of the full state and written back in place,
@@ -79,31 +87,46 @@ from video_stream_segmenetation_tpu_torch.ops.resize import (
     resize_bilinear_mxu,
     resize_frames_u8,
 )
-from video_stream_segmenetation_tpu_torch.ops.temporal import affine_lowpass, temporal_ema
-from video_stream_segmenetation_tpu_torch.ops.warp import warp_affine_nearest
+from video_stream_segmenetation_tpu_torch.ops.bilateral import joint_bilateral3x3
+from video_stream_segmenetation_tpu_torch.ops.morphology import (
+    morphological_closing_in_prior,
+    morphological_opening,
+)
+from video_stream_segmenetation_tpu_torch.ops.refine import refine_alpha
+from video_stream_segmenetation_tpu_torch.ops.temporal import (
+    affine_lowpass,
+    hole_filling_ema,
+    temporal_ema,
+)
+from video_stream_segmenetation_tpu_torch.ops.warp import (
+    warp_affine_nearest,
+    warp_affine_separable,
+)
 from video_stream_segmenetation_tpu_torch.runtime.config import (
     EMA_ADAPT_T0,
     EMA_ADAPT_T1,
     PipelineKnobs,
     PipelineStatics,
 )
-from video_stream_segmenetation_tpu_torch.runtime.state import StreamState
+from video_stream_segmenetation_tpu_torch.runtime.state import (
+    IDENTITY_AFFINE,
+    StreamState,
+    map_state,
+)
 
 # (field, the only value the port serves) -- anything else is refused
 _SERVED = (
     ("upsample_method", "half_pixel"),
-    ("face_tracking", "landmarks"),
     ("affine_mode", "exact"),
-    ("temporal_filter", "ema"),
-    ("warp_blend_mode", "lerp"),
-    ("morphology", True),
     ("upsample_impl", "mxu"),
 )
 # ... by frame layout: the int8 MatteNetHD over packed frames, or the
-# float MatteNet over resized natural frames
+# float models (MatteNet, RecurrentMatteNet, SaliencyNet) over resized
+# natural frames
 _SERVED_LAYOUT = {
     "s2d": (("matting_input", "native"), ("matting_precision", "int8"),
-            ("warp_impl", "separable"), ("upsample_precision", "fast")),
+            ("matting_arch", "feedforward"), ("warp_impl", "separable"),
+            ("upsample_precision", "fast"), ("face_tracking", "landmarks")),
     "natural": (("matting_input", "resized"), ("matting_precision", "bf16"),
                 ("resize_impl", "gather"), ("refined_dtype", "f32")),
 }
@@ -115,27 +138,43 @@ _SERVED_FACE = {
             ("resize_impl", "mxu")),
     "natural": (("face_compact", True), ("face_input", "frames"), ("crop_impl", "gather")),
 }
+# the multi-class step bypasses the single-matte stages: they stay at the
+# reference's defaults
+_SERVED_MULTICLASS = (
+    ("frame_layout", "s2d"), ("face_path", False), ("background", "image"),
+    ("matting_arch", "feedforward"), ("face_tracking", "landmarks"),
+    ("temporal_filter", "ema"), ("warp_blend_mode", "lerp"), ("morphology", True),
+    ("refine_alpha_src", "full"), ("guide_kernel_unfold", False), ("guide_source", "gather"),
+)
 # (field, the values the port serves)
 _ALLOWED = (
     ("prior_impl", ("auto", "plane")),
-    ("use_fused_refine", ("auto", True)),
     ("use_fused_composite", (False, True, "auto")),
     ("refined_dtype", ("f32", "bf16")),
     ("warp_impl", ("separable", "exact")),
     ("upsample_precision", ("fast", "exact")),
 )
-# the single-class step: the background, and the fast refine's inputs
-# ('auto' resolves as off the TPU)
-_ALLOWED_FAST = (
+# the single-class step: the background, the fast refine's inputs ('auto'
+# resolves as off the TPU), and the stage chain's options
+_ALLOWED_SINGLE = (
     ("background", ("image", "color", "blur")),
     ("refine_alpha_src", ("full", "lowres", "auto")),
     ("guide_kernel_unfold", (False, True, "auto")),
     ("guide_source", ("gather", "host")),
+    ("use_fused_refine", ("auto", True, False)),
+    ("morphology", (True, False)),
+    ("temporal_filter", ("ema", "hole_fill", "none")),
+    ("warp_blend_mode", ("lerp", "max")),
+    ("face_tracking", ("landmarks", "translation")),
+    ("matting_arch", ("feedforward", "recurrent", "saliency")),
 )
 _ALLOWED_S2D = (
     ("int8_conv_impl", ("xla", "pallas")),
     ("int8_head_impl", ("int8", "bf16")),
 )
+# the trunk plans the port serves, with one class and with K
+_DECODERS = {False: ("pico", "nano", "femto", "micro", "light", "full"),
+             True: ("pico", "nano")}
 
 
 def _refuse(field, got, want, suffix=""):
@@ -143,16 +182,33 @@ def _refuse(field, got, want, suffix=""):
                               f"only{suffix}")
 
 
+# what the port has not ported yet, by the ROADMAP item that ports it:
+# (field, the value refused, the condition, the item)
+_UNPORTED = (
+    ("frame_layout", "natural", lambda st: st.num_classes > 1,
+     "the natural layout's multi-class step: ROADMAP Queue 1 item 5 (multiclass)"),
+    ("matting_input", "native", lambda st: st.frame_layout == "natural",
+     "the float MatteNetHD over natural frames: ROADMAP Queue 1 item 4 (fast)"),
+    ("face_models", "reference", lambda st: True,
+     "the reference's MediaPipe face graphs: ROADMAP Queue 1 item 6"),
+)
+
+
 def check_statics(statics: PipelineStatics) -> None:
-    """Refuse what the port's steps do not serve."""
+    """Refuse what the port's steps do not serve.  Still refused, besides
+    :data:`_UNPORTED`: the s2d layout with another matting architecture,
+    the exact warp or translation tracking; the natural layout's bf16
+    refined alpha, its 'mxu' resizes and 'nearest_u8' guide, the guide as
+    the face source; the face path without compaction;
+    affine_mode='reference'; upsample methods and implementations but
+    'half_pixel' on 'mxu' (ROADMAP Queue 1 item 4)."""
+    for field, value, when, item in _UNPORTED:
+        if getattr(statics, field) == value and when(statics):
+            raise NotImplementedError(f"{field}={value!r}: {item} is not ported yet")
     multiclass = statics.num_classes > 1
     layout = statics.frame_layout
     if multiclass:
-        served = ((("frame_layout", "s2d"), ("face_path", False), ("background", "image"))
-                  + _SERVED
-                  + _SERVED_LAYOUT["s2d"] + (("refine_alpha_src", "full"),
-                                             ("guide_kernel_unfold", False),
-                                             ("guide_source", "gather")))
+        served = _SERVED_MULTICLASS + _SERVED + _SERVED_LAYOUT["s2d"]
     elif layout not in _SERVED_LAYOUT:
         _refuse("frame_layout", layout, tuple(_SERVED_LAYOUT))
     else:
@@ -163,10 +219,10 @@ def check_statics(statics: PipelineStatics) -> None:
         got = getattr(statics, field)
         if got != want or type(got) is not type(want):
             _refuse(field, got, want, suffix)
-    allowed = _ALLOWED if multiclass else _ALLOWED + _ALLOWED_FAST
+    allowed = _ALLOWED + ((("use_fused_refine", ("auto", True)),) if multiclass
+                          else _ALLOWED_SINGLE)
     if layout == "s2d":
-        decoders = ("pico", "nano") if multiclass else ("pico", "micro", "light", "full")
-        allowed += (("matting_decoder", decoders),) + _ALLOWED_S2D
+        allowed += (("matting_decoder", _DECODERS[multiclass]),) + _ALLOWED_S2D
     if multiclass:
         if len(statics.class_effects) != statics.num_classes:
             raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
@@ -283,6 +339,42 @@ def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
     return tuple(scatter(v) for v in outs)
 
 
+def face_translation_subpath(face_model, frames_u8: torch.Tensor, state: StreamState,
+                             statics: PipelineStatics, face_gate: torch.Tensor):
+    """Translation-only tracking (the BlazeFace variant, runBlazeFace +
+    warpTranslate, frameProcessor.ts:244-342,369-386; the reference's
+    ``_face_translation_subpath``) on the natural frames ``[S, H, W, 3]``
+    u8, every stream whose cadence fires (no compaction): the detector on
+    a plain ``fd_size`` asymmetric resize (no letterbox), the best box's
+    centre in mask coordinates (JS round and clamp), its delta against the
+    previous centre times ``translation_gain``, truncated to an integer
+    translation affine.  No landmarks, no prior.
+
+    Returns (affine_update [S, 6], has_update [S], det_score [S],
+    new_center [S, 2], new_has_center [S])."""
+    s = frames_u8.shape[0]
+    mh, mw = statics.mask_hw
+    fh, fw = statics.frame_hw
+    fire = ((state.frame_idx % statics.lmk_interval) == 0) & face_gate
+    fd_in = resize_frames_u8(frames_u8, (statics.fd_size, statics.fd_size), "asymmetric")
+    det = face_model(fd_in)
+    box, score, det_valid = best_box_decode(det["box_coords"], det["box_scores"], (fh, fw),
+                                            statics.fd_size, letterboxed=False)
+    det_ok = fire & det_valid & (score >= statics.face_score_thresh)
+    cx = torch.clamp(torch.floor((box[:, 0] + box[:, 2]) / 2 / fw * mw + 0.5), 0, mw - 1)
+    cy = torch.clamp(torch.floor((box[:, 1] + box[:, 3]) / 2 / fh * mh + 0.5), 0, mh - 1)
+    center = torch.stack([cx, cy], dim=-1)
+    has_prev = det_ok & state.has_center
+    delta = (center - state.face_center) * statics.translation_gain
+    one = torch.ones((s,), dtype=torch.float32, device=frames_u8.device)
+    zero = torch.zeros_like(one)
+    affine_update = torch.stack([one, zero, torch.trunc(delta[:, 0]), zero, one,
+                                 torch.trunc(delta[:, 1])], dim=-1)
+    new_center = torch.where(det_ok[:, None], center, state.face_center)
+    return (affine_update, has_prev, torch.where(fire, score, 0.0), new_center,
+            state.has_center | det_ok)
+
+
 def simplex_ema(ca: torch.Tensor, prev: torch.Tensor, knobs: PipelineKnobs,
                 initialized: torch.Tensor) -> torch.Tensor:
     """The motion-adaptive EMA of the class maps ``ca [S, h, w, K]`` against
@@ -317,7 +409,7 @@ def make_multiclass_step(model, statics: PipelineStatics):
         s = frames_p.shape[0]
         dev = frames_p.device
         ca = model(frames_p)["alpha"].to(torch.float32)  # [S, mh, mw, K]
-        blended = simplex_ema(ca, state.rec, knobs, state.initialized)
+        blended = simplex_ema(ca, state.rec[0], knobs, state.initialized)
         out_u8 = multiclass_composite_s2d(frames_p, blended, statics.class_effects,
                                           (fh, fw), blk, method=statics.upsample_method)
         # class 1 alone, as the reference keeps it
@@ -327,7 +419,7 @@ def make_multiclass_step(model, statics: PipelineStatics):
             prev_alpha=alpha,
             initialized=torch.ones_like(state.initialized),
             frame_idx=state.frame_idx + 1,
-            rec=blended,
+            rec=(blended,),
         )
         outputs = {
             "frame": out_u8,
@@ -341,27 +433,44 @@ def make_multiclass_step(model, statics: PipelineStatics):
     return step
 
 
+def refine_routing(statics: PipelineStatics) -> dict:
+    """The reference's build-time routing of the refine stages
+    (runtime/pipeline.py:472-481, 740-830): ``use_fused`` (the refine
+    kernels: ``use_fused_refine``, 'auto' served as on, and morphology
+    on), ``use_fused_tr`` (stages 3-9 in one kernel: the separable warp,
+    the EMA and the lerp blend besides), ``analytic_prior`` (the prior as
+    4 scalars, on that kernel only).  Otherwise the warp, the blend and
+    the temporal filter run eager, then ``fused_refine`` where
+    ``use_fused``, else the unfused stage chain."""
+    use_fused = statics.use_fused_refine in ("auto", True) and statics.morphology is True
+    use_fused_tr = (use_fused and statics.warp_impl == "separable"
+                    and statics.temporal_filter == "ema" and statics.warp_blend_mode == "lerp")
+    return {"use_fused": use_fused, "use_fused_tr": use_fused_tr,
+            "analytic_prior": use_fused_tr and statics.prior_impl != "plane"}
+
+
 def fast_routing(model, statics: PipelineStatics) -> dict:
     """The reference's build-time routing of the fast refine's inputs
     (runtime/pipeline.py:476-539): ``use_lowres_alpha``,
     ``use_guide_lanes``, ``lane_geom`` ((fy, fx) or None) and
-    ``host_lanes``, each under the reference's conditions, with what the
-    port fixes: the fused refine on (the port refuses
-    ``use_fused_refine=False``), a feed-forward matting model, no stem-aux
-    guide, no debug stages.  'auto' resolves as the reference resolves it
-    off a TPU (its ``_on_tpu`` is False there): off."""
+    ``host_lanes``, each under the reference's conditions (on the fused
+    temporal refine of :func:`refine_routing`, a feed-forward model), with
+    what the port fixes: no stem-aux guide, no debug stages.  'auto'
+    resolves as the reference resolves it off a TPU (its ``_on_tpu`` is
+    False there): off."""
     fh, fw = statics.frame_hw
     mh, mw = statics.mask_hw
     blk = statics.s2d_block
     s2d = statics.frame_layout == "s2d"
-    use_fused_tr = statics.num_classes == 1 and statics.warp_impl == "separable"
-    analytic_prior = use_fused_tr and statics.prior_impl != "plane"
-    planar_guide = (use_fused_tr and s2d and statics.matting_input == "native"
-                    and statics.guide_impl == "nearest_u8"
+    route = refine_routing(statics)
+    feedforward = statics.matting_arch == "feedforward"
+    analytic_prior = statics.num_classes == 1 and route["analytic_prior"]
+    planar_guide = (route["use_fused_tr"] and s2d and statics.matting_input == "native"
+                    and feedforward and statics.guide_impl == "nearest_u8"
                     and (not statics.face_path
                          or (statics.face_compact and statics.face_tracking != "translation")))
     use_lowres_alpha = bool(
-        analytic_prior and statics.matting_input == "native"
+        analytic_prior and feedforward and statics.matting_input == "native"
         and getattr(model, "supports_lowres_alpha", False)
         and getattr(model, "head_upsample", 1) > 1
         and statics.refine_alpha_src == "lowres")
@@ -374,23 +483,75 @@ def fast_routing(model, statics: PipelineStatics) -> dict:
             "host_lanes": use_guide_lanes and statics.guide_source == "host"}
 
 
+def warp_blend(state: StreamState, alpha_raw: torch.Tensor,
+               statics: PipelineStatics) -> torch.Tensor:
+    """Stage 3 off the fused kernel: the previous alpha warped by the
+    stream's affine (``warp_impl``: the separable or the 2-D nearest warp)
+    and blended with the model's alpha (``warp_blend_mode``: ``wb *
+    warped + (1 - wb) * alpha`` or ``max(alpha, warped * wb)``) where the
+    stream has an affine and is initialized; elsewhere the model's alpha."""
+    wb = statics.warp_blend_weight
+    warp = warp_affine_separable if statics.warp_impl == "separable" else warp_affine_nearest
+    warped = warp(state.prev_alpha, state.affine)
+    if statics.warp_blend_mode == "max":
+        blended = torch.maximum(alpha_raw, warped * wb)
+    else:
+        blended = warped * wb + alpha_raw * (1 - wb)
+    use_warp = (state.has_affine & state.initialized)[:, None, None]
+    return torch.where(use_warp, blended, alpha_raw)
+
+
+def temporal_filter(state: StreamState, base: torch.Tensor, knobs: PipelineKnobs,
+                    statics: PipelineStatics):
+    """Stage 4 off the fused kernel, by ``temporal_filter``: the
+    motion-adaptive EMA, the hole-filling EMA, or none (the base passed
+    through).  Returns (new_prev, alpha)."""
+    if statics.temporal_filter == "none":
+        return base, base
+    if statics.temporal_filter == "hole_fill":
+        return hole_filling_ema(state.prev_alpha, base, knobs.ema, state.initialized)
+    return temporal_ema(state.prev_alpha, base, knobs.ema, state.initialized,
+                        adapt=knobs.ema_adapt)
+
+
+def refine_chain(a: torch.Tensor, guide: torch.Tensor, prior: torch.Tensor,
+                 has_prior: torch.Tensor, knobs: PipelineKnobs,
+                 statics: PipelineStatics) -> torch.Tensor:
+    """Stages 5/7/8/9 unfused: opening and prior-gated closing (with
+    morphology), the joint bilateral under its per-stream toggle, the
+    threshold/gamma refine with the plane prior."""
+    if statics.morphology:
+        a = morphological_opening(a)
+        a = morphological_closing_in_prior(a, prior, has_prior)
+    a_bi = joint_bilateral3x3(a, guide, knobs.sigma_spatial, knobs.sigma_range)
+    a = torch.where(knobs.use_bilateral[:, None, None], a_bi, a)
+    return refine_alpha(a, knobs.noise_cutoff, knobs.high_threshold, knobs.gamma, prior,
+                        has_prior)
+
+
 def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
     """step(state, frames, backgrounds, knobs, face_gate) -> (new_state,
     outputs); with ``statics.num_classes > 1`` the step of
     :func:`make_multiclass_step`.
 
-    frames: natural ``[S, H, W, 3]`` u8 (the float MatteNet) or packed
+    frames: natural ``[S, H, W, 3]`` u8 (the float models) or packed
     ``[S, H/b, W/b, b*b*3]`` u8 (the int8 MatteNetHD), by
     ``statics.frame_layout``; backgrounds in the same layout, ``[S, ...]``
     or one row to broadcast; face_gate ``[S]`` bool (the engine's
     min-interval gate).  ``outputs``: ``frame`` (u8, the frames' layout),
-    ``alpha`` (``[S, mh, mw]``, bf16 or f32 by ``refined_dtype``; f32 on
-    the exact-warp route), ``det_score``, ``face_applied``,
-    ``face_has_prior``, and with the prior as scalars (``prior_impl='auto'``
-    on the separable route) ``face_prior_params``, as the reference's step
-    exports them (its plane routes export ``face_has_prior`` only with
-    ``debug_face_outputs``; here it is a free view of the step's own
-    tensor).
+    ``alpha`` (``[S, mh, mw]``, bf16 or f32 by ``refined_dtype`` on the
+    fused temporal refine, f32 elsewhere), ``det_score``,
+    ``face_applied``, ``face_has_prior``, and with the prior as scalars
+    (the fused temporal refine, ``prior_impl='auto'``)
+    ``face_prior_params``, as the reference's step exports them (its plane
+    routes export ``face_has_prior`` only with ``debug_face_outputs``;
+    here it is a free view of the step's own tensor).
+
+    ``model``: the MatteNet or SaliencyNet (``small -> {"alpha"}``), the
+    RecurrentMatteNet (``(small, rec) -> {"alpha", "state"}``, the state
+    threaded through ``StreamState.rec``) or the int8 MatteNetHD, by
+    ``statics.matting_arch`` and the layout.  The refine stages take the
+    route of :func:`refine_routing`.
 
     With the fast refine's ``host_lanes`` on (:func:`fast_routing`), frames
     is a ``(packed, lanes [nl, S, hp, wp] u8)`` tuple."""
@@ -403,9 +564,11 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     fh, fw = statics.frame_hw
     blk = statics.s2d_block
     natural = statics.frame_layout == "natural"
-    exact_warp = statics.warp_impl == "exact"
-    # the reference's routing (runtime/pipeline.py:476-487, 835-843)
-    prior_form = "plane" if exact_warp or statics.prior_impl == "plane" else "params"
+    recurrent = statics.matting_arch == "recurrent"
+    translation = statics.face_path and statics.face_tracking == "translation"
+    refine_route = refine_routing(statics)
+    use_fused, use_fused_tr = refine_route["use_fused"], refine_route["use_fused_tr"]
+    prior_form = "params" if refine_route["analytic_prior"] else "plane"
     bg_mode = statics.background
     fused_comp = (natural and statics.use_fused_composite is True and bg_mode != "blur"
                   and fh % ROW_BLOCK == 0)
@@ -447,15 +610,32 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             bg = backgrounds
         return natural_composite(nat, a, bg, bf16_pass=statics.upsample_precision == "fast")
 
+    def unfused(state, alpha_raw, guide, prior, has_prior, knobs):
+        """Stages 3-9 off the fused temporal refine (runtime/pipeline.py:
+        774-830): :func:`warp_blend` and :func:`temporal_filter`, then
+        ``fused_refine`` where ``use_fused``, else :func:`refine_chain`."""
+        base = warp_blend(state, alpha_raw, statics)
+        new_prev, a = temporal_filter(state, base, knobs, statics)
+        if use_fused:
+            return new_prev, fused_refine(a.contiguous(), guide, prior, has_prior, knobs)
+        return new_prev, refine_chain(a, guide, prior, has_prior, knobs, statics)
+
     def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
         lanes = None
         if host_lanes:
             frames, lanes = frames
         s = frames.shape[0]
         dev = frames.device
+        new_rec = state.rec
         if natural:
             small = resize_frames_u8(frames, (mh, mw), "asymmetric")
-            alpha_raw = model(small)["alpha"]
+            if recurrent:
+                # RVM-class stateful matting: the ConvGRU state in rec
+                out_m = model(small, state.rec)
+                new_rec = out_m["state"]
+            else:
+                out_m = model(small)
+            alpha_raw = out_m["alpha"]
             # u8-valued guide (the reference's canvas data): exact in u8
             guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
             guide = guide.permute(0, 3, 1, 2).contiguous()
@@ -471,27 +651,30 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                 guide = lanes
             guide = guide.contiguous()
         alpha_raw = alpha_raw.to(torch.float32).contiguous()
-        if statics.face_path:
+        new_center, new_has_center = state.face_center, state.has_center
+        zero_prior = (lambda: torch.zeros((s, 4) if prior_form == "params" else (s, mh, mw),
+                                          dtype=torch.float32, device=dev))
+        if translation:
+            (affine_update, has_update, det_score, new_center,
+             new_has_center) = face_translation_subpath(face_models.face, frames, state,
+                                                        statics, face_gate)
+            prior = zero_prior()
+            has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
+        elif statics.face_path:
             prior, has_prior, affine_update, has_update, det_score = face_subpath_compact(
                 face_models, frames if natural else guide, state.frame_idx, face_gate,
                 statics, prior_form, src_lanes_geom=lane_geom)
             prior = prior.contiguous()
         else:
-            prior = torch.zeros((s, 4) if prior_form == "params" else (s, mh, mw),
-                                dtype=torch.float32, device=dev)
+            prior = zero_prior()
             has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
             affine_update = torch.zeros((s, 6), dtype=torch.float32, device=dev)
             has_update = torch.zeros((s,), dtype=torch.bool, device=dev)
             det_score = torch.zeros((s,), dtype=torch.float32, device=dev)
 
         use_warp = state.has_affine & state.initialized
-        if exact_warp:
-            warped = warp_affine_nearest(state.prev_alpha, state.affine)
-            base = torch.where(use_warp[:, None, None], warped * wb + alpha_raw * (1 - wb),
-                               alpha_raw)
-            new_prev, a = temporal_ema(state.prev_alpha, base, knobs.ema, state.initialized,
-                                       adapt=knobs.ema_adapt)
-            a = fused_refine(a.contiguous(), guide, prior, has_prior, knobs)
+        if not use_fused_tr:
+            new_prev, a = unfused(state, alpha_raw, guide, prior, has_prior, knobs)
         elif lowres or lane_geom is not None:
             new_prev, a = fused_temporal_refine_fast(
                 alpha_raw, state.prev_alpha, state.affine, use_warp, state.initialized, wb,
@@ -504,10 +687,18 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                                  state.initialized, wb, guide, prior, has_prior, knobs,
                                  out_dtype=out_dtype)
         out_u8 = composite(frames, a, backgrounds)
-        new_affine, new_has_affine = affine_lowpass(
-            state.affine, affine_update, statics.warp_gain, state.has_affine,
-            has_update,
-        )
+        if statics.face_tracking == "translation":
+            # a per-frame displacement, applied once, then identity
+            # (frameProcessor.ts:375-384)
+            ident = device_const(("identity_affine",), dev,
+                                 lambda: np.asarray(IDENTITY_AFFINE, np.float32))
+            new_affine = torch.where(has_update[:, None], affine_update, ident)
+            new_has_affine = has_update
+        else:
+            new_affine, new_has_affine = affine_lowpass(
+                state.affine, affine_update, statics.warp_gain, state.has_affine,
+                has_update,
+            )
         new_state = dataclasses.replace(
             state,
             prev_alpha=new_prev,
@@ -515,6 +706,9 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             has_affine=new_has_affine,
             initialized=torch.ones_like(state.initialized),
             frame_idx=state.frame_idx + 1,
+            rec=new_rec,
+            face_center=new_center,
+            has_center=new_has_center,
         )
         outputs = {
             "frame": out_u8,
@@ -531,20 +725,23 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
 
 
 def rows_of(tree, rows: slice):
-    """A StreamState or PipelineKnobs of the rows ``rows`` of ``tree``, as
-    views into its tensors."""
+    """A StreamState (``rec``'s tensors included) or PipelineKnobs of the
+    rows ``rows`` of ``tree``, as views into its tensors."""
+    if isinstance(tree, StreamState):
+        return map_state(lambda t: t[rows], tree)
     return type(tree)(**{f.name: getattr(tree, f.name)[rows]
                          for f in dataclasses.fields(tree)})
 
 
 def write_rows(group: StreamState, new: StreamState) -> None:
     """Copy a group step's new state into the group's views of the full
-    state, in place (fields the step passed through unchanged are the
+    state, in place (tensors the step passed through unchanged are the
     views themselves)."""
-    for f in dataclasses.fields(group):
-        dst, src = getattr(group, f.name), getattr(new, f.name)
+    def copy(dst, src):
         if src is not dst:
             dst.copy_(src)
+
+    map_state(copy, group, new)
 
 
 def make_range_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):

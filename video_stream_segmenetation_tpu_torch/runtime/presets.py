@@ -1,14 +1,18 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
 ``active`` (the reference's default pipeline, ``PipelineStatics()``: the
-float MatteNet over resized natural-layout frames), ``fast_int8``,
-``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_micro``,
-``multiclass_fast_pico`` and ``multiclass_fast`` are ported, as the
-reference defines them; ``preset(name, **overrides)`` takes overrides the
-way the reference's does (``face_path=False``, ``frame_hw``,
-``mask_hw``, ``warp_impl='exact'``, ...).  The reference's natural-layout
-``multiclass`` preset is listed so that it is refused (runtime/
-pipeline.py::check_statics: the K-class float MatteNet is not ported).
+float MatteNet over resized natural-layout frames), its alternative
+pipelines ``blaze_tracking``, ``branch``, ``rvm`` and ``u2`` (the
+reference application's other frame processors), ``fast_int8``,
+``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_nano``,
+``fast_int8_femto``, ``fast_int8_micro``, ``multiclass_fast_pico`` and
+``multiclass_fast`` are ported, as the reference defines them;
+``preset(name, **overrides)`` takes overrides the way the reference's does
+(``face_path=False``, ``frame_hw``, ``mask_hw``, ``warp_impl='exact'``,
+...).  The reference's ``fast``,
+``fast_int8_pico_refface`` and natural-layout ``multiclass`` presets are
+listed so that they are refused (runtime/pipeline.py::check_statics names
+the ROADMAP item that ports each).
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ _PRESETS = {
     # runtime/presets.py:19): landmark affine warp, morphology, elliptical
     # prior, bilateral, live knobs; checkpoint mattenet
     "active": dict(),
+    # the float MatteNetHD (plan A, stem stride 5) over natural frames
+    # (:26-32): refused by the port (ROADMAP Queue 1 item 4, fast)
+    "fast": dict(matting_input="native", guide_impl="nearest_u8", warp_impl="separable",
+                 face_compact=True, ema_adapt_default=1.0),
     # plan-B trunk (the reference's runtime/presets.py:38-50, its "bench.py
     # headline configuration"): a residual b1 block at the stem grid, 2/4
     # dilation context, 3x3 decoder convs over the concat; face models at
@@ -63,10 +71,39 @@ _PRESETS = {
     # decoder; the face models at the reference geometry 256/192 and an
     # f32 refined alpha (the preset sets no refined_dtype)
     "fast_int8_micro": dict(_FAST_INT8, matting_decoder="micro"),
+    # plan-E nano trunk (:88-102): plan D with single 3x3 convs instead of
+    # residual blocks, deep widths 192/256; checkpoint mattenet_hd10_nano
+    "fast_int8_nano": dict(_FAST_INT8, matting_decoder="nano"),
     # plan-F pico trunk (:119-136): bf16 refined alpha, face models
     # retrained at 128/128
     "fast_int8_pico": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
                            fd_size=128, lmk_size=128),
+    # pico with the reference's MediaPipe face graphs at 256/192 (:144-161):
+    # refused by the port (ROADMAP Queue 1 item 6)
+    "fast_int8_pico_refface": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
+                                   fd_size=256, lmk_size=192, face_models="reference"),
+    # plan-G femto trunk (:165-180): every trunk level at 128 channels;
+    # checkpoint mattenet_hd10_femto
+    "fast_int8_femto": dict(_FAST_INT8, matting_decoder="femto"),
+    # (:182-193) frameProcessor.ts: BlazeFace centre tracking, translation
+    # warp (gain 0.9, 50/50 blend), no morphology or prior; the detector on
+    # a plain 128 resize every frame; the explicitAlphaBlend colour
+    "blaze_tracking": dict(face_tracking="translation", translation_gain=0.9,
+                           warp_blend_weight=0.5, lmk_interval=1, morphology=False,
+                           fd_size=128, background="color",
+                           bg_color=(20 / 255, 25 / 255, 30 / 255)),
+    # (:195-201) frameProcessor_branch.ts: warp + hole-filling EMA +
+    # bilateral + refine, no FD/LMK/morphology inside (the affine supplied
+    # from outside); the blend max(cur, warped * 0.75)
+    "branch": dict(face_path=False, morphology=False, temporal_filter="hole_fill",
+                   warp_blend_mode="max", warp_blend_weight=0.75),
+    # (:203-208) frameProcessorRVM.ts: recurrent matting + EMA + composite
+    # only; checkpoint rvm
+    "rvm": dict(matting_arch="recurrent", face_path=False, morphology=False),
+    # (:210-217) u2FrameProc.ts: 320x320 saliency, no temporal stage, a
+    # constant colour; checkpoint u2net
+    "u2": dict(matting_arch="saliency", mask_hw=(320, 320), face_path=False,
+               morphology=False, temporal_filter="none", background="color"),
     # natural layout, float MatteNet (:219-229): refused by the port
     "multiclass": dict(_MULTICLASS),
     # plan-E nano trunk (192/256) with K=4 class heads, the class maps

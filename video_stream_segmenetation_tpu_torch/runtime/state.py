@@ -17,9 +17,14 @@ class StreamState:
     has_affine: torch.Tensor  # [S] bool
     initialized: torch.Tensor  # [S] bool
     frame_idx: torch.Tensor  # [S] int32
-    # multi-class mode: the smoothed class maps [S, h, w, K] f32 (an empty
-    # [S, 0] tensor with one class; the single-class step never reads it)
-    rec: torch.Tensor | None = None
+    # the model's per-stream state, a tuple of [S, ...] f32 tensors: the
+    # RecurrentMatteNet's ConvGRU state (r1, r2, r3, r4; models/rvm.py), the
+    # multi-class smoothed class maps ([S, h, w, K],), or () when unused
+    rec: tuple = ()
+    # translation tracking (prevFaceCenter, frameProcessor.ts:46): the
+    # mask-space face centre [S, 2] f32 and its validity [S] bool
+    face_center: torch.Tensor | None = None
+    has_center: torch.Tensor | None = None
 
     @property
     def num_streams(self) -> int:
@@ -27,10 +32,10 @@ class StreamState:
 
 
 def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu",
-               num_classes: int = 1) -> StreamState:
+               rec: tuple = ()) -> StreamState:
+    """Cold state; ``rec`` the model's zero state (moved to ``device``)."""
     h, w = mask_hw
     s = num_streams
-    rec_shape = (s, h, w, num_classes) if num_classes > 1 else (s, 0)
     return StreamState(
         prev_alpha=torch.zeros((s, h, w), dtype=torch.float32, device=device),
         affine=torch.tensor(IDENTITY_AFFINE, dtype=torch.float32, device=device)
@@ -38,12 +43,41 @@ def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu",
         has_affine=torch.zeros((s,), dtype=torch.bool, device=device),
         initialized=torch.zeros((s,), dtype=torch.bool, device=device),
         frame_idx=torch.zeros((s,), dtype=torch.int32, device=device),
-        rec=torch.zeros(rec_shape, dtype=torch.float32, device=device),
+        rec=tuple(t.to(device) for t in rec),
+        face_center=torch.zeros((s, 2), dtype=torch.float32, device=device),
+        has_center=torch.zeros((s,), dtype=torch.bool, device=device),
     )
 
 
+def map_state(fn, state: StreamState, *others: StreamState) -> StreamState:
+    """A StreamState of ``fn(t, *the others' t)`` over every tensor of
+    ``state`` (the tuple ``rec`` element by element)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        ov = [getattr(o, f.name) for o in others]
+        if isinstance(v, tuple):
+            out[f.name] = tuple(fn(t, *(o[i] for o in ov)) for i, t in enumerate(v))
+        elif v is None:
+            out[f.name] = None
+        else:
+            out[f.name] = fn(v, *ov)
+    return StreamState(**out)
+
+
+def state_tensors(state: StreamState) -> list[torch.Tensor]:
+    """Every tensor of ``state``, ``rec``'s included, in field order."""
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out.extend(v if isinstance(v, tuple) else () if v is None else (v,))
+    return out
+
+
 def reset_streams(state: StreamState, mask: torch.Tensor) -> None:
-    """Cold-start, in place, the streams where ``mask`` [S] is True."""
+    """Cold-start, in place, the streams where ``mask`` [S] is True;
+    recurrent state and class maps zero-fill (the documented RVM cold
+    start, frameProcessorRVM.ts:48-53)."""
     state.prev_alpha[mask] = 0.0
     state.affine[mask] = torch.tensor(
         IDENTITY_AFFINE, dtype=torch.float32, device=state.affine.device
@@ -51,8 +85,11 @@ def reset_streams(state: StreamState, mask: torch.Tensor) -> None:
     state.has_affine[mask] = False
     state.initialized[mask] = False
     state.frame_idx[mask] = 0
-    if state.rec is not None:
-        state.rec[mask] = 0.0
+    if state.face_center is not None:
+        state.face_center[mask] = 0.0
+        state.has_center[mask] = False
+    for t in state.rec:
+        t[mask] = 0.0
 
 
 def reset_stream(state: StreamState, s: int) -> None:

@@ -44,9 +44,10 @@ a failure:
 * the range and round steps write the groups' rows back in place as they
   go, so a failure can leave the state partly written: the state is then
   restored from the last recovery snapshot (:meth:`_recover_state`): the
-  cheap per-stream fields (``affine``, ``has_affine``, ``frame_idx``) over
-  a cold EMA, or the full state with ``state_snapshot_every``.  A snapshot
-  is taken at dispatch time every ``snapshot_every`` dispatches as a
+  cheap per-stream fields (``affine``, ``has_affine``, ``frame_idx``,
+  ``face_center``, ``has_center``) over a cold EMA and a zeroed model
+  state, or the full state with ``state_snapshot_every``.  A snapshot is
+  taken at dispatch time every ``snapshot_every`` dispatches as a
   device copy with a non-blocking copy into pinned host memory, so the
   rotation makes no host synchronisation for it; the copy is read only
   when a recovery needs it.
@@ -90,6 +91,12 @@ from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
     quantize_mattenet_hd,
 )
+from video_stream_segmenetation_tpu_torch.models.rvm import (
+    RecurrentMatteNet,
+    init_rvm_params,
+)
+from video_stream_segmenetation_tpu_torch.models.rvm import init_state as rvm_init_state
+from video_stream_segmenetation_tpu_torch.models.u2net import SaliencyNet, init_u2net_params
 from video_stream_segmenetation_tpu_torch.ops.color import denormalize_to_u8
 from video_stream_segmenetation_tpu_torch.ops.layout import (
     depth_to_space,
@@ -116,8 +123,10 @@ from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.runtime.state import (
     StreamState,
     init_state,
+    map_state,
     reset_stream,
     reset_streams,
+    state_tensors,
 )
 from video_stream_segmenetation_tpu_torch.service.counters import Counters
 from video_stream_segmenetation_tpu_torch.service.health import HealthMonitor
@@ -136,16 +145,13 @@ def _cat_rows(parts: list):
     """Concatenate on the stream axis a list of StreamStates, or of output
     dicts, of consecutive row chunks."""
     if isinstance(parts[0], StreamState):
-        return StreamState(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
-                              for f in dataclasses.fields(StreamState)})
+        return map_state(lambda *ts: torch.cat(ts), *parts)
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 class Engine:
-    # the recovery snapshot's cheap per-stream fields (the reference's
-    # face_center and has_center belong to its translation tracking, which
-    # the port does not serve)
-    _CHEAP_FIELDS = ("affine", "has_affine", "frame_idx")
+    # the recovery snapshot's cheap per-stream fields
+    _CHEAP_FIELDS = ("affine", "has_affine", "frame_idx", "face_center", "has_center")
 
     def __init__(self, num_streams: int, statics: PipelineStatics | None = None,
                  params: dict | None = None, seed: int = 0, device="cuda",
@@ -153,14 +159,16 @@ class Engine:
                  collect_sync: bool = True):
         """``statics``: None serves ``PipelineStatics()``, the reference's
         default (``active``).  ``params``: for the natural layout the float
-        MatteNet tree (flax-shaped ``{"params", "batch_stats"}``, e.g.
-        bridge.py::trained_weights), for the s2d layout the int8 serving
+        tree of ``statics.matting_arch``'s model (flax-shaped ``{"params",
+        "batch_stats"}``, e.g. bridge.py::trained_weights: MatteNet,
+        RecurrentMatteNet or SaliencyNet), for the s2d layout the int8 serving
         dict of ``statics.matting_decoder``'s plan with
         ``statics.num_classes`` head classes (models/quantized.py
         ``quantize_mattenet_hd`` or bridge.py); None makes a float tree
-        from ``seed`` (models/modnet.py, models/mattenet_hd.py; s2d: then
-        quantized).  ``face_params``: ``{"face": FaceFinder tree, "lmk":
-        LandmarkNet tree}`` (flax-shaped float trees, e.g.
+        from ``seed`` (models/modnet.py, rvm.py, u2net.py,
+        models/mattenet_hd.py; s2d: then quantized).  ``face_params``:
+        ``{"face": FaceFinder tree, "lmk": LandmarkNet tree}`` (flax-shaped
+        float trees, e.g.
         bridge.py::trained_weights); None makes both from ``seed``.
         :meth:`load_matting_params` and :meth:`load_face_params` replace
         them from ``.npz`` exports.
@@ -189,7 +197,7 @@ class Engine:
             blk = st.s2d_block
             bg_shape = (num_streams, fh // blk, fw // blk, blk * blk * 3)
         else:
-            if mh % 16 or mw % 16:
+            if st.matting_arch == "feedforward" and (mh % 16 or mw % 16):
                 raise ValueError(f"mask_hw {st.mask_hw}: MatteNet needs multiples of 16")
             bg_shape = (num_streams, fh, fw, 3)
         self.model = self._matting_model(params)
@@ -197,7 +205,7 @@ class Engine:
         self.face_models = self._build_face_models()
         self._build_steps()
         self.state = init_state(num_streams, (mh, mw), device=self.device,
-                                num_classes=st.num_classes)
+                                rec=self._zero_rec())
         self.knobs = default_knobs(num_streams, ema_adapt=st.ema_adapt_default,
                                    device=self.device)
         # backgrounds are kept u8 in the frames' layout (s2d: packed, ready
@@ -230,9 +238,32 @@ class Engine:
         self._staged_knobs: dict[int, dict] = {}
 
     # ---- models ---------------------------------------------------------
+    def _zero_rec(self) -> tuple:
+        """The model's cold per-stream state (the reference's
+        service/engine.py:145-156): the RecurrentMatteNet's r1..r4, the
+        multi-class smoothed class maps, or nothing."""
+        st = self.statics
+        if st.matting_arch == "recurrent":
+            return rvm_init_state(self.num_streams, st.mask_hw, device=self.device)
+        if st.num_classes > 1:
+            return (torch.zeros((self.num_streams, *st.mask_hw, st.num_classes),
+                                dtype=torch.float32, device=self.device),)
+        return ()
+
     def _matting_model(self, params) -> torch.nn.Module:
+        """The matting model by ``statics.matting_arch`` (the reference's
+        service/engine.py:347-391): the int8 MatteNetHD for the s2d
+        layout, else the RecurrentMatteNet, the SaliencyNet or the float
+        MatteNet, each from ``params`` or a tree drawn from the seed."""
+        arch = self.statics.matting_arch
         if self.packed:
             model = self._int8_model(params)
+        elif arch == "recurrent":
+            model = RecurrentMatteNet(init_rvm_params(self.seed) if params is None else params,
+                                      device=self.device)
+        elif arch == "saliency":
+            model = SaliencyNet(init_u2net_params(self.seed) if params is None else params,
+                                device=self.device)
         else:
             model = MatteNet(init_mattenet_params(self.seed) if params is None else params,
                              device=self.device)
@@ -294,8 +325,9 @@ class Engine:
     def load_matting_params(self, path) -> None:
         """Serve the matting weights of an ``.npz`` export
         (bridge.py::save_export; the committed ones are under ``weights/``):
-        the int8 serving dict for the s2d presets, the float MatteNet tree
-        for the natural layout, as the constructor's ``params``."""
+        the int8 serving dict for the s2d presets, the float tree of the
+        natural layout's model (``mattenet.npz``, ``rvm.npz``,
+        ``u2net.npz``), as the constructor's ``params``."""
         self.model = self._matting_model(load_export(path))
         self._build_steps()
 
@@ -845,8 +877,7 @@ class Engine:
             self._snap = self._snap_pending
         if self.state_snapshot_every and n % self.state_snapshot_every == 0:
             kind = "full"
-            tree = {f.name: getattr(self.state, f.name).clone()
-                    for f in dataclasses.fields(self.state)}
+            tree = {str(i): t.clone() for i, t in enumerate(state_tensors(self.state))}
         else:
             kind = "cheap_packed"
             tree = {"packed": self._cheap_pack()}
@@ -870,7 +901,7 @@ class Engine:
         st = self.state
         if self._cheap_spec is None:
             self._cheap_spec = [(k, tuple(getattr(st, k).shape[1:]), getattr(st, k).dtype)
-                                for k in self._CHEAP_FIELDS]
+                                for k in self._CHEAP_FIELDS if getattr(st, k) is not None]
         return torch.cat([getattr(st, k).reshape(self.num_streams, -1).to(torch.float32)
                           for k, _, _ in self._cheap_spec], dim=1)
 
@@ -890,7 +921,8 @@ class Engine:
         full snapshot is restored as it was; a cheap one gives its fields
         over a cold EMA (every stream's ``prev_alpha`` and class maps
         zero, ``initialized`` False), so face tracking and cadence phase
-        survive and only the EMA re-warms."""
+        survive and only the EMA re-warms (the model's state ``rec``
+        zeroed, as the reference's)."""
         snap = None
         for cand in (self._snap_pending, self._snap):
             if cand is None:
@@ -905,11 +937,11 @@ class Engine:
                 continue  # an unreadable copy: try the older snapshot
         self._snap_pending = None
         if snap is not None and snap["kind"] == "full":
-            self.state = StreamState(**{k: t.to(self.device) for k, t in snap["tree"].items()})
+            tensors = iter(snap["tree"][str(i)] for i in range(len(snap["tree"])))
+            self.state = map_state(lambda _: next(tensors).to(self.device), self.state)
             return
-        st = self.statics
-        fresh = init_state(self.num_streams, st.mask_hw, device=self.device,
-                           num_classes=st.num_classes)
+        fresh = init_state(self.num_streams, self.statics.mask_hw, device=self.device,
+                           rec=self._zero_rec())
         if snap is not None:
             fields = self._cheap_unpack(snap["tree"]["packed"])
             fresh = dataclasses.replace(fresh, **{k: v.to(self.device)
