@@ -205,10 +205,13 @@ def test_mattenet_matches(trees, which):
 
 
 def test_mattenet_refuses_k_classes(trees):
+    """A tree whose alpha head has K = 4 classes while its semantic and
+    detail heads have one is refused (K-class trees, whose three heads
+    agree, are served: tests/test_torch_multiclass_natural.py)."""
     tree = jax.tree_util.tree_map(lambda a: a, trees["seeded"])
     tree["params"]["Conv_2"] = {"kernel": np.zeros((1, 1, 16, 4), np.float32),
                                 "bias": np.zeros(4, np.float32)}
-    with pytest.raises(ValueError, match="one class"):
+    with pytest.raises(ValueError, match="must agree"):
         MatteNet(tree)
 
 
@@ -566,14 +569,17 @@ def test_engine_defaults_to_the_reference_statics():
 
 
 @pytest.mark.parametrize("override", [
-    {"refined_dtype": "bf16"}, {"upsample_impl": "gather"}, {"affine_mode": "reference"},
-    {"face_compact": False}, {"resize_impl": "mxu"}, {"crop_impl": "mxu"},
+    {"refined_dtype": "f16"}, {"upsample_impl": "conv"}, {"affine_mode": "reference"},
+    {"face_compact": False}, {"resize_impl": "bicubic"}, {"crop_impl": "mxu"},
     {"face_input": "guide"}, {"upsample_method": "asymmetric"},
-    {"upsample_precision": "highest"}, {"guide_impl": "nearest_u8"}])
+    {"upsample_precision": "highest"}, {"guide_impl": "bicubic"}])
 def test_active_refuses_unserved_options(override):
     """What active's step still does not serve is refused by name (the
     blend, temporal-filter, morphology and unfused-refine options are
-    served since the stage chain was ported: tests/test_torch_variants.py)."""
+    served since the stage chain was ported: tests/test_torch_variants.py;
+    refined_dtype='bf16', upsample_impl='gather', resize_impl='mxu' and
+    guide_impl='nearest_u8' since they were: tests/test_torch_active_
+    options.py; a value the reference does not have stays refused)."""
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         Engine(1, preset("active", **override, **GEOM), device="cpu")
 

@@ -387,14 +387,18 @@ def test_trained_engine_free_running_iou(trained_engines, record_property):
 
 
 def test_check_statics_refuses_unserved_multiclass():
-    """The natural-layout multiclass preset (float MatteNet), the face path
-    with K > 1, a micro trunk with K > 1 and an unknown effect are refused,
-    each by name."""
-    with pytest.raises(NotImplementedError, match="frame_layout"):
-        Engine(1, preset("multiclass", frame_hw=(FH, FW), mask_hw=(32, 64)), device="cpu")
-    with pytest.raises(NotImplementedError, match="face_path"):
-        Engine(1, preset("multiclass_fast", face_path=True, frame_hw=(FH, FW),
+    """The natural-layout multiclass preset (the K=4 float MatteNet) builds
+    and steps; face_path=True with K > 1 is served and ignored, as the
+    reference's multi-class step never reads it; a micro trunk with K > 1
+    and an unknown effect are refused, each by name."""
+    frames = np.zeros((1, FH, FW, 3), np.uint8)
+    out = Engine(1, preset("multiclass", frame_hw=(FH, FW), mask_hw=(32, 64)),
+                 device="cpu").process(frames)
+    assert tuple(out["class_alpha"].shape) == (1, 32, 64, 4) and not out["passthrough"]
+    e = Engine(1, preset("multiclass_fast", face_path=True, frame_hw=(FH, FW),
                          mask_hw=(32, 64)), device="cpu")
+    out = e.process(frames)
+    assert not out["face_applied"].any() and not out["passthrough"]
     with pytest.raises(NotImplementedError, match="matting_decoder"):
         Engine(1, preset("multiclass_fast", matting_decoder="micro", frame_hw=(FH, FW),
                          mask_hw=(32, 64)), device="cpu")

@@ -211,8 +211,8 @@ def test_trunk_export_round_trips_and_matches_the_reference(rng, plan):
 
 def test_registry_builds_both_models():
     """recurrent_mattenet (stateful) and saliencynet are real entries at the
-    reference's geometries; mattenet_hd and mattenet_multiclass still
-    raise, naming their ROADMAP items."""
+    reference's geometries; so are mattenet_hd (plan A: u8 frames, alpha at
+    2x the stride-5 stem grid) and mattenet_multiclass (K=4 maps)."""
     rvm = get_spec("recurrent_mattenet")
     assert rvm.stateful and rvm.input_hw == (288, 512)
     model, tree = rvm.init_params(0, device="cpu")
@@ -222,6 +222,13 @@ def test_registry_builds_both_models():
     assert not u2.stateful and u2.input_hw == (320, 320)
     model, _ = u2.init_params(0, device="cpu")
     assert model(torch.zeros((1, 40, 40, 3)))["alpha"].shape == (1, 40, 40)
-    for name, item in (("mattenet_hd", "item 4"), ("mattenet_multiclass", "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_spec(name).init_params(0, device="cpu")
+    hd = get_spec("mattenet_hd")
+    assert not hd.stateful and hd.input_hw == (720, 1280)
+    model, _ = hd.init_params(0, device="cpu")
+    assert model(torch.zeros((1, 40, 80, 3), dtype=torch.uint8))["alpha"].shape == (1, 16, 32)
+    mc = get_spec("mattenet_multiclass")
+    assert not mc.stateful and mc.input_hw == (288, 512)
+    model, _ = mc.init_params(0, device="cpu")
+    alpha = model(torch.zeros((1, 32, 64, 3)))["alpha"]
+    assert alpha.shape == (1, 32, 64, 4)
+    torch.testing.assert_close(alpha.sum(-1), torch.ones((1, 32, 64)))

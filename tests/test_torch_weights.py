@@ -35,10 +35,11 @@ TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1)
           ("mattenet_hd10_mc_pico", "pico", 4), ("mattenet_hd10_mc", "nano", 4),
           ("mattenet_hd10", "full", 1), ("mattenet_hd10_lite", "light", 1),
           ("mattenet_hd10_nano", "nano", 1), ("mattenet_hd10_femto", "femto", 1))
-# float trees: the natural layout's MatteNet, RecurrentMatteNet and
-# SaliencyNet, and the face models
+# float trees: the natural layout's MatteNet, RecurrentMatteNet,
+# SaliencyNet, plan-A MatteNetHD (fast) and K=4 MatteNet (multiclass), and
+# the face models
 FLOAT = ("mattenet", "facefinder", "facefinder_128", "landmarknet", "landmarknet_128",
-         "rvm", "u2net")
+         "rvm", "u2net", "mattenet_hd", "mattenet_multiclass")
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
 FRAMES_CLIP = dict(n_frames=8, hw=(720, 1280), seed=2, features=True)

@@ -13,9 +13,9 @@ export``, which restores the checkpoints with the reference).
   the port's own quantizer.
 * :func:`load_quantized`: the reference's already-quantized dict
   (``quantize_mattenet_hd`` output) -> the same serving dict.
-* :func:`float_tree`: a reference flax float tree (MatteNet,
-  RecurrentMatteNet, SaliencyNet, FaceFinder, LandmarkNet) -> the numpy
-  tree the port's float models load.
+* :func:`float_tree`: a reference flax float tree (MatteNet, with one
+  class or K, RecurrentMatteNet, SaliencyNet, the plan-A MatteNetHD,
+  FaceFinder, LandmarkNet) -> the numpy tree the port's float models load.
 * :func:`load_export` / :func:`save_export`: one tree <-> one ``.npz``
   (``np.load(..., allow_pickle=False)``; numpy is all they need).
 * :func:`trained_weights`: the committed trained weights a preset serves,
@@ -75,8 +75,8 @@ def load_quantized(q: dict) -> dict:
 
 def float_tree(tree: dict) -> dict:
     """A reference flax float tree ``{"params", "batch_stats"}`` (MatteNet,
-    RecurrentMatteNet, SaliencyNet, FaceFinder, LandmarkNet) -> the same
-    tree with f32 numpy leaves."""
+    RecurrentMatteNet, SaliencyNet, the plan-A MatteNetHD, FaceFinder,
+    LandmarkNet) -> the same tree with f32 numpy leaves."""
     return {k: _numpy_tree(v) for k, v in tree.items() if k in ("params", "batch_stats")}
 
 
@@ -117,9 +117,12 @@ def load_export(path) -> dict:
 
 
 # the float models of the natural layout by matting_arch (the active,
-# blaze_tracking and branch presets; rvm; u2)
+# blaze_tracking and branch presets; rvm; u2), the plan-A MatteNetHD of its
+# native input (fast) and the K-class MatteNet (multiclass)
 MATTENET_EXPORT = "mattenet"
 FLOAT_EXPORTS = {"feedforward": MATTENET_EXPORT, "recurrent": "rvm", "saliency": "u2net"}
+NATIVE_EXPORT = "mattenet_hd"
+NATURAL_MULTICLASS_EXPORT = "mattenet_multiclass"
 # the int8 checkpoints by plan (the reference's names), one class and K=4
 EXPORTS = {"full": "mattenet_hd10", "light": "mattenet_hd10_lite",
            "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico",
@@ -129,15 +132,20 @@ MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc
 
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     """The committed trained weights of a preset: ``{"params": the float
-    tree of the natural layout's ``matting_input='resized'`` by
-    ``matting_arch`` (``FLOAT_EXPORTS``: MatteNet, RVM, U2Net), else the
-    int8 serving dict of
+    tree of the natural layout's model (K classes: the K-class MatteNet,
+    ``mattenet_multiclass``; ``matting_input='resized'``: by
+    ``matting_arch``, ``FLOAT_EXPORTS``: MatteNet, RVM, U2Net; 'native':
+    the plan-A MatteNetHD, ``mattenet_hd``), else the int8 serving dict of
     statics.matting_decoder (``EXPORTS[plan]`` for one class,
     ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face", "lmk"}}``
     (face models keyed by geometry as the reference's checkpoints are: no
     suffix at fd 256 / lmk 192, else '_<size>')."""
     d = Path(weights_dir)
-    if statics.matting_input == "resized":
+    if statics.frame_layout == "natural" and statics.num_classes > 1:
+        matting = NATURAL_MULTICLASS_EXPORT
+    elif statics.frame_layout == "natural" and statics.matting_input == "native":
+        matting = NATIVE_EXPORT
+    elif statics.matting_input == "resized":
         matting = FLOAT_EXPORTS[statics.matting_arch]
     else:
         plan = statics.matting_decoder

@@ -1,12 +1,14 @@
 """MatteNet, the float MODNet-class matting network of the ``active`` preset
-(port of ``models/modnet.py`` with one class at width 1.0, as the bf16
-serving forward of models/backbones.py's blocks).
+and, with K class heads, of the natural-layout ``multiclass`` preset (port
+of ``models/modnet.py`` at width 1.0, as the bf16 serving forward of
+models/backbones.py's blocks).
 
 A MobileNetV2-class encoder (/2, /4, /8, /16), the e-ASPP context at /16, a
 detail branch at /4 and three decoder blocks (nearest x2, crop to the
 skip, concat, two 3x3 ConvBNs) back to /2, then a nearest x2 to full
 resolution, the input concatenated, a 3x3 ConvBN and a 1x1 alpha head, f32
-sigmoid.  The reference's two auxiliary heads (the semantic and detail
+sigmoid (one class) or f32 softmax over the K class channels (class 0 the
+background).  The reference's two auxiliary heads (the semantic and detail
 logits, used in training) feed nothing the alpha needs, so the port
 computes only the alpha.
 """
@@ -38,9 +40,10 @@ def _se(c: int) -> dict:
     return {"Dense_0": ("dense", (c, r)), "Dense_1": ("dense", (r, c))}
 
 
-def mattenet_spec() -> dict:
-    """The flax MatteNet's names and kernel shapes (width 1.0, one class),
-    in the reference's module creation order."""
+def mattenet_spec(num_classes: int = 1) -> dict:
+    """The flax MatteNet's names and kernel shapes (width 1.0, K =
+    ``num_classes`` channels a head), in the reference's module creation
+    order."""
     enc = {"ConvBN_0": ("convbn", (3, 3, 3, 16))}
     cin = 16
     for i, (c, _, ex, se) in enumerate(ENCODER_BLOCKS):
@@ -70,21 +73,21 @@ def mattenet_spec() -> dict:
     return {
         "MobileEncoder_0": enc,
         "EASPP_0": easpp,
-        "Conv_0": ("conv", (1, 1, SEM_FEATURES, 1)),
+        "Conv_0": ("conv", (1, 1, SEM_FEATURES, num_classes)),
         "ConvBN_0": ("convbn", (3, 3, f4 + SEM_FEATURES, d0)),
         "ConvBN_1": ("convbn", (3, 3, d0, d1)),
-        "Conv_1": ("conv", (1, 1, d1, 1)),
+        "Conv_1": ("conv", (1, 1, d1, num_classes)),
         "_DecoderBlock_0": dec(SEM_FEATURES, f8, u8),
         "_DecoderBlock_1": dec(u8, f4 + d1, u4),
         "_DecoderBlock_2": dec(u4, f2, u2),
         "ConvBN_2": ("convbn", (3, 3, u2 + 3, FUSION)),
-        "Conv_2": ("conv", (1, 1, FUSION, 1)),
+        "Conv_2": ("conv", (1, 1, FUSION, num_classes)),
     }
 
 
-def init_mattenet_params(seed: int) -> dict:
+def init_mattenet_params(seed: int, num_classes: int = 1) -> dict:
     """Seeded float tree with the flax MatteNet's names and shapes."""
-    return seeded_tree(np.random.default_rng(seed), mattenet_spec())
+    return seeded_tree(np.random.default_rng(seed), mattenet_spec(num_classes))
 
 
 class _DecoderBlock(torch.nn.Module):
@@ -100,14 +103,17 @@ class _DecoderBlock(torch.nn.Module):
 
 class MatteNet(torch.nn.Module):
     """``[S, H, W, 3]`` f32 0..1 (H, W divisible by 16) -> ``{"alpha":
-    [S, H, W]}`` f32 in [0, 1]."""
+    [S, H, W]}`` f32 in [0, 1], or with K class heads ``[S, H, W, K]``
+    softmax maps.  K is the tree's: its three heads must agree on it."""
 
     def __init__(self, tree: dict, device="cpu"):
         super().__init__()
         p, st = tree["params"], tree["batch_stats"]
-        if p["Conv_2"]["kernel"].shape[-1] != 1:
-            raise ValueError("MatteNet: the port serves one class; the tree's alpha head "
-                             f"has {p['Conv_2']['kernel'].shape[-1]}")
+        heads = [p[n]["kernel"].shape[-1] for n in ("Conv_0", "Conv_1", "Conv_2")]
+        if len(set(heads)) != 1:
+            raise ValueError(f"MatteNet: the tree's semantic, detail and alpha heads have "
+                             f"{heads} classes; they must agree")
+        self.num_classes = heads[0]
         self.encoder = MobileEncoder(p["MobileEncoder_0"], st["MobileEncoder_0"], device)
         self.easpp = EASPP(p["EASPP_0"], st["EASPP_0"], device)
         self.detail = torch.nn.ModuleList(
@@ -130,5 +136,7 @@ class MatteNet(torch.nn.Module):
         u = self.decoder[1](u, torch.cat([f4, d], dim=1))
         u = self.decoder[2](u, f2)
         u = torch.cat([nearest_x2(u)[:, :, :h, :w], x], dim=1)
-        logit = self.head(self.fusion(u))
-        return {"alpha": torch.sigmoid(logit.to(torch.float32))[:, 0]}
+        logit = self.head(self.fusion(u)).to(torch.float32)
+        if self.num_classes == 1:
+            return {"alpha": torch.sigmoid(logit)[:, 0]}
+        return {"alpha": torch.softmax(logit, dim=1).permute(0, 2, 3, 1)}

@@ -7,11 +7,8 @@ reference's initialisers' shapes (flax names), so the same seed gives the
 same tree on every machine and nothing reads a global random state.  The
 plan-C entry serves through the port's int8 model
 (models/quantized.py::QuantizedMatteNetHD, the tree quantized by the port's
-quantizer): the port's float MatteNetHD covers only the plan-D decoders it
-trains, and ``mattenet_hd``'s stride-5 float net is not ported.  The
-entries whose models the port does not have yet stay listed, and
-building one raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+quantizer); ``mattenet_hd`` (plan A, stem stride 5) through the port's
+float MatteNetHD.
 """
 
 from __future__ import annotations
@@ -30,6 +27,7 @@ from video_stream_segmenetation_tpu_torch.models.facemesh import (
     LandmarkNet,
     init_landmark_net_params,
 )
+from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
 from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params as init_hd
 from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_mattenet_params
 from video_stream_segmenetation_tpu_torch.models.quantized import (
@@ -43,29 +41,21 @@ from video_stream_segmenetation_tpu_torch.models.u2net import SaliencyNet, init_
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """``make(tree, device, **kwargs)`` builds the module, ``init_tree(seed,
-    **kwargs)`` draws its tree; ``unported`` names the ROADMAP item of an
-    entry the port does not have yet."""
+    **kwargs)`` draws its tree."""
 
     name: str
-    make: Callable[..., torch.nn.Module] | None
-    init_tree: Callable[..., Any] | None
+    make: Callable[..., torch.nn.Module]
+    init_tree: Callable[..., Any]
     input_hw: tuple[int, int]
     kwargs: dict = dataclasses.field(default_factory=dict)
     stateful: bool = False
-    unported: str | None = None
-
-    def _check(self) -> None:
-        if self.unported:
-            raise NotImplementedError(f"model {self.name!r} is not ported yet ({self.unported})")
 
     def build(self, tree, device="cuda", **overrides) -> torch.nn.Module:
         """The module serving ``tree`` on ``device``."""
-        self._check()
         return self.make(tree, device, **{**self.kwargs, **overrides})
 
     def init_params(self, seed: int = 0, device="cuda", **overrides):
         """``(module, tree)`` for the tree drawn from ``seed``."""
-        self._check()
         kw = {**self.kwargs, **overrides}
         tree = self.init_tree(seed, **kw)
         return self.make(tree, device, **kw), tree
@@ -79,12 +69,12 @@ def _hd(tree, device, stem_stride, head_upsample, decoder):
     return QuantizedMatteNetHD(tree, stem_stride, head_upsample, device=device)
 
 
+def _float_hd(tree, device, stem_stride, head_upsample, decoder):
+    return MatteNetHD(stem_stride, head_upsample, decoder, params=tree, device=device)
+
+
 def _face(tree, device, input_size=256):
     return FaceFinder(tree, input_size, device=device)
-
-
-def _unported(name, hw, item, **kw):
-    return ModelSpec(name, None, None, hw, unported=f"ROADMAP Queue 1 item {item}", **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,17 +84,22 @@ def _registry() -> dict[str, ModelSpec]:
         "mattenet": ModelSpec("mattenet", lambda t, d: MatteNet(t, device=d),
                               lambda seed: init_mattenet_params(seed), (288, 512)),
         # the 720p-native net at the reference's MatteNetHD() defaults:
-        # stem stride 5, float (the int8 quantizer needs a stride >= 8)
-        "mattenet_hd": _unported("mattenet_hd", (720, 1280), "4 (fast)",
-                                 kwargs={"stem_stride": 5, "head_upsample": 2,
-                                         "decoder": "full"}),
+        # plan A, stem stride 5, float (the int8 quantizer needs a stride
+        # >= 8); the fast preset's model
+        "mattenet_hd": ModelSpec(
+            "mattenet_hd", _float_hd,
+            lambda seed, stem_stride, head_upsample, decoder: init_hd(decoder, seed,
+                                                                      stem_stride),
+            (720, 1280), {"stem_stride": 5, "head_upsample": 2, "decoder": "full"}),
         # plan C (decoder='light')
         "mattenet_hd10_lite": ModelSpec(
             "mattenet_hd10_lite", _hd, _hd_tree, (720, 1280),
             {"stem_stride": 10, "head_upsample": 4, "decoder": "light"}),
-        # the K=4 natural-layout MatteNet
-        "mattenet_multiclass": _unported("mattenet_multiclass", (288, 512), "5 (multiclass)",
-                                         kwargs={"num_classes": 4}),
+        # the K=4 natural-layout MatteNet (the multiclass preset's model)
+        "mattenet_multiclass": ModelSpec(
+            "mattenet_multiclass", lambda t, d, num_classes: MatteNet(t, device=d),
+            lambda seed, num_classes: init_mattenet_params(seed, num_classes), (288, 512),
+            {"num_classes": 4}),
         "facefinder": ModelSpec("facefinder", _face,
                                 lambda seed, **_: init_face_finder_params(seed), (256, 256)),
         "facefinder128": ModelSpec("facefinder128", _face,

@@ -1,12 +1,13 @@
 """Alpha compositing (port of ``ops/composite.py::upsample_alpha``,
-``alpha_composite`` and ``binarize_alpha``), and the natural layout's plain composite the
-reference's step runs (``runtime/pipeline.py:899-938``)."""
+``alpha_composite``, ``multiclass_composite`` and ``binarize_alpha``), and the
+natural layout's plain composite the reference's step runs
+(``runtime/pipeline.py:899-938``)."""
 
 from __future__ import annotations
 
 import torch
 
-from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur
+from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur, gaussian_blur_auto
 from video_stream_segmenetation_tpu_torch.ops.color import (  # noqa: F401
     denormalize_to_u8,
     quantize_alpha_u8,
@@ -56,21 +57,76 @@ def alpha_composite(frame: torch.Tensor, alpha: torch.Tensor,
 
 def natural_composite(frames_u8: torch.Tensor, alpha: torch.Tensor,
                       background: torch.Tensor, method: str = "half_pixel",
-                      bf16_pass: bool = True) -> torch.Tensor:
+                      bf16_pass: bool = True, impl: str = "mxu") -> torch.Tensor:
     """The reference step's plain composite: the mask-resolution ``alpha
-    [S, mh, mw]`` upsampled to the frame as planar interpolation products
+    [S, mh, mw]`` upsampled to the frame and clipped, then
+    :func:`alpha_composite` of ``frames_u8 / 255`` over the background: u8
+    (``[S or 1, H, W, 3]``, divided by 255) or float 0..1 broadcastable to
+    the frames (a colour ``[3]``, a blurred frame).  The upsample
+    (``upsample_impl``): ``'mxu'`` planar interpolation products
     (``upsample_precision='fast'``: one bf16 pass, as the TPU's DEFAULT
-    precision runs it; ``'exact'``: f32) and clipped, then
-    :func:`alpha_composite` of ``frames_u8 / 255`` over the background:
-    u8 (``[S or 1, H, W, 3]``, divided by 255) or float 0..1 broadcastable
-    to the frames (a colour ``[3]``, a blurred frame)."""
+    precision runs it; ``'exact'``: f32), a bf16 alpha (``refined_dtype=
+    'bf16'``) in the reference's bf16 dtype flow, its operands and both
+    products' results rounded to bf16; ``'gather'`` the two-tap gathers of
+    :func:`upsample_alpha` in the alpha's dtype."""
     fh, fw = frames_u8.shape[1:3]
-    up = torch.clamp(resize_bilinear_mxu(alpha.to(torch.float32), (fh, fw), method=method,
-                                          channel_last=False, bf16_pass=bf16_pass),
-                     0.0, 1.0)
+    if impl == "gather":
+        up = alpha
+    elif alpha.dtype == torch.bfloat16:
+        up = resize_bilinear_mxu(alpha.to(torch.float32), (fh, fw), method=method,
+                                 channel_last=False, bf16_pass=True).to(torch.bfloat16)
+        up = torch.clamp(up, 0.0, 1.0)
+    else:
+        up = torch.clamp(resize_bilinear_mxu(alpha.to(torch.float32), (fh, fw),
+                                             method=method, channel_last=False,
+                                             bf16_pass=bf16_pass), 0.0, 1.0)
     bg = (background.to(torch.float32) / 255.0 if background.dtype == torch.uint8
           else background.to(torch.float32))
-    return alpha_composite(frames_u8.to(torch.float32) / 255.0, up, background=bg, out_u8=True)
+    return alpha_composite(frames_u8.to(torch.float32) / 255.0, up, background=bg,
+                           upsample_method=method, out_u8=True)
+
+
+def multiclass_composite(frame: torch.Tensor, class_alpha: torch.Tensor, effects,
+                         upsample_method: str = "half_pixel",
+                         out_u8: bool = False) -> torch.Tensor:
+    """Per-class composite effects (port of ``multiclass_composite``; the
+    natural layout's ``multiclass`` preset): frame ``[..., H, W, 3]`` f32
+    0..1, class_alpha ``[..., h, w, K]`` softmax maps (class 0 the
+    background), one effect a class: ``{"keep": True}``, ``{"color":
+    rgb}``, ``{"blur": sigma}`` (:func:`gaussian_blur_auto` of the frame),
+    ``{"tint": rgb, "strength": s}``.  Maps off the frame's grid are
+    upsampled one class at a time by the planar interpolation products in
+    f32 (the reference's ``precision=None``, HIGHEST), clipped and
+    renormalised.  Output ``sum_k effect_k(frame) * alpha_k``, u8 with
+    ``out_u8``."""
+    h, w = frame.shape[-3], frame.shape[-2]
+    k = class_alpha.shape[-1]
+    if len(effects) != k:
+        raise ValueError(f"need {k} effects, got {len(effects)}")
+    if tuple(class_alpha.shape[-3:-1]) != (h, w):
+        maps = [torch.clamp(resize_bilinear_mxu(class_alpha[..., i], (h, w),
+                                                method=upsample_method, channel_last=False),
+                            0.0, 1.0) for i in range(k)]
+        class_alpha = torch.stack(maps, dim=-1)
+        class_alpha = class_alpha / torch.clamp(class_alpha.sum(-1, keepdim=True), min=1e-6)
+    out = torch.zeros_like(frame)
+    for i, eff in enumerate(effects):
+        a = class_alpha[..., i: i + 1]
+        if eff.get("keep"):
+            layer = frame
+        elif "color" in eff:
+            layer = torch.tensor(eff["color"], dtype=frame.dtype, device=frame.device)
+        elif "blur" in eff:
+            layer = gaussian_blur_auto(frame, float(eff["blur"]))
+        elif "tint" in eff:
+            st = float(eff.get("strength", 0.5))
+            tint = torch.tensor(eff["tint"], dtype=frame.dtype, device=frame.device)
+            layer = frame * (1 - st) + tint * st
+        else:
+            raise ValueError(f"unknown effect {eff!r}: the effects are keep, color, blur "
+                             "and tint")
+        out = out + layer * a
+    return denormalize_to_u8(out) if out_u8 else out
 
 
 def binarize_alpha(alpha: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:

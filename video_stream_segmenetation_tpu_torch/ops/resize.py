@@ -1,7 +1,7 @@
-"""Bilinear resizes with explicit coordinate conventions (port of
-``ops/resize.py``): interpolation matrices, the gather and matrix forms of
-the separable resize, and the gather and matrix forms of the face path's
-ROI crop.
+"""Bilinear and nearest resizes with explicit coordinate conventions (port
+of ``ops/resize.py``): interpolation matrices, the gather and matrix forms
+of the separable resize, the nearest gathers, and the gather and matrix
+forms of the face path's ROI crop.
 
 ``half_pixel``: src = (dst + 0.5) * in/out - 0.5, taps clamped to the edge
 and weights clipped into [0, 1] (Canvas2D drawImage / patched ONNX Resize).
@@ -99,6 +99,21 @@ def resize_frames_u8(frames_u8: torch.Tensor, out_hw, method: str = "asymmetric"
     rows = _resize_axis_linear(frames_u8, h_axis, out_hw[0], method,
                                convert=lambda t: t.to(torch.float32) / 255.0)
     return _resize_axis_linear(rows, h_axis + 1, out_hw[1], method)
+
+
+def resize_nearest(img: torch.Tensor, out_hw, method: str = "asymmetric",
+                   channel_last: bool = True) -> torch.Tensor:
+    """Nearest-neighbour resize of ``[..., H, W, C]`` (or ``[..., H, W]``)
+    with the same coordinate conventions, round half up (port of
+    ``resize_nearest``): two gathers, any dtype (the ``fast`` preset's u8
+    guide), bit for bit."""
+    h_axis = img.ndim - (3 if channel_last else 2)
+    for axis, out_size in ((h_axis, out_hw[0]), (h_axis + 1, out_hw[1])):
+        in_size = img.shape[axis]
+        idx = device_const(("nearest", out_size, in_size, method), img.device,
+                           lambda n=out_size, m=in_size: _nearest_taps(n, m, method))
+        img = torch.index_select(img, axis, idx)
+    return img
 
 
 def resize_bilinear_mxu(img: torch.Tensor, out_hw, method: str = "asymmetric",

@@ -1,16 +1,17 @@
 """Where the serving step's time goes on the card.
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
-        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|nano|femto|
-                  blaze|branch|rvm|u2|train ...]
+        [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|fast|multiclass|
+                  nano|femto|blaze|branch|rvm|u2|train ...]
 
-For each configuration (default: all fourteen) it builds Engine(S, preset):
+For each configuration (default: all sixteen) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
 weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite``,
-``active``, ``nano``, ``femto``, ``blaze``, ``branch``, ``rvm`` and ``u2``
-are fast_int8_pico, fast_int8_micro, multiclass_fast_pico,
-multiclass_fast, fast_int8, fast_int8_lite, active, fast_int8_nano,
-fast_int8_femto, blaze_tracking, branch, rvm and u2 as their presets stand
+``active``, ``fast``, ``multiclass``, ``nano``, ``femto``, ``blaze``,
+``branch``, ``rvm`` and ``u2`` are fast_int8_pico, fast_int8_micro,
+multiclass_fast_pico, multiclass_fast, fast_int8, fast_int8_lite, active,
+fast, multiclass, fast_int8_nano, fast_int8_femto, blaze_tracking, branch,
+rvm and u2 as their presets stand
 with the committed trained weights and frames (branch with its even
 streams' affine primed, as chip_smoke.py's phase).  It warms the engine
 up, then
@@ -25,6 +26,9 @@ up, then
     blurred guide; for active: the f32 conversion and gather resize, the
     float MatteNet, the guide, the face subpath on the frames, the refine
     kernel, the plain composite, and the composite kernel beside it; for
+    fast: the plan-A MatteNetHD on the frames, the nearest u8 guide, then
+    as active; for multiclass: the per-channel resize, the K=4 MatteNet,
+    the simplex EMA, the per-class composite and its blur apart; for
     the natural layout's other pipelines: their model (MatteNet, the
     RecurrentMatteNet on the engine's state, the SaliencyNet), the
     translation subpath (blaze_tracking), and on the unfused chain the
@@ -56,6 +60,8 @@ CONFIGS = {
     "full": ("fast_int8", {}, True),
     "lite": ("fast_int8_lite", {}, True),
     "active": ("active", {}, True),
+    "fast": ("fast", {}, True),
+    "multiclass": ("multiclass", {}, True),
     "nano": ("fast_int8_nano", {}, True),
     "femto": ("fast_int8_femto", {}, True),
     "blaze": ("blaze_tracking", {}, True),
@@ -159,7 +165,9 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     with pinned():  # as the engine's step runs
         stages["frames host->device"], ft = _event_ms(
             lambda: torch.as_tensor(frames, device=dev))
-        if st.frame_layout == "natural":
+        if st.frame_layout == "natural" and st.num_classes > 1:
+            _natural_multiclass_stages(eng, ft, stages)
+        elif st.frame_layout == "natural":
             _natural_stages(eng, ft, stages)
         else:
             trunk_kernels = _packed_stages(eng, ft, stages, out_dtype)
@@ -203,16 +211,20 @@ def _natural_stages(eng, ft, stages):
     refine kernel (and active's composite kernel beside the plain
     composite, which use_fused_composite=True would run instead) or, on
     the unfused chain, its stages apart, and the plain composite."""
-    from video_stream_segmenetation_tpu_torch.kernels.composite_fused import fused_composite
-    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
-    from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
-    from video_stream_segmenetation_tpu_torch.ops.resize import resize_frames_u8
-    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
+    from video_stream_segmenetation_tpu_torch.ops.resize import resize_frames_u8, resize_nearest
 
     st = eng.statics
     s = ft.shape[0]
     mh, mw = st.mask_hw
     dev = eng.device
+    if st.matting_input == "native":  # fast: plan A on the u8 frames, the nearest guide
+        stages[f"MatteNetHD plan A (bf16, {st.s2d_block}x{st.s2d_block} stem on the frames)"], \
+            out = _event_ms(lambda: eng.model(ft))
+        stages["guide: nearest u8 taps, planar"], guide = _event_ms(
+            lambda: resize_nearest(ft, (mh, mw), "half_pixel").permute(0, 3, 1, 2).contiguous())
+        _face_refine_composite(eng, ft, out["alpha"].to(torch.float32).contiguous(), guide,
+                               stages)
+        return
     stages["f32 + asymmetric gather resize to the mask"], small = _event_ms(
         lambda: resize_frames_u8(ft, (mh, mw), "asymmetric"))
     if st.matting_arch == "recurrent":
@@ -226,6 +238,20 @@ def _natural_stages(eng, ft, stages):
     stages["guide floor(small*255+0.5), planar u8"], guide = _event_ms(
         lambda: torch.floor(small * 255.0 + 0.5).to(torch.uint8).permute(0, 3, 1, 2)
         .contiguous())
+    _face_refine_composite(eng, ft, alpha, guide, stages)
+
+
+def _face_refine_composite(eng, ft, alpha, guide, stages):
+    """The natural single-class step after the model and the guide."""
+    from video_stream_segmenetation_tpu_torch.kernels.composite_fused import fused_composite
+    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
+    from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
+
+    st = eng.statics
+    s = ft.shape[0]
+    mh, mw = st.mask_hw
+    dev = eng.device
     gate = torch.ones((s,), dtype=torch.bool, device=dev)
     fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
     route = P.refine_routing(st)
@@ -255,6 +281,28 @@ def _natural_stages(eng, ft, stages):
     if st.background == "image":
         stages[f"{INSTEAD}composite kernel"], _ = _event_ms(
             lambda: fused_composite(ft, a, eng.backgrounds))
+
+
+def _natural_multiclass_stages(eng, ft, stages):
+    """The natural multi-class step after the frames' copy: f32 and the
+    per-channel resize, the K-class MatteNet, the simplex EMA and renorm,
+    the per-class composite at 720p, and its blurred frames apart."""
+    from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
+    from video_stream_segmenetation_tpu_torch.ops.composite import multiclass_composite
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
+
+    st = eng.statics
+    stages["f32 + per-channel f32 resize to the mask (products)"], small = _event_ms(
+        lambda: P.planar_resize_f32(ft.to(torch.float32) / 255.0, st.mask_hw))
+    stages[f"MatteNet, K={st.num_classes} (bf16)"], out = _event_ms(lambda: eng.model(small))
+    stages["simplex EMA + renorm"], blended = _event_ms(lambda: P.simplex_ema(
+        out["alpha"].to(torch.float32), eng.state.rec[0], eng.knobs, eng.state.initialized))
+    f32 = ft.to(torch.float32) / 255.0
+    sigma = float(next(e["blur"] for e in st.class_effects if "blur" in e))
+    stages[f"{INSIDE}blur of the f32 frames at sigma {sigma:g}"], _ = _event_ms(
+        lambda: gaussian_blur_auto(f32, sigma))
+    stages["per-class composite (f32 frames, upsample, effects, u8)"], _ = _event_ms(
+        lambda: multiclass_composite(f32, blended, st.class_effects, out_u8=True))
 
 
 def _chain_stages(eng, alpha, guide, prior, has_prior, stages):

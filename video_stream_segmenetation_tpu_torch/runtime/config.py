@@ -81,8 +81,10 @@ class PipelineStatics:
     the fields the port reads or refuses are here; the port serves that
     natural path with its variants (``blaze_tracking``, ``branch``,
     ``rvm``, ``u2``) and the reference's ``fast_int8_*`` and
-    ``multiclass_fast*`` s2d paths, and runtime/pipeline.py::check_statics
-    refuses every value none of them serves.
+    ``multiclass_fast*`` s2d paths, ``fast`` (the float MatteNetHD over
+    natural frames) and the natural ``multiclass``, and
+    runtime/pipeline.py::check_statics refuses every value none of them
+    serves.
     """
 
     frame_hw: tuple[int, int] = (720, 1280)
@@ -132,9 +134,9 @@ class PipelineStatics:
     # temporal refine) or 'exact' (the rotation-aware 2-D nearest warp,
     # then the EMA, then the fused refine of stages 5/7/8/9)
     warp_impl: str = "separable"
-    # the natural composite's alpha upsample: 'mxu' (planar interpolation
-    # products) only; its precision 'fast' (the reference's one bf16 pass)
-    # or 'exact' (f32)
+    # the plain composite's alpha upsample: 'mxu' (planar interpolation
+    # products) or 'gather' (two-tap gathers); the products' precision
+    # 'fast' (the reference's one bf16 pass) or 'exact' (f32)
     upsample_impl: str = "mxu"
     upsample_precision: str = "fast"
     # the refine kernels: 'auto' or True (the kernel on the card, its
@@ -148,19 +150,26 @@ class PipelineStatics:
     # the natural layout's fused composite kernel: True, or False / 'auto'
     # (the plain upsample and blend, as the reference's 'auto')
     use_fused_composite: Any = False
-    # the letterbox of the face path and the preprocess resize: 'gather'
-    # (two-tap gathers) or 'mxu' (interpolation products); the ROI crop
-    # likewise.  Natural frames take 'gather', s2d frames 'mxu'
+    # the letterbox of the face path and the natural layout's resize to the
+    # mask: 'gather' (two-tap gathers) or 'mxu' (interpolation products);
+    # the ROI crop likewise.  Natural frames take either, s2d frames 'mxu'
     resize_impl: str = "gather"
     crop_impl: str = "gather"
+    # the 'mxu' resize to the mask: 'fast' (one bf16 pass, the TPU's
+    # DEFAULT precision) or 'exact' (f32)
+    preprocess_precision: str = "fast"
     # matting input: 'resized' (frames resized to the mask, the float
-    # MatteNet) or 'native' (the int8 MatteNetHD on s2d-packed frames)
+    # MatteNet) or 'native' (the full-resolution frames: the int8
+    # MatteNetHD on s2d-packed frames, or the float plan-A MatteNetHD on
+    # natural frames, the fast preset; its strided stem does the resize)
     matting_input: str = "resized"
     # face source: 'frames' (the full-resolution u8 frames; the natural
     # layout) or 'guide' (the mask-resolution planar u8 guide; s2d)
     face_input: str = "frames"
-    # the bilateral guide: 'bilinear' (the resized frame, u8-rounded;
-    # natural) or 'nearest_u8' (lanes of the packed frames; s2d)
+    # the bilateral guide with matting_input='native': 'bilinear' (the
+    # frame resized to the mask, u8-rounded) or 'nearest_u8' (nearest taps
+    # of the u8 frames: lanes of the packed frames on s2d); the resized
+    # input is its own guide
     guide_impl: str = "bilinear"
     s2d_block: int = 5
     # the port serves 'pico', 'nano', 'femto', 'micro', 'light' and 'full'

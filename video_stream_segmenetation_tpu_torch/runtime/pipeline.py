@@ -1,15 +1,19 @@
 """The per-batch serving steps (port of ``runtime/pipeline.py::make_step``):
-the single-class step of ``active`` and its variants ``blaze_tracking``,
-``branch``, ``rvm`` and ``u2`` (the natural layout) and of the
-``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_nano``,
-``fast_int8_femto`` and ``fast_int8_micro`` presets (the s2d layout), face
-path on or off, and the multi-class step of ``multiclass_fast_pico`` and
-``multiclass_fast`` (:func:`make_multiclass_step`).  The single-class step:
+the single-class step of ``active``, ``fast`` and ``active``'s variants
+``blaze_tracking``, ``branch``, ``rvm`` and ``u2`` (the natural layout) and
+of the ``fast_int8``, ``fast_int8_lite``, ``fast_int8_pico``,
+``fast_int8_nano``, ``fast_int8_femto`` and ``fast_int8_micro`` presets (the
+s2d layout), face path on or off, and the multi-class step of
+``multiclass`` (natural), ``multiclass_fast_pico`` and ``multiclass_fast``
+(:func:`make_multiclass_step`).  The single-class step:
 
-  natural u8 frames [S, H, W, 3] -> f32 0..1 and the asymmetric gather
-    resize to the mask -> bf16 MatteNet, SaliencyNet or RecurrentMatteNet
-    (its ConvGRU state in StreamState.rec), and the planar u8 guide
-    floor(small*255+0.5);
+  natural u8 frames [S, H, W, 3] -> f32 0..1 and the asymmetric resize to
+    the mask (gathers, or interpolation products with resize_impl='mxu')
+    -> bf16 MatteNet, SaliencyNet or RecurrentMatteNet (its ConvGRU state
+    in StreamState.rec), and the planar u8 guide floor(small*255+0.5);
+  or (fast, matting_input='native') the u8 frames -> the bf16 plan-A
+    MatteNetHD (5x5 stride-5 stem), and the guide as the frames' nearest
+    u8 taps (guide_impl='nearest_u8');
   or packed u8 frames [S, H/b, W/b, b*b*3] -> int8 MatteNetHD (bf16 stem,
     trunk kernel, x4 upsample, sigmoid), and the planar u8 guide as lanes
     of the packed frames; with refine_alpha_src='lowres' the head-grid
@@ -30,7 +34,8 @@ path on or off, and the multi-class step of ``multiclass_fast_pico`` and
        the fused refine kernel (5/7/8/9) where morphology is on, else the
        unfused chain (morphology, bilateral, threshold/gamma)
     -> natural: the fused composite kernel (use_fused_composite=True) or
-       the planar upsample and blend; s2d: the packed composite; over each
+       the upsample (planar products, or gathers with
+       upsample_impl='gather') and blend; s2d: the packed composite; over each
        stream's image, one colour, or (background='blur') the frames
        blurred, by the plain upsample and blend
     -> affine low-pass with the face path's updates (translation: the
@@ -60,7 +65,10 @@ from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
     fused_temporal_refine_plane,
 )
 from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
-from video_stream_segmenetation_tpu_torch.ops.composite import natural_composite
+from video_stream_segmenetation_tpu_torch.ops.composite import (
+    multiclass_composite,
+    natural_composite,
+)
 from video_stream_segmenetation_tpu_torch.ops.consts import device_const
 from video_stream_segmenetation_tpu_torch.ops.detect import best_box_decode
 from video_stream_segmenetation_tpu_torch.ops.geometry import (
@@ -86,6 +94,7 @@ from video_stream_segmenetation_tpu_torch.ops.resize import (
     resize_bilinear,
     resize_bilinear_mxu,
     resize_frames_u8,
+    resize_nearest,
 )
 from video_stream_segmenetation_tpu_torch.ops.bilateral import joint_bilateral3x3
 from video_stream_segmenetation_tpu_torch.ops.morphology import (
@@ -118,34 +127,37 @@ from video_stream_segmenetation_tpu_torch.runtime.state import (
 _SERVED = (
     ("upsample_method", "half_pixel"),
     ("affine_mode", "exact"),
-    ("upsample_impl", "mxu"),
 )
 # ... by frame layout: the int8 MatteNetHD over packed frames, or the
-# float models (MatteNet, RecurrentMatteNet, SaliencyNet) over resized
-# natural frames
+# float models (MatteNet, RecurrentMatteNet, SaliencyNet over resized
+# natural frames; the plan-A MatteNetHD over the natural frames themselves)
 _SERVED_LAYOUT = {
     "s2d": (("matting_input", "native"), ("matting_precision", "int8"),
             ("matting_arch", "feedforward"), ("warp_impl", "separable"),
             ("upsample_precision", "fast"), ("face_tracking", "landmarks")),
-    "natural": (("matting_input", "resized"), ("matting_precision", "bf16"),
-                ("resize_impl", "gather"), ("refined_dtype", "f32")),
+    "natural": (("matting_precision", "bf16"),),
 }
-# ... the single-class step's bilateral guide
-_SERVED_GUIDE = {"s2d": ("guide_impl", "nearest_u8"), "natural": ("guide_impl", "bilinear")}
-# ... and, with the face path on
+# ... the single-class step's bilateral guide (natural: _ALLOWED_NATURAL)
+_SERVED_GUIDE = {"s2d": (("guide_impl", "nearest_u8"),), "natural": ()}
+# ... with the face path on
 _SERVED_FACE = {
     "s2d": (("face_compact", True), ("face_input", "guide"), ("crop_impl", "mxu"),
             ("resize_impl", "mxu")),
     "natural": (("face_compact", True), ("face_input", "frames"), ("crop_impl", "gather")),
 }
-# the multi-class step bypasses the single-matte stages: they stay at the
-# reference's defaults
+# the multi-class step bypasses the single-matte stages and the face path
+# (the reference's step never reads face_path): they stay at the
+# reference's defaults; natural frames go to the K-class MatteNet resized
 _SERVED_MULTICLASS = (
-    ("frame_layout", "s2d"), ("face_path", False), ("background", "image"),
-    ("matting_arch", "feedforward"), ("face_tracking", "landmarks"),
-    ("temporal_filter", "ema"), ("warp_blend_mode", "lerp"), ("morphology", True),
-    ("refine_alpha_src", "full"), ("guide_kernel_unfold", False), ("guide_source", "gather"),
+    ("background", "image"), ("matting_arch", "feedforward"),
+    ("face_tracking", "landmarks"), ("temporal_filter", "ema"), ("warp_blend_mode", "lerp"),
+    ("morphology", True), ("refine_alpha_src", "full"), ("guide_kernel_unfold", False),
+    ("guide_source", "gather"),
 )
+_SERVED_MULTICLASS_LAYOUT = {
+    "s2d": _SERVED_LAYOUT["s2d"],
+    "natural": (("matting_input", "resized"), ("matting_precision", "bf16")),
+}
 # (field, the values the port serves)
 _ALLOWED = (
     ("prior_impl", ("auto", "plane")),
@@ -153,6 +165,8 @@ _ALLOWED = (
     ("refined_dtype", ("f32", "bf16")),
     ("warp_impl", ("separable", "exact")),
     ("upsample_precision", ("fast", "exact")),
+    ("upsample_impl", ("mxu", "gather")),
+    ("preprocess_precision", ("fast", "exact")),
 )
 # the single-class step: the background, the fast refine's inputs ('auto'
 # resolves as off the TPU), and the stage chain's options
@@ -167,6 +181,11 @@ _ALLOWED_SINGLE = (
     ("warp_blend_mode", ("lerp", "max")),
     ("face_tracking", ("landmarks", "translation")),
     ("matting_arch", ("feedforward", "recurrent", "saliency")),
+)
+_ALLOWED_NATURAL = (
+    ("matting_input", ("resized", "native")),
+    ("resize_impl", ("gather", "mxu")),
+    ("guide_impl", ("bilinear", "nearest_u8")),
 )
 _ALLOWED_S2D = (
     ("int8_conv_impl", ("xla", "pallas")),
@@ -185,10 +204,6 @@ def _refuse(field, got, want, suffix=""):
 # what the port has not ported yet, by the ROADMAP item that ports it:
 # (field, the value refused, the condition, the item)
 _UNPORTED = (
-    ("frame_layout", "natural", lambda st: st.num_classes > 1,
-     "the natural layout's multi-class step: ROADMAP Queue 1 item 5 (multiclass)"),
-    ("matting_input", "native", lambda st: st.frame_layout == "natural",
-     "the float MatteNetHD over natural frames: ROADMAP Queue 1 item 4 (fast)"),
     ("face_models", "reference", lambda st: True,
      "the reference's MediaPipe face graphs: ROADMAP Queue 1 item 6"),
 )
@@ -197,23 +212,30 @@ _UNPORTED = (
 def check_statics(statics: PipelineStatics) -> None:
     """Refuse what the port's steps do not serve.  Still refused, besides
     :data:`_UNPORTED`: the s2d layout with another matting architecture,
-    the exact warp or translation tracking; the natural layout's bf16
-    refined alpha, its 'mxu' resizes and 'nearest_u8' guide, the guide as
-    the face source; the face path without compaction;
-    affine_mode='reference'; upsample methods and implementations but
-    'half_pixel' on 'mxu' (ROADMAP Queue 1 item 4)."""
+    the exact warp or translation tracking; on the natural layout the
+    native input (the plan-A MatteNetHD) with another architecture or a
+    stem stride of 8 or more, and the guide as the face source; the face
+    path without compaction; affine_mode='reference'; upsample methods but
+    'half_pixel' (ROADMAP Queue 1 item 6)."""
     for field, value, when, item in _UNPORTED:
         if getattr(statics, field) == value and when(statics):
             raise NotImplementedError(f"{field}={value!r}: {item} is not ported yet")
     multiclass = statics.num_classes > 1
     layout = statics.frame_layout
-    if multiclass:
-        served = _SERVED_MULTICLASS + _SERVED + _SERVED_LAYOUT["s2d"]
-    elif layout not in _SERVED_LAYOUT:
+    if layout not in _SERVED_LAYOUT:
         _refuse("frame_layout", layout, tuple(_SERVED_LAYOUT))
+    if multiclass:
+        served = _SERVED_MULTICLASS + _SERVED + _SERVED_MULTICLASS_LAYOUT[layout]
     else:
-        served = (_SERVED + _SERVED_LAYOUT[layout] + (_SERVED_GUIDE[layout],)
+        served = (_SERVED + _SERVED_LAYOUT[layout] + _SERVED_GUIDE[layout]
                   + (_SERVED_FACE[layout] if statics.face_path else ()))
+        if layout == "natural" and statics.matting_input == "native":
+            # the plan-A float MatteNetHD (mattenet_hd.py:115-186)
+            served += (("matting_arch", "feedforward"),)
+            if statics.s2d_block >= 8:
+                raise NotImplementedError(
+                    f"s2d_block={statics.s2d_block}: the torch port serves the natural "
+                    "layout's native input with plan A's stem stride (under 8) only")
     suffix = f" with num_classes={statics.num_classes}" if multiclass else ""
     for field, want in served:
         got = getattr(statics, field)
@@ -223,6 +245,8 @@ def check_statics(statics: PipelineStatics) -> None:
                           else _ALLOWED_SINGLE)
     if layout == "s2d":
         allowed += (("matting_decoder", _DECODERS[multiclass]),) + _ALLOWED_S2D
+    elif not multiclass:
+        allowed += _ALLOWED_NATURAL
     if multiclass:
         if len(statics.class_effects) != statics.num_classes:
             raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
@@ -391,27 +415,49 @@ def simplex_ema(ca: torch.Tensor, prev: torch.Tensor, knobs: PipelineKnobs,
     return blended / torch.clamp(blended.sum(-1, keepdim=True), min=1e-6)
 
 
-def make_multiclass_step(model, statics: PipelineStatics):
-    """The multi-class step (BASELINE config 5; the s2d branch of the
-    reference's ``make_multiclass_step``): K-class softmax maps -> the
-    motion-adaptive EMA on the class simplex, renormalised -> the packed
-    per-class composite.  The single-matte stages (morphology, prior,
-    bilateral, face path) are bypassed, as in the reference.  Same
-    signature as :func:`make_step`'s step; ``outputs``: ``frame`` (packed
-    u8), ``alpha`` (class 1's map ``[S, mh, mw]``, as the reference),
-    ``class_alpha`` ``[S, mh, mw, K]``, ``det_score`` and ``face_applied``
-    (zeros)."""
-    fh, fw = statics.frame_hw
-    blk = statics.s2d_block
+def planar_resize_f32(frames_f32: torch.Tensor, mask_hw) -> torch.Tensor:
+    """The natural multi-class step's resize (runtime/pipeline.py:353-363):
+    each channel of ``frames_f32 [S, H, W, 3]`` by the asymmetric
+    interpolation products in f32 (the reference's HIGHEST), stacked."""
+    return torch.stack([resize_bilinear_mxu(frames_f32[..., c], tuple(mask_hw), "asymmetric",
+                                            channel_last=False) for c in range(3)], dim=-1)
 
-    def step(state: StreamState, frames_p, backgrounds_p, knobs: PipelineKnobs,
-             face_gate):
-        s = frames_p.shape[0]
-        dev = frames_p.device
-        ca = model(frames_p)["alpha"].to(torch.float32)  # [S, mh, mw, K]
+
+def make_multiclass_step(model, statics: PipelineStatics):
+    """The multi-class step (BASELINE config 5; the reference's
+    ``make_multiclass_step``): K-class softmax maps -> the motion-adaptive
+    EMA on the class simplex, renormalised -> the per-class composite.  The
+    s2d branch feeds the packed frames to the int8 K-class MatteNetHD and
+    composites in the packed layout; the natural branch resizes the f32
+    frames to the mask one channel at a time (asymmetric interpolation
+    products in f32, the reference's HIGHEST), runs the K-class MatteNet
+    and composites the f32 frames (:func:`multiclass_composite`).  The
+    single-matte stages (morphology, prior, bilateral, face path) are
+    bypassed, as in the reference.  Same signature as :func:`make_step`'s
+    step; ``outputs``: ``frame`` (u8, the frames' layout), ``alpha`` (class
+    1's map ``[S, mh, mw]``, as the reference), ``class_alpha`` ``[S, mh,
+    mw, K]``, ``det_score`` and ``face_applied`` (zeros)."""
+    fh, fw = statics.frame_hw
+    mh, mw = statics.mask_hw
+    blk = statics.s2d_block
+    s2d = statics.frame_layout == "s2d"
+
+    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
+        s = frames.shape[0]
+        dev = frames.device
+        if s2d:
+            ca = model(frames)["alpha"]
+        else:
+            frames_f32 = frames.to(torch.float32) / 255.0
+            ca = model(planar_resize_f32(frames_f32, (mh, mw)))["alpha"]
+        ca = ca.to(torch.float32)  # [S, mh, mw, K]
         blended = simplex_ema(ca, state.rec[0], knobs, state.initialized)
-        out_u8 = multiclass_composite_s2d(frames_p, blended, statics.class_effects,
-                                          (fh, fw), blk, method=statics.upsample_method)
+        if s2d:
+            out_u8 = multiclass_composite_s2d(frames, blended, statics.class_effects, (fh, fw),
+                                              blk, method=statics.upsample_method)
+        else:
+            out_u8 = multiclass_composite(frames_f32, blended, statics.class_effects,
+                                          upsample_method=statics.upsample_method, out_u8=True)
         # class 1 alone, as the reference keeps it
         alpha = blended[..., 1:2].sum(-1)
         new_state = dataclasses.replace(
@@ -549,9 +595,14 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
 
     ``model``: the MatteNet or SaliencyNet (``small -> {"alpha"}``), the
     RecurrentMatteNet (``(small, rec) -> {"alpha", "state"}``, the state
-    threaded through ``StreamState.rec``) or the int8 MatteNetHD, by
-    ``statics.matting_arch`` and the layout.  The refine stages take the
-    route of :func:`refine_routing`.
+    threaded through ``StreamState.rec``), the float plan-A MatteNetHD
+    (the u8 natural frames, ``matting_input='native'``) or the int8
+    MatteNetHD, by ``statics.matting_arch``, the input and the layout.
+    ``small`` is the frames resized to the mask (``resize_impl``: the
+    gathers, or the interpolation products at ``preprocess_precision``);
+    the natural guide is ``floor(small*255+0.5)``, or with the native
+    input and ``guide_impl='nearest_u8'`` the frames' nearest taps.  The
+    refine stages take the route of :func:`refine_routing`.
 
     With the fast refine's ``host_lanes`` on (:func:`fast_routing`), frames
     is a ``(packed, lanes [nl, S, hp, wp] u8)`` tuple."""
@@ -564,6 +615,7 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     fh, fw = statics.frame_hw
     blk = statics.s2d_block
     natural = statics.frame_layout == "natural"
+    native = statics.matting_input == "native"
     recurrent = statics.matting_arch == "recurrent"
     translation = statics.face_path and statics.face_tracking == "translation"
     refine_route = refine_routing(statics)
@@ -578,6 +630,15 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     lowres = route["use_lowres_alpha"]
     lane_geom = route["lane_geom"]
     host_lanes = route["host_lanes"]
+    if statics.resize_impl == "mxu":
+        bf16_pre = statics.preprocess_precision == "fast"
+
+        def resize_down(f):  # the reference's _resize_down (runtime/pipeline.py:455-465)
+            return resize_bilinear_mxu(f.to(torch.float32) / 255.0, (mh, mw), "asymmetric",
+                                       bf16_pass=bf16_pre)
+    else:
+        def resize_down(f):
+            return resize_frames_u8(f, (mh, mw), "asymmetric")
 
     def composite(frames, a, backgrounds):
         """The reference's stage 10 (runtime/pipeline.py:836-937), each
@@ -608,7 +669,8 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                               lambda: np.asarray(statics.bg_color, np.float32))
         else:
             bg = backgrounds
-        return natural_composite(nat, a, bg, bf16_pass=statics.upsample_precision == "fast")
+        return natural_composite(nat, a, bg, bf16_pass=statics.upsample_precision == "fast",
+                                 impl=statics.upsample_impl)
 
     def unfused(state, alpha_raw, guide, prior, has_prior, knobs):
         """Stages 3-9 off the fused temporal refine (runtime/pipeline.py:
@@ -628,16 +690,24 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
         dev = frames.device
         new_rec = state.rec
         if natural:
-            small = resize_frames_u8(frames, (mh, mw), "asymmetric")
-            if recurrent:
-                # RVM-class stateful matting: the ConvGRU state in rec
-                out_m = model(small, state.rec)
-                new_rec = out_m["state"]
+            small = None
+            if native:
+                # the plan-A MatteNetHD on the u8 frames: its stem is the resize
+                out_m = model(frames)
+                if statics.guide_impl == "nearest_u8":
+                    # floor((g/255)*255+0.5) of the reference is g itself
+                    guide = resize_nearest(frames, (mh, mw), "half_pixel")
+                else:
+                    small = resize_down(frames)
             else:
-                out_m = model(small)
+                small = resize_down(frames)
+                # RVM-class stateful matting: the ConvGRU state in rec
+                out_m = model(small, state.rec) if recurrent else model(small)
+                new_rec = out_m["state"] if recurrent else new_rec
             alpha_raw = out_m["alpha"]
-            # u8-valued guide (the reference's canvas data): exact in u8
-            guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
+            if small is not None:
+                # u8-valued guide (the reference's canvas data): exact in u8
+                guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
             guide = guide.permute(0, 3, 1, 2).contiguous()
         else:
             # lowres: the head-grid logits; the refine kernel upsamples them

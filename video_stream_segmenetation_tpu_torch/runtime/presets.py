@@ -1,18 +1,18 @@
 """Named pipeline presets (port of ``runtime/presets.py``).
 
 ``active`` (the reference's default pipeline, ``PipelineStatics()``: the
-float MatteNet over resized natural-layout frames), its alternative
-pipelines ``blaze_tracking``, ``branch``, ``rvm`` and ``u2`` (the
-reference application's other frame processors), ``fast_int8``,
-``fast_int8_lite``, ``fast_int8_pico``, ``fast_int8_nano``,
-``fast_int8_femto``, ``fast_int8_micro``, ``multiclass_fast_pico`` and
-``multiclass_fast`` are ported, as the reference defines them;
-``preset(name, **overrides)`` takes overrides the way the reference's does
-(``face_path=False``, ``frame_hw``, ``mask_hw``, ``warp_impl='exact'``,
-...).  The reference's ``fast``,
-``fast_int8_pico_refface`` and natural-layout ``multiclass`` presets are
-listed so that they are refused (runtime/pipeline.py::check_statics names
-the ROADMAP item that ports each).
+float MatteNet over resized natural-layout frames), ``fast`` (the float
+plan-A MatteNetHD over the natural frames), its alternative pipelines
+``blaze_tracking``, ``branch``, ``rvm`` and ``u2`` (the reference
+application's other frame processors), ``fast_int8``, ``fast_int8_lite``,
+``fast_int8_pico``, ``fast_int8_nano``, ``fast_int8_femto``,
+``fast_int8_micro``, ``multiclass`` (the K=4 MatteNet over natural frames),
+``multiclass_fast_pico`` and ``multiclass_fast`` are ported, as the
+reference defines them; ``preset(name, **overrides)`` takes overrides the
+way the reference's does (``face_path=False``, ``frame_hw``, ``mask_hw``,
+``warp_impl='exact'``, ...).  The reference's ``fast_int8_pico_refface``
+is listed so that it is refused (runtime/pipeline.py::check_statics names
+the ROADMAP item that ports it).
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ _PRESETS = {
     # runtime/presets.py:19): landmark affine warp, morphology, elliptical
     # prior, bilateral, live knobs; checkpoint mattenet
     "active": dict(),
-    # the float MatteNetHD (plan A, stem stride 5) over natural frames
-    # (:26-32): refused by the port (ROADMAP Queue 1 item 4, fast)
+    # the float MatteNetHD (plan A, stem stride 5) over the natural u8
+    # frames, its stem the resize, the guide the frames' nearest taps
+    # (:26-32); checkpoint mattenet_hd
     "fast": dict(matting_input="native", guide_impl="nearest_u8", warp_impl="separable",
                  face_compact=True, ema_adapt_default=1.0),
     # plan-B trunk (the reference's runtime/presets.py:38-50, its "bench.py
@@ -104,7 +105,9 @@ _PRESETS = {
     # constant colour; checkpoint u2net
     "u2": dict(matting_arch="saliency", mask_hw=(320, 320), face_path=False,
                morphology=False, temporal_filter="none", background="color"),
-    # natural layout, float MatteNet (:219-229): refused by the port
+    # natural layout, the K=4 float MatteNet over the frames resized to the
+    # mask, the per-class composite at full resolution (:219-229);
+    # checkpoint mattenet_multiclass
     "multiclass": dict(_MULTICLASS),
     # plan-E nano trunk (192/256) with K=4 class heads, the class maps
     # upsampled x4 to the 288x512 mask (:236-255; checkpoint

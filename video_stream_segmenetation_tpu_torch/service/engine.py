@@ -85,7 +85,7 @@ from video_stream_segmenetation_tpu_torch.models.facemesh import (
     LandmarkNet,
     init_landmark_net_params,
 )
-from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params
+from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD, init_params
 from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_mattenet_params
 from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
@@ -160,8 +160,10 @@ class Engine:
         """``statics``: None serves ``PipelineStatics()``, the reference's
         default (``active``).  ``params``: for the natural layout the float
         tree of ``statics.matting_arch``'s model (flax-shaped ``{"params",
-        "batch_stats"}``, e.g. bridge.py::trained_weights: MatteNet,
-        RecurrentMatteNet or SaliencyNet), for the s2d layout the int8 serving
+        "batch_stats"}``, e.g. bridge.py::trained_weights: MatteNet (K
+        class heads with ``num_classes``), RecurrentMatteNet, SaliencyNet,
+        or the plan-A MatteNetHD with ``matting_input='native'``), for the
+        s2d layout the int8 serving
         dict of ``statics.matting_decoder``'s plan with
         ``statics.num_classes`` head classes (models/quantized.py
         ``quantize_mattenet_hd`` or bridge.py); None makes a float tree
@@ -197,7 +199,8 @@ class Engine:
             blk = st.s2d_block
             bg_shape = (num_streams, fh // blk, fw // blk, blk * blk * 3)
         else:
-            if st.matting_arch == "feedforward" and (mh % 16 or mw % 16):
+            if (st.matting_arch == "feedforward" and st.matting_input == "resized"
+                    and (mh % 16 or mw % 16)):
                 raise ValueError(f"mask_hw {st.mask_hw}: MatteNet needs multiples of 16")
             bg_shape = (num_streams, fh, fw, 3)
         self.model = self._matting_model(params)
@@ -253,11 +256,22 @@ class Engine:
     def _matting_model(self, params) -> torch.nn.Module:
         """The matting model by ``statics.matting_arch`` (the reference's
         service/engine.py:347-391): the int8 MatteNetHD for the s2d
-        layout, else the RecurrentMatteNet, the SaliencyNet or the float
-        MatteNet, each from ``params`` or a tree drawn from the seed."""
-        arch = self.statics.matting_arch
+        layout, else the K-class MatteNet (natural, ``num_classes > 1``),
+        the RecurrentMatteNet, the SaliencyNet, the float plan-A MatteNetHD
+        (``matting_input='native'``) or the float MatteNet, each from
+        ``params`` or a tree drawn from the seed."""
+        st = self.statics
+        arch = st.matting_arch
         if self.packed:
             model = self._int8_model(params)
+        elif st.num_classes > 1:
+            model = MatteNet(init_mattenet_params(self.seed, st.num_classes) if params is None
+                             else params, device=self.device)
+            if model.num_classes != st.num_classes:
+                raise ValueError(f"params have {model.num_classes} classes; statics ask "
+                                 f"for num_classes={st.num_classes}")
+        elif arch == "feedforward" and st.matting_input == "native":
+            model = self._plan_a_model(params)
         elif arch == "recurrent":
             model = RecurrentMatteNet(init_rvm_params(self.seed) if params is None else params,
                                       device=self.device)
@@ -270,6 +284,22 @@ class Engine:
         # served models are frozen (not inference_mode, whose tensors refuse
         # the rounds' in-place row writes)
         return freeze(model)
+
+    def _plan_a_model(self, params) -> MatteNetHD:
+        """The float MatteNetHD of plan A over the natural frames (the
+        reference's service/engine.py:374-388): the mask is uf x the stem
+        grid ``ceil(frame / s2d_block)``; plan A's head upsample is x2."""
+        st = self.statics
+        fh, fw = st.frame_hw
+        mh, mw = st.mask_hw
+        ss = st.s2d_block
+        stem_hw = (-(-fh // ss), -(-fw // ss))
+        uf = max(1, mh // stem_hw[0])
+        if (uf * stem_hw[0], uf * stem_hw[1]) != (mh, mw):
+            raise ValueError(f"native matting: mask_hw must be an integer multiple of the "
+                             f"stem grid ceil(frame/{ss}) = {stem_hw}, got {(mh, mw)}")
+        tree = init_params("full", self.seed, ss) if params is None else params
+        return MatteNetHD(ss, uf, "full", params=tree, device=self.device)
 
     def _int8_model(self, params) -> QuantizedMatteNetHD:
         st = self.statics
@@ -327,7 +357,8 @@ class Engine:
         (bridge.py::save_export; the committed ones are under ``weights/``):
         the int8 serving dict for the s2d presets, the float tree of the
         natural layout's model (``mattenet.npz``, ``rvm.npz``,
-        ``u2net.npz``), as the constructor's ``params``."""
+        ``u2net.npz``, ``mattenet_hd.npz``, ``mattenet_multiclass.npz``),
+        as the constructor's ``params``."""
         self.model = self._matting_model(load_export(path))
         self._build_steps()
 
