@@ -31,8 +31,8 @@ Phases, each announced by one line on stdout:
      +-inf, NaNs, values next to bf16's largest, normals at many scales):
      bit for bit, every output one of its two bf16 neighbours, a block of
      one value rounded up at its probability within 5 sigma;
-  4-29. serve: Engine(64, ...) answers 8 steps of 720p frames in
-     twenty-six phases, each with every launch count set to 0 just before it and read
+  4-33. serve: Engine(64, ...) answers 8 steps of 720p frames in
+     thirty phases, each with every launch count set to 0 just before it and read
      just after, and none of its steps a passthrough (the engine's count of
      them must stay 0):
        4. fast_int8_pico with the face path off, seeded weights, synthetic
@@ -87,15 +87,27 @@ Phases, each announced by one line on stdout:
           no counted kernel), its class map means held to the reference's;
       29. active with refined_dtype='bf16' (the refine kernel's bf16 out,
           the plain composite's bf16 upsample);
+      30-33. the face subpath's other forms on the pico trunk:
+          fast_int8_pico_refface as its preset stands (the reference
+          application's MediaPipe detector and landmark graphs at 256/192
+          on the port's ONNX executor, f32 under pinned precision; the
+          landmark graph takes the committed person's face for no face,
+          as the reference's engine does, so the phase requires the
+          detector's prior applied instead of the affine), fast_int8_pico
+          with face_precision='int8' (the int8 FaceFinder and
+          LandmarkNet), with face_compact=False (the face models on all 64
+          streams at each cadence step) and with face_tracking=
+          'translation' (the detector on every firing stream's guide, the
+          centre's delta as a whole-pixel translation);
      each checks shapes, dtypes, value ranges, the alpha against the frames'
-     ground truth (phases 5-29) or the ellipse (phase 4), that each counted
+     ground truth (phases 5-33) or the ellipse (phase 4), that each counted
      wrapper ran its expected number of times (every other one none), with
      the face path on that it was applied to at least one stream, in phases
-     7-8 and 28 that class_alpha sums to 1 within 1e-3, in phases 7-29 that
+     7-8 and 28 that class_alpha sums to 1 within 1e-3, in phases 7-33 that
      the IoU is at most 0.02 below the reference engine's, and in every trained
      s2d phase that the served trunk equals its plain version on two
      streams; each prints its median step time and the peak device memory;
-  30. degrade: Engine(64, fast_int8_pico) with the trained weights loaded
+  34. degrade: Engine(64, fast_int8_pico) with the trained weights loaded
      through load_matting_params/load_face_params from weights/*.npz, its
      step replaced by one that raises, through process and through
      dispatch/collect: two passthrough failures, 'degraded' after the
@@ -104,18 +116,18 @@ Phases, each announced by one line on stdout:
      ones; the step restored and the probe due, the probe serves and
      health reads 'ok'; then one real failure on the card each of an
      out-of-memory and a launch the alpha head's C entry point refuses;
-  31. render: the sample background templates at each privacy level,
+  35. render: the sample background templates at each privacy level,
      rendered at 720p with PIL (background/render.py) and served;
-  32. server: a ControlServer on that engine at 127.0.0.1 on a free port:
+  36. server: a ControlServer on that engine at 127.0.0.1 on a free port:
      /stats, /healthz (503 while degraded), knobs, reset, a background
      colour, the privacy level and a template between served steps;
-  33. chunked, packed: process_chunked(frames, 16) against process on a
+  37. chunked, packed: process_chunked(frames, 16) against process on a
      second engine, element by element; output_layout='packed' after
      depth_to_space against 'natural', byte for byte;
-  34. api: segment, composite (colour, blur, image) and process_frame on
+  38. api: segment, composite (colour, blur, image) and process_frame on
      the committed frames with weights/mattenet.npz, the mask IoU within
      0.02 of the active phase's;
-  35. rotation, the production serving loop: StreamScheduler(Engine(400,
+  39. rotation, the production serving loop: StreamScheduler(Engine(400,
      fast_int8_pico with refine_alpha_src='lowres', guide_kernel_unfold=
      True, guide_source='host'), group_sizes=[96, 96, 96, 96, 16],
      fused_rounds=True) over the port's native FramePool (48 guide lanes
@@ -127,19 +139,29 @@ Phases, each announced by one line on stdout:
      one more round whose trunk and fast refine inputs are kept at each
      group size (96 and 16), and each kernel held against its plain
      version on them at the kernels phase's tolerances;
-  36. rotation failure: on that rotation, one round failing after its
+  40. rotation failure: on that rotation, one round failing after its
      first two groups wrote their rows: every group's input back as
      passthrough, the state restored from the failing dispatch's snapshot
      (affine, has_affine, frame_idx; a cold EMA), three rounds served,
      then one more round with its snapshot under
      set_sync_debug_mode('error');
-  37. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
+  41. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
      frames through that route with fused rounds and through
      fast_int8_pico as its preset stands under per-group step_pipelined:
      prev_alpha within 1e-5, the refined alpha within 1e-2, IoU within
      0.001; then on each route a round held as in phase 35 (trunk, fast
      and analytic refine at 24 and 16 streams);
-  38. train: the plan-D pico MatteNetHD at its full widths, fit on the
+  42. refface round: StreamScheduler(Engine(64, fast_int8_pico_refface),
+     group_sizes=[24, 24, 16], fused_rounds=True), face_min_interval_s=0,
+     2 rounds, then one more round whose step runs under
+     torch.cuda.set_sync_debug_mode('error') (the MediaPipe graphs make no
+     host synchronisation); the trunk and the refine kernel once a group a
+     round; then the face models' forwards on K=11 streams (the compact
+     batch of 64 streams at lmk_interval 6), CUDA events: the MediaPipe
+     detector (256) and landmark graph (192), the int8 and the bf16
+     FaceFinder and LandmarkNet (128), and the MediaPipe graphs on the card
+     against the CPU on two of those streams;
+  43. train: the plan-D pico MatteNetHD at its full widths, fit on the
      card with tools/train_flagship.py's schedule at fewer steps (20 at
      240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
      grad_norm finite and every leaf moved; one step's forward and
@@ -1037,7 +1059,12 @@ REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980,
                  # 8 steps: the plan-A MatteNetHD; the K=4 MatteNet finds none
                  # of this person (it was fitted to another synthetic scene),
                  # so its phase is held to the class means below as well
-                 "fast": 0.5878, "multiclass": 0.0}
+                 "fast": 0.5878, "multiclass": 0.0,
+                 # tests/test_torch_face_720p.py and
+                 # test_torch_face_options_720p.py, 8 steps, the reference on
+                 # its CPU route (the unfused refine chain)
+                 "fast_int8_pico_refface": 0.9250, "fast_int8_pico_int8_face": 0.8717,
+                 "fast_int8_pico_uncompacted": 0.7862, "fast_int8_pico_translation": 0.8715}
 IOU_SLACK = 0.02
 # The reference engine's mean of each class map over the last step's two
 # streams (tests/test_torch_multiclass_natural.py::test_trained_engine_iou_720p);
@@ -1115,6 +1142,19 @@ PHASES = (
     ("multiclass", "multiclass", {}, True, {}, REFERENCE_IOU["multiclass"] - IOU_SLACK, None),
     ("active, refined_dtype='bf16'", "active", {"refined_dtype": "bf16"}, True,
      {"refine_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK, None),
+    # the face subpath's other forms on the pico trunk
+    ("fast_int8_pico_refface", "fast_int8_pico_refface", {}, True,
+     {"trunk_int8": 1, "refine_fused": 1}, REFERENCE_IOU["fast_int8_pico_refface"] - IOU_SLACK,
+     "trunk_int8"),
+    ("fast_int8_pico, face_precision='int8'", "fast_int8_pico", {"face_precision": "int8"},
+     True, {"trunk_int8": 1, "refine_fused": 1},
+     REFERENCE_IOU["fast_int8_pico_int8_face"] - IOU_SLACK, "trunk_int8"),
+    ("fast_int8_pico, face_compact=False", "fast_int8_pico", {"face_compact": False}, True,
+     {"trunk_int8": 1, "refine_fused": 1},
+     REFERENCE_IOU["fast_int8_pico_uncompacted"] - IOU_SLACK, "trunk_int8"),
+    ("fast_int8_pico, face_tracking='translation'", "fast_int8_pico",
+     {"face_tracking": "translation"}, True, {"trunk_int8": 1, "refine_fused": 1},
+     REFERENCE_IOU["fast_int8_pico_translation"] - IOU_SLACK, "trunk_int8"),
 )
 # branch: with the face path off nothing in serving sets an affine, so the
 # even streams start with this 2-pixel shift (mask coordinates) and the max
@@ -1186,6 +1226,7 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         c.launches = 0
     times, out, truth = [], None, None
     applied = np.zeros((num_streams,), bool)
+    prior = np.zeros((num_streams,), bool)
     scores = []
     held_composite = {}
     for t in range(steps):
@@ -1209,6 +1250,8 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
             raise AssertionError(f"step {t} was served as passthrough: "
                                  f"{eng.stats()['health']}")
         applied |= out["face_applied"].cpu().numpy()
+        if "face_has_prior" in out:
+            prior |= out["face_has_prior"].cpu().numpy()
         ds = out["det_score"].cpu().numpy()
         scores.extend(ds[ds > 0].tolist())
     launches = {k: c.launches for k, c in counters.items()}
@@ -1227,6 +1270,7 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         raise AssertionError("alpha is not finite in [0, 1]")
     res = {"times_ms": times, "launches": launches, "health":
            eng.stats()["health"]["state"], "applied": int(applied.sum()),
+           "prior": int(prior.sum()),
            "passthrough": passthrough,
            "det_score": float(np.mean(scores)) if scores else 0.0,
            "peak_mib": (torch.cuda.max_memory_allocated() / 2**20 if device != "cpu"
@@ -1268,9 +1312,15 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         if min_iou is not None and res["iou"] < min_iou:
             raise AssertionError(f"alpha IoU against the ground truth {res['iou']:.3f} "
                                  f"< {min_iou}")
-        # (the multi-class step never reads face_path, as the reference's)
-        if statics.face_path and not multiclass and res["applied"] == 0:
-            raise AssertionError("the face path was applied to no stream")
+        # (the multi-class step never reads face_path, as the reference's).
+        # The MediaPipe landmark graph takes the committed person's face
+        # for no face (score 1e-5), as the reference's engine does
+        # (tests/test_torch_face_720p.py): there the detector's prior must
+        # have been applied instead of the affine
+        if statics.face_path and not multiclass:
+            got = res["prior"] if statics.face_models == "reference" else res["applied"]
+            if got == 0:
+                raise AssertionError("the face path was applied to no stream")
         if statics.frame_layout == "s2d":
             res["trunk_err"] = trunk_vs_plain(eng.model, frames[:2], statics.s2d_block)
             if not res["trunk_err"] <= TRUNK_TOL:
@@ -1366,8 +1416,9 @@ def _iou(alpha, truth) -> float:
 
 
 def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
-             min_interval=None, sync_check: bool = False) -> dict:
-    """Serve ``fast_int8_pico`` (with ``overrides``, trained weights) through
+             min_interval=None, sync_check: bool = False,
+             name: str = "fast_int8_pico") -> dict:
+    """Serve the preset ``name`` (with ``overrides``, trained weights) through
     the port's StreamScheduler over its native FramePool, streams in groups
     of ``sizes``, the committed 720p frames pushed per stream and round
     (frame (s + r) % 2), ``rounds`` rounds: with ``fused`` through
@@ -1383,7 +1434,7 @@ def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
     from video_stream_segmenetation_tpu_torch.runtime.scheduler import StreamScheduler
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
 
-    statics = preset("fast_int8_pico", **overrides)
+    statics = preset(name, **overrides)
     n = sum(sizes)
     fh, fw = FRAME_HW
     eng = Engine(n, statics, **bridge.trained_weights(statics), device=device)
@@ -1661,6 +1712,102 @@ def phase_routes(device, sizes=(24, 24, 16), rounds=ROUNDS) -> dict:
         held[key] = max(err, held.get(key, 0.0))
     return {"a": a, "b": b, "prev_err": prev_err, "alpha_err": alpha_err,
             "iou_err": iou_err, "held": held}
+
+
+# the face models' forwards are timed on the compact batch of S=64 streams
+# at lmk_interval 6
+FACE_K = 11
+# the MediaPipe graphs on the card against the CPU, both f32 under pinned
+# precision: the bar the reference holds its own jitted graph to against
+# its numpy oracle
+FACE_GRAPH_RTOL, FACE_GRAPH_ATOL = 1e-4, 1e-5
+
+
+def phase_refface_round(device, sizes=(24, 24, 16), rounds=2) -> dict:
+    """fast_int8_pico_refface through the rotation's fused rounds
+    (face_min_interval_s=0), one more round whose step runs under
+    set_sync_debug_mode('error'); then the face models' forwards on
+    FACE_K streams, CUDA events, and the MediaPipe graphs on the card held
+    against the CPU on two letterboxed committed frames."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.models.blazeface import FaceFinder
+    from video_stream_segmenetation_tpu_torch.models.facemesh import LandmarkNet
+    from video_stream_segmenetation_tpu_torch.models.quantized_face import (
+        QuantizedFaceFinder,
+        QuantizedLandmarkNet,
+        quantize_face_finder,
+        quantize_landmark_net,
+    )
+    from video_stream_segmenetation_tpu_torch.models.reference_face import (
+        ReferenceFaceFinder,
+        ReferenceLandmarkNet,
+    )
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import letterbox_to_square
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    res = rotation(device, sizes, {}, rounds, fused=True, min_interval=0.0, sync_check=True,
+                   name="fast_int8_pico_refface")
+    eng = res["engine"]
+    if not (isinstance(eng.face_models.face, ReferenceFaceFinder)
+            and isinstance(eng.face_models.lmk, ReferenceLandmarkNet)):
+        raise AssertionError(f"refface round: the face models are {eng.face_models}")
+    want = {"trunk_int8": len(sizes) * rounds, "refine_fused": len(sizes) * rounds}
+    for counter, got in res["launches"].items():
+        if got != want.get(counter, 0):
+            raise AssertionError(f"refface round: {counter} launched {got} times in {rounds} "
+                                 f"rounds, expected {want.get(counter, 0)}")
+    out = {"launches": res["launches"], "parts_ms": res["parts_ms"], "iou": res["iou"],
+           "peak_mib": res["peak_mib"], "latencies_ms": res["latencies_ms"]}
+    res["sched"].stop()
+    del res, eng
+    torch.cuda.empty_cache()
+
+    clip, _ = bridge.load_frames()
+    x256 = letterbox_to_square(torch.as_tensor(clip).to(torch.float32) / 255.0, FRAME_HW, 256)
+    x192 = torch.nn.functional.interpolate(x256.permute(0, 3, 1, 2), size=(192, 192),
+                                           mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    x128 = torch.nn.functional.interpolate(x256.permute(0, 3, 1, 2), size=(128, 128),
+                                           mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    reps = (FACE_K + 1) // 2
+
+    def batch(x):
+        return x.repeat(reps, 1, 1, 1)[:FACE_K].to(device)
+
+    trees = {n: bridge.load_export(bridge.WEIGHTS_DIR / f"{n}.npz")
+             for n in ("facefinder_128", "landmarknet_128")}
+    with pinned():
+        models = {
+            "MediaPipe detector (256, f32 graph)": (ReferenceFaceFinder(device), x256),
+            "MediaPipe landmarks (192, f32 graph)": (ReferenceLandmarkNet(device), x192),
+            "FaceFinder bf16 (128)": (FaceFinder(trees["facefinder_128"], 128, device=device),
+                                      x128),
+            "LandmarkNet bf16 (128)": (LandmarkNet(trees["landmarknet_128"], device=device),
+                                       x128),
+            "FaceFinder int8 (128, exact int8 convs)": (QuantizedFaceFinder(
+                quantize_face_finder(trees["facefinder_128"]), 128, device=device), x128),
+            "LandmarkNet int8 (128, exact int8 convs)": (QuantizedLandmarkNet(
+                quantize_landmark_net(trees["landmarknet_128"]), device=device), x128),
+        }
+        times = {}
+        for label, (model, x) in models.items():
+            xb = batch(x)
+            times[label] = cuda_time_ms(lambda m=model, xb=xb: m(xb), 10)
+        errs = {}
+        for label, key, cpu_model in (
+                ("detector", "MediaPipe detector (256, f32 graph)", ReferenceFaceFinder("cpu")),
+                ("landmarks", "MediaPipe landmarks (192, f32 graph)",
+                 ReferenceLandmarkNet("cpu"))):
+            card_model, x = models[key]
+            want = cpu_model(x)
+            got = card_model(x.to(device))
+            for name, w in want.items():
+                g = got[name].cpu()
+                errs[f"{label} {name}"] = (g - w).abs().max().item()
+                if not bool(((g - w).abs() <= FACE_GRAPH_ATOL + FACE_GRAPH_RTOL * w.abs()).all()):
+                    raise AssertionError(f"MediaPipe {label} {name} on the card vs the CPU: "
+                                         f"{errs[f'{label} {name}']}")
+    out.update(times_ms=times, graph_err=errs)
+    return out
 
 
 def _pico_engine(device, num_streams: int | None = None, **kw):
@@ -2353,7 +2500,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 12 + len(PHASES)
+    steps = 13 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -2397,7 +2544,8 @@ def main() -> int:
                       f"(the reference's {REFERENCE_CLASS_MEANS[preset_name]}, tolerance "
                       f"{CLASS_MEAN_TOL:g})" if "class_means" in res else "")
                    + f", face_applied on "
-                   f"{res['applied']} streams, mean det_score {res['det_score']:.4f}"
+                   f"{res['applied']} streams, the prior on {res['prior']}, mean det_score "
+                   f"{res['det_score']:.4f}"
                    + (f", trunk vs plain on 2 streams {res['trunk_err']:.3e} (tolerance "
                       f"{TRUNK_TOL:g})" if "trunk_err" in res else "")
                    if trained else
@@ -2510,7 +2658,27 @@ def main() -> int:
     del rb
     torch.cuda.empty_cache()
 
-    say(f"[{k + 8}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
+    say(f"[{k + 8}/{steps} refface round] StreamScheduler(Engine({S}, fast_int8_pico_refface), "
+        "group_sizes=[24, 24, 16], fused_rounds=True), face_min_interval_s=0: 2 rounds and one "
+        f"under set_sync_debug_mode('error'); the face models' forwards on K={FACE_K} streams")
+    rr = phase_refface_round("cuda")
+    for counter, got in rr["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    say(f"  refface round: launches {rr['launches']}; median round "
+        f"{statistics.median(rr['latencies_ms']):.2f} ms dispatch to collect; the checked "
+        f"round made no host synchronisation: "
+        + ", ".join(f"{key} {v:.1f} ms" for key, v in rr["parts_ms"].items())
+        + f"; alpha IoU {rr['iou']:.4f}; peak device memory {rr['peak_mib']:.0f} MiB; {smi}")
+    say(f"  face models on K={FACE_K} streams (CUDA events, mean of 10, pinned precision): "
+        + ", ".join(f"{key} {v:.3f} ms" for key, v in rr["times_ms"].items())
+        + "; MediaPipe graphs on the card vs the CPU (max abs, tolerance rtol "
+        f"{FACE_GRAPH_RTOL:g} atol {FACE_GRAPH_ATOL:g}): "
+        + ", ".join(f"{key} {v:.2e}" for key, v in rr["graph_err"].items()))
+    del rr
+    torch.cuda.empty_cache()
+
+    say(f"[{k + 9}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
         f"the card: fit {TRAIN_STEPS} steps at 240x320 batch 32 lr 5e-4, then {FT_STEPS} at "
         "720x1280 batch 8 lr 5e-4/3 seed 1; one step against the CPU; the trained tree "
         "stochastically rounded, quantized and served one step of Engine(8, fast_int8_pico, "

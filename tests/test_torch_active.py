@@ -569,9 +569,9 @@ def test_engine_defaults_to_the_reference_statics():
 
 
 @pytest.mark.parametrize("override", [
-    {"refined_dtype": "f16"}, {"upsample_impl": "conv"}, {"affine_mode": "reference"},
-    {"face_compact": False}, {"resize_impl": "bicubic"}, {"crop_impl": "mxu"},
-    {"face_input": "guide"}, {"upsample_method": "asymmetric"},
+    {"refined_dtype": "f16"}, {"upsample_impl": "conv"}, {"affine_mode": "conjugate"},
+    {"face_compact": 0}, {"resize_impl": "bicubic"}, {"crop_impl": "bicubic"},
+    {"face_input": "mask"}, {"upsample_method": "asymmetric"},
     {"upsample_precision": "highest"}, {"guide_impl": "bicubic"}])
 def test_active_refuses_unserved_options(override):
     """What active's step still does not serve is refused by name (the
@@ -579,7 +579,10 @@ def test_active_refuses_unserved_options(override):
     served since the stage chain was ported: tests/test_torch_variants.py;
     refined_dtype='bf16', upsample_impl='gather', resize_impl='mxu' and
     guide_impl='nearest_u8' since they were: tests/test_torch_active_
-    options.py; a value the reference does not have stays refused)."""
+    options.py; affine_mode='reference', face_compact=False,
+    crop_impl='mxu' and face_input='guide' since they were:
+    tests/test_torch_face_options.py, test_torch_face_sources.py; a value
+    the reference does not have stays refused)."""
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         Engine(1, preset("active", **override, **GEOM), device="cpu")
 

@@ -121,19 +121,25 @@ def test_engine_cuda_without_card_raises():
 
 
 def test_engine_refuses_unported_statics():
-    with pytest.raises(NotImplementedError):
-        Engine(1, preset("fast_int8_pico", face_tracking="translation",
+    """The s2d layout serves the int8 MatteNetHD alone: another matting
+    architecture is refused (translation tracking, once refused here, is
+    served: tests/test_torch_face_sources.py)."""
+    with pytest.raises(NotImplementedError, match="matting_arch"):
+        Engine(1, preset("fast_int8_pico", matting_arch="recurrent",
                          frame_hw=(80, 160), mask_hw=(32, 64)), device="cpu")
 
 
 @pytest.mark.parametrize("override", [
-    {"affine_mode": "reference"}, {"guide_kernel_unfold": "yes"}, {"refine_alpha_src": "half"},
-    {"face_input": "frames"}, {"face_compact": False}, {"matting_decoder": "lite"},
+    {"affine_mode": "conjugate"}, {"guide_kernel_unfold": "yes"}, {"refine_alpha_src": "half"},
+    {"face_input": "mask"}, {"face_compact": "yes"}, {"matting_decoder": "lite"},
     {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}, {"warp_impl": "exact"},
     {"matting_precision": "bf16"}])
 def test_engine_refuses_unserved_options(override):
-    """The presets are served as they stand; any other value of a static
-    the step reads is refused, not silently served another way."""
+    """The presets are served as they stand and with the options the port
+    serves; any other value of a static the step reads is refused, not
+    silently served another way (affine_mode='reference', face_input=
+    'frames' and face_compact=False, once refused here, are served:
+    tests/test_torch_face_options.py, test_torch_face_sources.py)."""
     for name in ("fast_int8_pico", "fast_int8_micro", "fast_int8", "fast_int8_lite"):
         with pytest.raises(NotImplementedError, match=next(iter(override))):
             Engine(1, preset(name, **override, **FACE_GEOM), device="cpu")

@@ -26,7 +26,6 @@ Tolerances, with their reasons:
 """
 
 import dataclasses
-import re
 
 import flax.linen as nn
 import jax
@@ -198,31 +197,24 @@ def test_presets_as_the_reference_defines_them():
 def test_check_statics_serves_the_six_and_refuses_three():
     """The six presets, fast and multiclass are served as they stand, and
     use_fused_refine=False on every single-class route (fast's included);
-    of the reference's presets only fast_int8_pico_refface is refused,
-    naming its ROADMAP item."""
+    every one of the reference's presets is served now (the last refused
+    one, fast_int8_pico_refface, too: tests/test_torch_refface.py)."""
     for name in SIX + ("fast", "multiclass"):
         TPL.check_statics(preset(name))
     for name in list_presets():
         st = preset(name)
-        if st.num_classes == 1 and name != "fast_int8_pico_refface":
+        TPL.check_statics(st)
+        if st.num_classes == 1:
             TPL.check_statics(dataclasses.replace(st, use_fused_refine=False))
-    refused = []
-    for name in list_presets():
-        try:
-            TPL.check_statics(preset(name))
-        except NotImplementedError as e:
-            refused.append(name)
-            assert re.search(re.escape("ROADMAP Queue 1 item 6"), str(e)), (name, e)
-    assert refused == ["fast_int8_pico_refface"]
 
 
 @pytest.mark.parametrize("override", [
-    {"face_tracking": "translation"}, {"matting_arch": "recurrent"},
+    {"face_tracking": "optical_flow"}, {"matting_arch": "recurrent"},
     {"matting_arch": "saliency"}, {"temporal_filter": "median"}, {"warp_blend_mode": "min"}])
 def test_check_statics_refuses_what_stays_unserved(override):
-    """Translation tracking and the recurrent and saliency models on the
-    s2d layout, and values the reference does not have, are refused by
-    name."""
+    """The recurrent and saliency models on the s2d layout, and values the
+    reference does not have, are refused by name (translation tracking on
+    the s2d layout is served: tests/test_torch_face_sources.py)."""
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         TPL.check_statics(preset("fast_int8_pico", **override, **GEOM))
 

@@ -3,9 +3,11 @@ preset and ``active``'s options): the JAX Engine and the port's over the
 same 8 steps of tests/test_torch_active.py (its frames, backgrounds, the
 AFFINE0 state, stream 0 evicted and re-admitted at step 3), plus a
 teacher-forced port run that starts each step from the JAX state and takes
-the JAX step's face prior.  The JAX side gets a ``ModelBundle`` (no flax
-init) and ``use_fused_refine=True, debug_face_outputs=True``, so that its
-Pallas kernels run in interpret mode and its prior is exported."""
+the JAX step's face prior (through the compacted face subpath, or with
+``face_compact=False`` the subpath on all streams).  The JAX side gets a
+``ModelBundle`` (no flax init) and ``use_fused_refine=True,
+debug_face_outputs=True``, so that its Pallas kernels run in interpret mode
+and its prior is exported."""
 
 import functools
 
@@ -54,7 +56,9 @@ def run_engines(name: str, over: dict, jax_model, tree: dict, frames: list):
     ``over`` and ``jax_model`` over ``tree``, the port's Engine on the same
     tree, and the teacher-forced port run, each driven by ``_drive``."""
     faces = face_trees()
-    jst = jax_preset(name, use_fused_refine=True, debug_face_outputs=True, **over, **GEOM)
+    # ``over`` may replace the geometry's fields (a mask of another aspect)
+    over = {**GEOM, **over}
+    jst = jax_preset(name, use_fused_refine=True, debug_face_outputs=True, **over)
     bundle = ModelBundle(jax_model, jax.tree_util.tree_map(jnp.asarray, tree),
                          models.FaceFinder(input_size=GEOM["fd_size"]), faces["facefinder"],
                          models.LandmarkNet(), faces["landmarknet"])
@@ -64,11 +68,12 @@ def run_engines(name: str, over: dict, jax_model, tree: dict, frames: list):
     jouts = _drive(je, frames, bgs)
     kw = dict(params=tree, face_params={"face": faces["facefinder"],
                                         "lmk": faces["landmarknet"]}, device="cpu")
-    st = preset(name, **over, **GEOM)
+    st = preset(name, **over)
     touts = _drive(Engine(2, st, **kw), frames, bgs)
 
     tf = Engine(2, st, **kw)
-    real = TPL.face_subpath_compact
+    target = "face_subpath_compact" if st.face_compact else "face_subpath"
+    real = getattr(TPL, target)
     step_t = {}
 
     def forced_face(*args, **kwargs):
@@ -83,11 +88,11 @@ def run_engines(name: str, over: dict, jax_model, tree: dict, frames: list):
         tf.state = StreamState(**{k: torch.tensor(v) for k, v in jouts[t]["state_in"].items()},
                                rec=tf.state.rec)
 
-    TPL.face_subpath_compact = forced_face
+    setattr(TPL, target, forced_face)
     try:
         forced = _drive(tf, frames, bgs, before_step=set_state)
     finally:
-        TPL.face_subpath_compact = real
+        setattr(TPL, target, real)
     return jouts, touts, forced
 
 

@@ -13,6 +13,9 @@ export``, which restores the checkpoints with the reference).
   the port's own quantizer.
 * :func:`load_quantized`: the reference's already-quantized dict
   (``quantize_mattenet_hd`` output) -> the same serving dict.
+* :func:`load_quantized_face`: the reference's quantized FaceFinder or
+  LandmarkNet dict (``models/quantized_face.py``) -> the dict the port's
+  int8 face models (models/quantized_face.py) take.
 * :func:`float_tree`: a reference flax float tree (MatteNet, with one
   class or K, RecurrentMatteNet, SaliencyNet, the plan-A MatteNetHD,
   FaceFinder, LandmarkNet) -> the numpy tree the port's float models load.
@@ -64,6 +67,22 @@ def load_quantized(q: dict) -> dict:
     for name, layer in q.items():
         if name in _UNSERVED or not isinstance(layer, dict):
             continue
+        if "wq" in layer:
+            out[name] = {"wq": np.asarray(layer["wq"], np.int8),
+                         "mult": np.asarray(layer["mult"], np.float32),
+                         "bias": np.asarray(layer["bias"], np.float32)}
+        else:
+            out[name] = {f: np.asarray(layer[f], np.float32) for f in ("kernel", "bias")}
+    return out
+
+
+def load_quantized_face(q: dict) -> dict:
+    """The reference's quantized face dict (numpy leaves, or anything
+    ``np.asarray`` takes): every int8 conv as ``wq`` s8, ``mult`` and
+    ``bias`` f32; LandmarkNet's float ``Dense_0`` as ``kernel`` and
+    ``bias`` f32."""
+    out = {}
+    for name, layer in q.items():
         if "wq" in layer:
             out[name] = {"wq": np.asarray(layer["wq"], np.int8),
                          "mult": np.asarray(layer["mult"], np.float32),

@@ -72,10 +72,12 @@ def _folded(p, st, name):
     )
 
 
-def _qconvbn(p, st, name):
+def _qconvbn(p, st, name, in_scale: float = ACT_SCALE):
+    """A ConvBN folded and quantized; ``in_scale`` is its input lattice's
+    step (the relu6 lattice, or the face models' 1/127 input)."""
     w, b = _folded(p, st, name)
     wq, sw = _quant_w(w)
-    return {"wq": wq, "mult": (ACT_SCALE * sw).astype(np.float32),
+    return {"wq": wq, "mult": (in_scale * sw).astype(np.float32),
             "bias": b.astype(np.float32)}
 
 

@@ -1,6 +1,10 @@
-"""Detector post-processing: anchors, anchor decode, best box (port of
-``ops/detect.py``; the reference client's runFaceDetector takes the
-argmax-score anchor with no NMS)."""
+"""Detector post-processing: anchors, anchor decode, best box, box IoU and
+greedy NMS (port of ``ops/detect.py``; the reference client's
+runFaceDetector takes the argmax-score anchor with no NMS; the NMS is the
+one baked into ``blaze.onnx``, which utils/onnx_exec.py runs as
+:func:`nms_padded`).  The NMS loops have a static trip count and read
+nothing back to the host: no ``nonzero``, no ``.item()``, no boolean-mask
+indexing."""
 
 from __future__ import annotations
 
@@ -74,3 +78,67 @@ def best_box_decode(coords: torch.Tensor, scores: torch.Tensor, video_hw,
     y1 = torch.clamp(p1[..., 1], 0, vh)
     valid = (x1 > x0) & (y1 > y0)
     return torch.stack([x0, y0, x1, y1], dim=-1), score, valid
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU between ``[..., N, 4]`` and ``[..., M, 4]`` corner boxes ->
+    ``[..., N, M]`` (0 where the union is empty)."""
+    ax0, ay0, ax1, ay1 = (a[..., :, None, i] for i in range(4))
+    bx0, by0, bx1, by1 = (b[..., None, :, i] for i in range(4))
+    iw = torch.clamp(torch.minimum(ax1, bx1) - torch.maximum(ax0, bx0), min=0)
+    ih = torch.clamp(torch.minimum(ay1, by1) - torch.maximum(ay0, by0), min=0)
+    inter = iw * ih
+    area_a = torch.clamp(ax1 - ax0, min=0) * torch.clamp(ay1 - ay0, min=0)
+    area_b = torch.clamp(bx1 - bx0, min=0) * torch.clamp(by1 - by0, min=0)
+    union = area_a + area_b - inter
+    return torch.where(union > 0, inter / union, torch.zeros((), dtype=inter.dtype,
+                                                             device=inter.device))
+
+
+def _greedy(boxes: torch.Tensor, scores: torch.Tensor, alive: torch.Tensor, n_out: int,
+            iou_threshold):
+    """``n_out`` rounds of greedy NMS from the ``alive [N]`` candidates:
+    each takes the highest-scoring one left (the first on a tie, as
+    ``jnp.argmax``), drops it and the boxes overlapping it by more than
+    ``iou_threshold``.  Returns the picks ``[n_out]`` and whether each
+    found a candidate ``[n_out]``; a round that finds none changes
+    nothing."""
+    n = boxes.shape[0]
+    pos = torch.arange(n, device=boxes.device)
+    ninf = torch.full((1,), float("-inf"), dtype=scores.dtype, device=scores.device)
+    idxs, oks = [], []
+    for _ in range(n_out):
+        masked = torch.where(alive, scores, ninf)
+        idx = torch.argmax(masked, dim=0, keepdim=True)  # [1]: no 0-d index
+        ok = masked.gather(0, idx) > ninf
+        suppress = box_iou(boxes.index_select(0, idx), boxes)[0] > iou_threshold
+        alive = torch.where(ok, alive & ~suppress & (pos != idx), alive)
+        idxs.append(idx)
+        oks.append(ok)
+    return torch.cat(idxs), torch.cat(oks)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.3,
+        score_threshold: float = 0.5, max_detections: int = 5):
+    """Greedy NMS with a static output size (the NMS of ``blaze.onnx``:
+    conf_threshold, iou_threshold, max_detections).  boxes ``[N, 4]``,
+    scores ``[N]``; a candidate needs ``score >= score_threshold``.
+    Returns (boxes ``[K, 4]``, scores ``[K]``, valid ``[K]``), K =
+    ``max_detections``, by descending score; invalid slots are zero."""
+    idx, ok = _greedy(boxes, scores, scores >= score_threshold, max_detections,
+                      iou_threshold)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    return (torch.where(ok[:, None], boxes.index_select(0, idx), zero),
+            torch.where(ok, scores.index_select(0, idx), zero), ok)
+
+
+def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, capacity: int,
+               iou_threshold: float, score_threshold: float):
+    """Greedy NMS returning padded indices: the static-shape form of ONNX
+    NonMaxSuppression.  boxes ``[N, 4]`` corner format (either axis order:
+    the IoU is symmetric in it), scores ``[N]``; a candidate needs ``score >
+    score_threshold``.  Returns (idx ``[capacity]`` int32, valid
+    ``[capacity]`` bool) in descending score order of the kept boxes (an
+    invalid slot holds the argmax over no candidate: index 0)."""
+    idx, ok = _greedy(boxes, scores, scores > score_threshold, capacity, iou_threshold)
+    return idx.to(torch.int32), ok

@@ -42,21 +42,29 @@ def estimate_similarity_transform(dst_pts: torch.Tensor, ref_pts: torch.Tensor):
     return torch.stack([s * cos_t, -s * sin_t, tx, s * sin_t, s * cos_t, ty], dim=-1)
 
 
-def affine_video_to_mask(affine_v: torch.Tensor, video_hw, mask_hw) -> torch.Tensor:
-    """Video-pixel affine -> mask-pixel affine, conjugated by ``S =
-    diag(sx, sy)`` (the reference's ``mode='exact'``; the served presets
-    use no other)."""
+def affine_video_to_mask(affine_v: torch.Tensor, video_hw, mask_hw,
+                         mode: str = "exact") -> torch.Tensor:
+    """Video-pixel affine -> mask-pixel affine.  ``mode='exact'``: the
+    conjugation by ``S = diag(sx, sy)`` (the intended map);
+    ``'reference'``: the reference application's own, which scales only
+    tx and ty and keeps the linear part in video units."""
     vh, vw = video_hw
     mh, mw = mask_hw
     sx, sy = mw / vw, mh / vh
     a11, a12, tx, a21, a22, ty = affine_v.unbind(-1)
+    if mode == "reference":
+        return torch.stack([a11, a12, tx * sx, a21, a22, ty * sy], dim=-1)
+    if mode != "exact":
+        raise ValueError(f"unknown mode: {mode}")
     return torch.stack([a11, a12 * (sx / sy), tx * sx, a21 * (sy / sx), a22, ty * sy],
                        dim=-1)
 
 
-def affine_from_landmarks(points_full: torch.Tensor, video_hw, mask_hw) -> torch.Tensor:
+def affine_from_landmarks(points_full: torch.Tensor, video_hw, mask_hw,
+                          mode: str = "exact") -> torch.Tensor:
     """468 landmark positions in video pixels ``[..., 468, 2]`` -> the
-    mask-space affine of the 5 anchors against :data:`REF_NORM`."""
+    mask-space affine of the 5 anchors against :data:`REF_NORM` (``mode``:
+    :func:`affine_video_to_mask`'s)."""
     vh, vw = video_hw
     dev = points_full.device
     idx = device_const("anchor_idxs", dev, lambda: torch.tensor(ANCHOR_IDXS))
@@ -64,7 +72,7 @@ def affine_from_landmarks(points_full: torch.Tensor, video_hw, mask_hw) -> torch
     ref = device_const(("ref_norm", vw, vh, points_full.dtype), dev, lambda: torch.tensor(
         [(x * vw, y * vh) for x, y in REF_NORM], dtype=points_full.dtype))
     affine_v = estimate_similarity_transform(dst, ref.expand(dst.shape))
-    return affine_video_to_mask(affine_v, video_hw, mask_hw)
+    return affine_video_to_mask(affine_v, video_hw, mask_hw, mode)
 
 
 def letterbox_params(src_hw, target: int):

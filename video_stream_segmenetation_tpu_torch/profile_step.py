@@ -2,16 +2,20 @@
 
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
         [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|fast|multiclass|
-                  nano|femto|blaze|branch|rvm|u2|train ...]
+                  nano|femto|blaze|branch|rvm|u2|refface|pico_int8face|
+                  pico_uncompacted|pico_translation|train ...]
 
-For each configuration (default: all sixteen) it builds Engine(S, preset):
+For each configuration (default: all twenty) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
 weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite``,
 ``active``, ``fast``, ``multiclass``, ``nano``, ``femto``, ``blaze``,
 ``branch``, ``rvm`` and ``u2`` are fast_int8_pico, fast_int8_micro,
 multiclass_fast_pico, multiclass_fast, fast_int8, fast_int8_lite, active,
 fast, multiclass, fast_int8_nano, fast_int8_femto, blaze_tracking, branch,
-rvm and u2 as their presets stand
+rvm and u2 as their presets stand, ``refface`` is fast_int8_pico_refface
+(the MediaPipe face graphs), ``pico_int8face``, ``pico_uncompacted`` and
+``pico_translation`` fast_int8_pico with face_precision='int8',
+face_compact=False and face_tracking='translation',
 with the committed trained weights and frames (branch with its even
 streams' affine primed, as chip_smoke.py's phase).  It warms the engine
 up, then
@@ -20,7 +24,9 @@ up, then
     the trunk -- for micro its convolutions and its decoder levels plus
     head apart; the kernels of micro's decoder and of the pico/nano, full
     and light trunks one by one by torch.profiler --,
-    upsample, guide, face subpath, refine kernel, packed composite,
+    upsample, guide, face subpath (the compacted one, or on all the
+    streams without compaction, or the translation subpath), refine
+    kernel, packed composite,
     unpack; for the multi-class presets: the K=4 trunk, the per-class
     upsample and softmax, the simplex EMA, the per-class composite and its
     blurred guide; for active: the f32 conversion and gather resize, the
@@ -68,6 +74,10 @@ CONFIGS = {
     "branch": ("branch", {}, True),
     "rvm": ("rvm", {}, True),
     "u2": ("u2", {}, True),
+    "refface": ("fast_int8_pico_refface", {}, True),
+    "pico_int8face": ("fast_int8_pico", {"face_precision": "int8"}, True),
+    "pico_uncompacted": ("fast_int8_pico", {"face_compact": False}, True),
+    "pico_translation": ("fast_int8_pico", {"face_tracking": "translation"}, True),
 }
 # branch: the even streams start with this affine (chip_smoke.py's
 # PRIMED_AFFINE), so that its max blend runs
@@ -372,7 +382,7 @@ def _refine_stages(eng, logits, fp, stages, out_dtype):
         depth_to_space,
         guide_from_s2d,
     )
-    from video_stream_segmenetation_tpu_torch.runtime.pipeline import face_subpath_compact
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline as P
 
     st = eng.statics
     s = fp.shape[0]
@@ -384,11 +394,25 @@ def _refine_stages(eng, logits, fp, stages, out_dtype):
     alpha = alpha.contiguous()
     stages["planar guide"], guide = _event_ms(
         lambda: guide_from_s2d(fp, (fh, fw), (mh, mw), blk).contiguous())
-    if st.face_path:
-        gate = torch.ones((s,), dtype=torch.bool, device=dev)
+    gate = torch.ones((s,), dtype=torch.bool, device=dev)
+    fstat = P.face_statics(st)
+    models = {"reference": "MediaPipe graphs", "fast": st.face_precision}[st.face_models]
+    if st.face_path and st.face_tracking == "translation":
+        stages[f"translation subpath ({st.fd_size} resize of all {s} guides, detector)"], _ = \
+            _event_ms(lambda: P.face_translation_subpath(
+                eng.face_models.face, P.face_image(guide, planar=True), eng.state, fstat, gate))
+        prior = torch.zeros((s, 4), device=dev)
+        has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
+    elif st.face_path and not st.face_compact:
+        stages[f"face subpath on all {s} streams ({models})"], face = _event_ms(
+            lambda: P.face_subpath(eng.face_models, P.face_f32(guide, planar=True), gate,
+                                   fstat))
+        prior, has_prior = face[0].contiguous(), face[1]
+    elif st.face_path:
         fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
-        stages[f"face subpath (K={-(-s // st.lmk_interval)} of {s} streams)"], face = \
-            _event_ms(lambda: face_subpath_compact(eng.face_models, guide, fidx, gate, st))
+        stages[f"face subpath (K={-(-s // st.lmk_interval)} of {s} streams, {models})"], \
+            face = _event_ms(lambda: P.face_subpath_compact(eng.face_models, guide, fidx, gate,
+                                                            st))
         prior, has_prior = face[0].contiguous(), face[1]
     else:
         prior = torch.zeros((s, 4), device=dev)

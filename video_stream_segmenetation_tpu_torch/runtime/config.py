@@ -101,7 +101,9 @@ class PipelineStatics:
     face_score_thresh: float = 0.6  # FACE_SCORE_THRESH (:35)
     lmk_score_thresh: float = 0.3  # (:143)
     roi_pad: float = 0.25  # cropFaceROI pad (:139)
-    affine_mode: str = "exact"  # the port serves 'exact' conjugation only
+    # the landmark affine into mask pixels: 'exact' (the conjugation by the
+    # scale) or 'reference' (the reference client's: tx and ty scaled only)
+    affine_mode: str = "exact"
     # 'image' (each stream's own, Engine.set_background), 'color' (one solid
     # bg_color for every stream) or 'blur' (each frame blurred, Gaussian of
     # bg_blur_sigma pixels); the multi-class step composites by
@@ -114,7 +116,7 @@ class PipelineStatics:
     # Procrustes similarity (the active frameProcessorTest.ts pipeline);
     # 'translation' = detector-center delta only (the BlazeFace variant,
     # frameProcessor.ts:369-386: plain fd_size resize, center delta x gain,
-    # no prior; the port serves it on the natural layout's frames)
+    # no prior; on the face source of face_input, either layout)
     face_tracking: str = "landmarks"
     translation_gain: float = 0.9  # WARP_GAIN (frameProcessor.ts:26)
     # temporal filter: 'ema' (frameProcessorTest.ts:218-227), 'hole_fill'
@@ -126,8 +128,8 @@ class PipelineStatics:
     # variants run without morphology, and then without the refine kernels)
     morphology: bool = True
     # cadence compaction: the face models run on the <= face_batch streams
-    # whose cadence fires (0 = ceil(S / lmk_interval)); the port serves
-    # face_compact=True only
+    # whose cadence fires (0 = ceil(S / lmk_interval)); False runs them on
+    # all S streams, gated by the cadence
     face_compact: bool = True
     face_batch: int = 0
     # prev-alpha warp: 'separable' (scale + translate, inside the fused
@@ -152,7 +154,7 @@ class PipelineStatics:
     use_fused_composite: Any = False
     # the letterbox of the face path and the natural layout's resize to the
     # mask: 'gather' (two-tap gathers) or 'mxu' (interpolation products);
-    # the ROI crop likewise.  Natural frames take either, s2d frames 'mxu'
+    # the ROI crop likewise, on either layout
     resize_impl: str = "gather"
     crop_impl: str = "gather"
     # the 'mxu' resize to the mask: 'fast' (one bf16 pass, the TPU's
@@ -163,8 +165,9 @@ class PipelineStatics:
     # MatteNetHD on s2d-packed frames, or the float plan-A MatteNetHD on
     # natural frames, the fast preset; its strided stem does the resize)
     matting_input: str = "resized"
-    # face source: 'frames' (the full-resolution u8 frames; the natural
-    # layout) or 'guide' (the mask-resolution planar u8 guide; s2d)
+    # face source: 'frames' (the full-resolution frames; on s2d the packed
+    # frames of the gathered streams unpacked) or 'guide' (the
+    # mask-resolution guide: the face path then works in mask coordinates)
     face_input: str = "frames"
     # the bilateral guide with matting_input='native': 'bilinear' (the
     # frame resized to the mask, u8-rounded) or 'nearest_u8' (nearest taps
@@ -212,9 +215,13 @@ class PipelineStatics:
     # 3x3 stride-1 requant convs run through kernels/conv_int8.py
     int8_conv_impl: str = "xla"
     # the face subpath's models: 'fast' (the FaceFinder and LandmarkNet
-    # students) or 'reference' (the imported MediaPipe graphs; the port
-    # refuses it: ROADMAP Queue 1 item 6)
+    # students) or 'reference' (the reference application's MediaPipe
+    # graphs, models/reference_face.py; fd_size 256 and lmk_size 192, served
+    # in f32 whatever face_precision says)
     face_models: str = "fast"
+    # the fast face models' precision: 'bf16' (models/blazeface.py,
+    # facemesh.py) or 'int8' (models/quantized_face.py)
+    face_precision: str = "bf16"
     # 'int8' | 'bf16' -- the alpha head: int8 on u1 (in the trunk kernel),
     # or u1 out of the trunk and a bf16 conv with the float head
     int8_head_impl: str = "int8"

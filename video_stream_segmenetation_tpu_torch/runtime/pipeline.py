@@ -20,13 +20,17 @@ s2d layout), face path on or off, and the multi-class step of
     logits instead (the refine kernel upsamples them), with
     guide_kernel_unfold=True the guide's raw tap lanes (gathered here, or
     with guide_source='host' handed in beside the packed frames);
-    -> face subpath, compacted to the <= K streams whose cadence fires,
-       on the full-resolution frames (frame coordinates) or the guide
-       (mask coordinates): letterbox -> FaceFinder -> best box -> prior
-       (4 scalars or the rendered plane) -> ROI crop -> LandmarkNet ->
-       Procrustes affine; or, face_tracking='translation', the detector
-       on a plain resize of every stream's frame -> the box centre's
-       delta as an integer translation
+    -> face subpath on the full-resolution frames (frame coordinates;
+       on s2d the packed frames unpacked where they are read) or the
+       guide (mask coordinates), compacted to the <= K streams whose
+       cadence fires (face_compact=False: all S, gated): letterbox ->
+       FaceFinder -> best box -> prior (4 scalars or the rendered plane)
+       -> ROI crop -> LandmarkNet -> Procrustes affine (affine_mode
+       'exact' or the reference client's); the models bf16, int8
+       (face_precision='int8') or the reference application's MediaPipe
+       graphs (face_models='reference'); or, face_tracking='translation',
+       the detector on a plain resize of every firing stream's source ->
+       the box centre's delta as an integer translation
     -> the refine stages by :func:`refine_routing`: the fused temporal
        refine kernel (stages 3-9, the analytic or the plane prior); or
        the warp (separable or 2-D nearest), the blend ('lerp' or 'max')
@@ -124,27 +128,18 @@ from video_stream_segmenetation_tpu_torch.runtime.state import (
 )
 
 # (field, the only value the port serves) -- anything else is refused
-_SERVED = (
-    ("upsample_method", "half_pixel"),
-    ("affine_mode", "exact"),
-)
+_SERVED = (("upsample_method", "half_pixel"),)
 # ... by frame layout: the int8 MatteNetHD over packed frames, or the
 # float models (MatteNet, RecurrentMatteNet, SaliencyNet over resized
 # natural frames; the plan-A MatteNetHD over the natural frames themselves)
 _SERVED_LAYOUT = {
     "s2d": (("matting_input", "native"), ("matting_precision", "int8"),
             ("matting_arch", "feedforward"), ("warp_impl", "separable"),
-            ("upsample_precision", "fast"), ("face_tracking", "landmarks")),
+            ("upsample_precision", "fast")),
     "natural": (("matting_precision", "bf16"),),
 }
 # ... the single-class step's bilateral guide (natural: _ALLOWED_NATURAL)
 _SERVED_GUIDE = {"s2d": (("guide_impl", "nearest_u8"),), "natural": ()}
-# ... with the face path on
-_SERVED_FACE = {
-    "s2d": (("face_compact", True), ("face_input", "guide"), ("crop_impl", "mxu"),
-            ("resize_impl", "mxu")),
-    "natural": (("face_compact", True), ("face_input", "frames"), ("crop_impl", "gather")),
-}
 # the multi-class step bypasses the single-matte stages and the face path
 # (the reference's step never reads face_path): they stay at the
 # reference's defaults; natural frames go to the K-class MatteNet resized
@@ -167,6 +162,10 @@ _ALLOWED = (
     ("upsample_precision", ("fast", "exact")),
     ("upsample_impl", ("mxu", "gather")),
     ("preprocess_precision", ("fast", "exact")),
+    ("resize_impl", ("gather", "mxu")),
+    ("affine_mode", ("exact", "reference")),
+    ("face_models", ("fast", "reference")),
+    ("face_precision", ("bf16", "int8")),
 )
 # the single-class step: the background, the fast refine's inputs ('auto'
 # resolves as off the TPU), and the stage chain's options
@@ -181,10 +180,12 @@ _ALLOWED_SINGLE = (
     ("warp_blend_mode", ("lerp", "max")),
     ("face_tracking", ("landmarks", "translation")),
     ("matting_arch", ("feedforward", "recurrent", "saliency")),
+    ("face_compact", (True, False)),
+    ("face_input", ("frames", "guide")),
+    ("crop_impl", ("gather", "mxu")),
 )
 _ALLOWED_NATURAL = (
     ("matting_input", ("resized", "native")),
-    ("resize_impl", ("gather", "mxu")),
     ("guide_impl", ("bilinear", "nearest_u8")),
 )
 _ALLOWED_S2D = (
@@ -201,25 +202,12 @@ def _refuse(field, got, want, suffix=""):
                               f"only{suffix}")
 
 
-# what the port has not ported yet, by the ROADMAP item that ports it:
-# (field, the value refused, the condition, the item)
-_UNPORTED = (
-    ("face_models", "reference", lambda st: True,
-     "the reference's MediaPipe face graphs: ROADMAP Queue 1 item 6"),
-)
-
-
 def check_statics(statics: PipelineStatics) -> None:
-    """Refuse what the port's steps do not serve.  Still refused, besides
-    :data:`_UNPORTED`: the s2d layout with another matting architecture,
-    the exact warp or translation tracking; on the natural layout the
-    native input (the plan-A MatteNetHD) with another architecture or a
-    stem stride of 8 or more, and the guide as the face source; the face
-    path without compaction; affine_mode='reference'; upsample methods but
-    'half_pixel' (ROADMAP Queue 1 item 6)."""
-    for field, value, when, item in _UNPORTED:
-        if getattr(statics, field) == value and when(statics):
-            raise NotImplementedError(f"{field}={value!r}: {item} is not ported yet")
+    """Refuse what the port's steps do not serve: the s2d layout with
+    another matting architecture or the exact warp; on the natural layout
+    the native input (the plan-A MatteNetHD) with another architecture or
+    a stem stride of 8 or more; upsample methods but 'half_pixel'; and
+    every value the reference does not have."""
     multiclass = statics.num_classes > 1
     layout = statics.frame_layout
     if layout not in _SERVED_LAYOUT:
@@ -227,8 +215,7 @@ def check_statics(statics: PipelineStatics) -> None:
     if multiclass:
         served = _SERVED_MULTICLASS + _SERVED + _SERVED_MULTICLASS_LAYOUT[layout]
     else:
-        served = (_SERVED + _SERVED_LAYOUT[layout] + _SERVED_GUIDE[layout]
-                  + (_SERVED_FACE[layout] if statics.face_path else ()))
+        served = _SERVED + _SERVED_LAYOUT[layout] + _SERVED_GUIDE[layout]
         if layout == "natural" and statics.matting_input == "native":
             # the plan-A float MatteNetHD (mattenet_hd.py:115-186)
             served += (("matting_arch", "feedforward"),)
@@ -260,7 +247,10 @@ def check_statics(statics: PipelineStatics) -> None:
 
 @dataclasses.dataclass
 class FaceModels:
-    """The face subpath's two models (models/blazeface.py, facemesh.py)."""
+    """The face subpath's two models: the FaceFinder and LandmarkNet of
+    models/blazeface.py and facemesh.py, their int8 forms
+    (models/quantized_face.py) or the MediaPipe graphs
+    (models/reference_face.py)."""
 
     face: torch.nn.Module
     lmk: torch.nn.Module
@@ -307,7 +297,7 @@ def face_subpath(models: FaceModels, frames_f32: torch.Tensor, fire: torch.Tenso
     rh = (roi[:, 3] - roi[:, 1])[:, None]
     pts = torch.stack([lmk["landmarks"][..., 0] * rw + roi[:, 0:1],
                        lmk["landmarks"][..., 1] * rh + roi[:, 1:2]], dim=-1)
-    affine_update = affine_from_landmarks(pts, (fh, fw), (mh, mw))
+    affine_update = affine_from_landmarks(pts, (fh, fw), (mh, mw), statics.affine_mode)
     return prior, det_ok, affine_update, lmk_ok, torch.where(fire, score, 0.0)
 
 
@@ -322,38 +312,67 @@ def first_k(fire: torch.Tensor, k: int) -> torch.Tensor:
     return idxs[:k]
 
 
-def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
+def face_image(src: torch.Tensor, planar: bool = False, s2d_block=None,
+               lanes_geom=None) -> torch.Tensor:
+    """A face source as ``[S, h, w, 3]`` images in its own dtype: the
+    guide's tap lanes ``[nl, S, hp, wp]`` reassembled (``lanes_geom``), the
+    packed frames unpacked (``s2d_block``), a planar ``[S, 3, h, w]`` guide
+    made channel-last (``planar``); natural images as they are."""
+    if lanes_geom:
+        src = lanes_to_planar(src, lanes_geom)
+    if s2d_block:
+        src = depth_to_space(src, s2d_block)
+    return src.permute(0, 2, 3, 1) if planar or lanes_geom else src
+
+
+def face_f32(src: torch.Tensor, planar: bool = False, s2d_block=None,
+             lanes_geom=None) -> torch.Tensor:
+    """:func:`face_image` in f32 0..1 (u8 divided by 255)."""
+    img = face_image(src, planar, s2d_block, lanes_geom)
+    return img.to(torch.float32) / 255.0 if img.dtype == torch.uint8 else img.to(torch.float32)
+
+
+def face_statics(statics: PipelineStatics) -> PipelineStatics:
+    """The statics the face subpath works in: with ``face_input='guide'``
+    its source is the mask-resolution guide, so ``frame_hw := mask_hw``."""
+    if statics.face_input == "guide":
+        return dataclasses.replace(statics, frame_hw=statics.mask_hw)
+    return statics
+
+
+def face_subpath_compact(models: FaceModels, src: torch.Tensor,
                          frame_idx: torch.Tensor, face_gate: torch.Tensor,
                          statics: PipelineStatics, prior_form: str = "params",
-                         src_lanes_geom=None):
-    """Cadence-compacted stage 6 on u8 images: the planar guide ``[S, 3,
-    mh, mw]`` (``face_input='guide'``: the face path works in mask
-    coordinates), or with ``src_lanes_geom=(fy, fx)`` the guide's tap lanes
-    ``[nl, S, hp, wp]`` (gathered on the stream axis; only the gathered
-    streams are reassembled), or the natural frames ``[S, H, W, 3]``
-    (``face_input='frames'``: frame coordinates).  The streams whose
-    cadence fires (``frame_idx % lmk_interval == 0`` and the engine's
-    ``face_gate``) are gathered in u8, at most K = ``face_batch`` or
-    ceil(S / lmk_interval) of them (overflow streams skip this round, as
-    in the reference), converted to f32 0..1 and scattered back after.
+                         src_lanes_geom=None, src_planar=None, s2d_block=None):
+    """Cadence-compacted stage 6 (the reference's ``_face_subpath_compact``)
+    on a face source: the planar u8 guide ``[S, 3, mh, mw]``
+    (``src_planar``, by default ``face_input='guide'``), its tap lanes
+    ``[nl, S, hp, wp]`` (``src_lanes_geom=(fy, fx)``: gathered on the
+    stream axis, and only the gathered streams are reassembled), a
+    channel-last guide ``[S, mh, mw, 3]`` (u8, or the f32 resize of the
+    natural layout), the natural frames ``[S, H, W, 3]``, or the packed
+    frames (``s2d_block``: only the gathered streams are unpacked); with
+    ``face_input='guide'`` the face path works in mask coordinates.  The
+    streams whose cadence fires (``frame_idx % lmk_interval == 0`` and the
+    engine's ``face_gate``) are gathered, at most K = ``face_batch`` or
+    ceil(S / lmk_interval) of them (overflow streams skip this round, as in
+    the reference), converted to f32 0..1 and scattered back after.
     Returns what :func:`face_subpath` returns, for all S streams."""
     axis = 1 if src_lanes_geom else 0
-    s = src_u8.shape[axis]
-    planar = statics.face_input == "guide"
-    fstat = dataclasses.replace(statics, frame_hw=statics.mask_hw) if planar else statics
+    s = src.shape[axis]
+    planar = statics.face_input == "guide" if src_planar is None else src_planar
+    fstat = face_statics(statics)
     fire = ((frame_idx % statics.lmk_interval) == 0) & face_gate
 
     def to_f32(g):
-        if src_lanes_geom:
-            g = lanes_to_planar(g, src_lanes_geom)
-        return (g.permute(0, 2, 3, 1) if planar else g).to(torch.float32) / 255.0
+        return face_f32(g, planar, s2d_block, src_lanes_geom)
 
     k = statics.face_batch or max(1, -(-s // statics.lmk_interval))
     if k >= s:
-        return face_subpath(models, to_f32(src_u8), fire, fstat, prior_form)
+        return face_subpath(models, to_f32(src), fire, fstat, prior_form)
     idxs = first_k(fire, k)
     sel_valid = idxs < s
-    f_sel = to_f32(torch.index_select(src_u8, axis, torch.clamp(idxs, max=s - 1)))
+    f_sel = to_f32(torch.index_select(src, axis, torch.clamp(idxs, max=s - 1)))
     outs = face_subpath(models, f_sel, sel_valid, fstat, prior_form)
 
     def scatter(v):  # row s takes the fill indices and is dropped
@@ -363,24 +382,27 @@ def face_subpath_compact(models: FaceModels, src_u8: torch.Tensor,
     return tuple(scatter(v) for v in outs)
 
 
-def face_translation_subpath(face_model, frames_u8: torch.Tensor, state: StreamState,
+def face_translation_subpath(face_model, frames: torch.Tensor, state: StreamState,
                              statics: PipelineStatics, face_gate: torch.Tensor):
     """Translation-only tracking (the BlazeFace variant, runBlazeFace +
     warpTranslate, frameProcessor.ts:244-342,369-386; the reference's
-    ``_face_translation_subpath``) on the natural frames ``[S, H, W, 3]``
-    u8, every stream whose cadence fires (no compaction): the detector on
-    a plain ``fd_size`` asymmetric resize (no letterbox), the best box's
-    centre in mask coordinates (JS round and clamp), its delta against the
-    previous centre times ``translation_gain``, truncated to an integer
-    translation affine.  No landmarks, no prior.
+    ``_face_translation_subpath``) on ``frames [S, h, w, 3]`` (u8, or f32
+    0..1; ``statics.frame_hw`` is their size), every stream whose cadence
+    fires (no compaction): the detector on a plain ``fd_size`` asymmetric
+    resize (no letterbox), the best box's centre in mask coordinates (JS
+    round and clamp), its delta against the previous centre times
+    ``translation_gain``, truncated to an integer translation affine.  No
+    landmarks, no prior.
 
     Returns (affine_update [S, 6], has_update [S], det_score [S],
     new_center [S, 2], new_has_center [S])."""
-    s = frames_u8.shape[0]
+    s = frames.shape[0]
     mh, mw = statics.mask_hw
     fh, fw = statics.frame_hw
     fire = ((state.frame_idx % statics.lmk_interval) == 0) & face_gate
-    fd_in = resize_frames_u8(frames_u8, (statics.fd_size, statics.fd_size), "asymmetric")
+    fd_hw = (statics.fd_size, statics.fd_size)
+    fd_in = (resize_frames_u8(frames, fd_hw, "asymmetric") if frames.dtype == torch.uint8
+             else resize_bilinear(frames.to(torch.float32), fd_hw, method="asymmetric"))
     det = face_model(fd_in)
     box, score, det_valid = best_box_decode(det["box_coords"], det["box_scores"], (fh, fw),
                                             statics.fd_size, letterboxed=False)
@@ -390,7 +412,7 @@ def face_translation_subpath(face_model, frames_u8: torch.Tensor, state: StreamS
     center = torch.stack([cx, cy], dim=-1)
     has_prev = det_ok & state.has_center
     delta = (center - state.face_center) * statics.translation_gain
-    one = torch.ones((s,), dtype=torch.float32, device=frames_u8.device)
+    one = torch.ones((s,), dtype=torch.float32, device=frames.device)
     zero = torch.zeros_like(one)
     affine_update = torch.stack([one, zero, torch.trunc(delta[:, 0]), zero, one,
                                  torch.trunc(delta[:, 1])], dim=-1)
@@ -618,6 +640,8 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     native = statics.matting_input == "native"
     recurrent = statics.matting_arch == "recurrent"
     translation = statics.face_path and statics.face_tracking == "translation"
+    face_guide = statics.face_input == "guide"
+    fstat = face_statics(statics)
     refine_route = refine_routing(statics)
     use_fused, use_fused_tr = refine_route["use_fused"], refine_route["use_fused_tr"]
     prior_form = "params" if refine_route["analytic_prior"] else "plane"
@@ -710,6 +734,7 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                 guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8)
             guide = guide.permute(0, 3, 1, 2).contiguous()
         else:
+            small = None
             # lowres: the head-grid logits; the refine kernel upsamples them
             alpha_raw = (model(frames, lowres=True)["alpha_logit_lr"] if lowres
                          else model(frames)["alpha"])
@@ -724,16 +749,33 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
         new_center, new_has_center = state.face_center, state.has_center
         zero_prior = (lambda: torch.zeros((s, 4) if prior_form == "params" else (s, mh, mw),
                                           dtype=torch.float32, device=dev))
+        if statics.face_path:
+            # the face source (the reference's runtime/pipeline.py:660-690):
+            # the frames (s2d: packed, unpacked where they are read), or the
+            # guide: the natural layout's f32 resize where there is one,
+            # else the planar u8 guide or its tap lanes
+            if not face_guide:
+                src, planar, src_blk, geom = frames, False, None if natural else blk, None
+            elif small is not None:
+                src, planar, src_blk, geom = small, False, None, None
+            else:
+                src, planar, src_blk, geom = guide, True, None, lane_geom
         if translation:
             (affine_update, has_update, det_score, new_center,
-             new_has_center) = face_translation_subpath(face_models.face, frames, state,
-                                                        statics, face_gate)
+             new_has_center) = face_translation_subpath(
+                face_models.face, face_image(src, planar, src_blk, geom), state, fstat,
+                face_gate)
             prior = zero_prior()
             has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
-        elif statics.face_path:
+        elif statics.face_path and statics.face_compact:
             prior, has_prior, affine_update, has_update, det_score = face_subpath_compact(
-                face_models, frames if natural else guide, state.frame_idx, face_gate,
-                statics, prior_form, src_lanes_geom=lane_geom)
+                face_models, src, state.frame_idx, face_gate, statics, prior_form,
+                src_lanes_geom=geom, src_planar=planar, s2d_block=src_blk)
+            prior = prior.contiguous()
+        elif statics.face_path:
+            fire = ((state.frame_idx % statics.lmk_interval) == 0) & face_gate
+            prior, has_prior, affine_update, has_update, det_score = face_subpath(
+                face_models, face_f32(src, planar, src_blk, geom), fire, fstat, prior_form)
             prior = prior.contiguous()
         else:
             prior = zero_prior()

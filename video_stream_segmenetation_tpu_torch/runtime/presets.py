@@ -7,12 +7,12 @@ plan-A MatteNetHD over the natural frames), its alternative pipelines
 application's other frame processors), ``fast_int8``, ``fast_int8_lite``,
 ``fast_int8_pico``, ``fast_int8_nano``, ``fast_int8_femto``,
 ``fast_int8_micro``, ``multiclass`` (the K=4 MatteNet over natural frames),
-``multiclass_fast_pico`` and ``multiclass_fast`` are ported, as the
-reference defines them; ``preset(name, **overrides)`` takes overrides the
-way the reference's does (``face_path=False``, ``frame_hw``, ``mask_hw``,
-``warp_impl='exact'``, ...).  The reference's ``fast_int8_pico_refface``
-is listed so that it is refused (runtime/pipeline.py::check_statics names
-the ROADMAP item that ports it).
+``multiclass_fast_pico``, ``multiclass_fast`` and
+``fast_int8_pico_refface`` (pico with the MediaPipe face graphs) are
+ported, as the reference defines them: all sixteen.  ``preset(name,
+**overrides)`` takes overrides the way the reference's does
+(``face_path=False``, ``frame_hw``, ``mask_hw``, ``warp_impl='exact'``,
+...).
 """
 
 from __future__ import annotations
@@ -79,8 +79,8 @@ _PRESETS = {
     # retrained at 128/128
     "fast_int8_pico": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
                            fd_size=128, lmk_size=128),
-    # pico with the reference's MediaPipe face graphs at 256/192 (:144-161):
-    # refused by the port (ROADMAP Queue 1 item 6)
+    # pico with the reference's MediaPipe face graphs at 256/192 (:144-161),
+    # served in f32 (models/reference_face.py)
     "fast_int8_pico_refface": dict(_FAST_INT8, matting_decoder="pico", refined_dtype="bf16",
                                    fd_size=256, lmk_size=192, face_models="reference"),
     # plan-G femto trunk (:165-180): every trunk level at 128 channels;

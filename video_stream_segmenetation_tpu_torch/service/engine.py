@@ -71,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -90,6 +91,16 @@ from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_ma
 from video_stream_segmenetation_tpu_torch.models.quantized import (
     QuantizedMatteNetHD,
     quantize_mattenet_hd,
+)
+from video_stream_segmenetation_tpu_torch.models.quantized_face import (
+    QuantizedFaceFinder,
+    QuantizedLandmarkNet,
+    quantize_face_finder,
+    quantize_landmark_net,
+)
+from video_stream_segmenetation_tpu_torch.models.reference_face import (
+    ReferenceFaceFinder,
+    ReferenceLandmarkNet,
 )
 from video_stream_segmenetation_tpu_torch.models.rvm import (
     RecurrentMatteNet,
@@ -173,7 +184,10 @@ class Engine:
         float trees, e.g.
         bridge.py::trained_weights); None makes both from ``seed``.
         :meth:`load_matting_params` and :meth:`load_face_params` replace
-        them from ``.npz`` exports.
+        them from ``.npz`` exports.  With ``face_precision='int8'`` the
+        face models serve those trees quantized (models/quantized_face.py);
+        with ``face_models='reference'`` the MediaPipe graphs
+        (:meth:`use_reference_face_models`) serve instead.
 
         ``output_layout``: ``'natural'`` serves the s2d presets' composited
         frames as ``[S, H, W, 3]``; ``'packed'`` serves them as the step
@@ -205,6 +219,10 @@ class Engine:
             bg_shape = (num_streams, fh, fw, 3)
         self.model = self._matting_model(params)
         self._face_params = face_params
+        # which of the two face models are the MediaPipe graphs
+        self._ref_face = {"face": False, "lmk": False}
+        if st.face_models == "reference":
+            self._reference_face_swap()
         self.face_models = self._build_face_models()
         self._build_steps()
         self.state = init_state(num_streams, (mh, mw), device=self.device,
@@ -330,17 +348,66 @@ class Engine:
         return model
 
     def _build_face_models(self) -> FaceModels | None:
+        """The face subpath's two models: each the MediaPipe graph where
+        :meth:`use_reference_face_models` put it, else the fast model on its
+        float tree (:meth:`_swap_in_quantized_face` with
+        ``face_precision='int8'``)."""
         if not self.statics.face_path:
             return None
         if self._face_params is None:
             self._face_params = {"face": init_face_finder_params(self.seed + 1),
                                  "lmk": init_landmark_net_params(self.seed + 2)}
         fm = FaceModels(
-            face=FaceFinder(self._face_params["face"], self.statics.fd_size, device=self.device),
-            lmk=LandmarkNet(self._face_params["lmk"], device=self.device))
+            face=ReferenceFaceFinder(self.device) if self._ref_face["face"] else FaceFinder(
+                self._face_params["face"], self.statics.fd_size, device=self.device),
+            lmk=ReferenceLandmarkNet(self.device) if self._ref_face["lmk"] else LandmarkNet(
+                self._face_params["lmk"], device=self.device))
         freeze(fm.face)
         freeze(fm.lmk)
+        if self.statics.face_precision == "int8":
+            self._swap_in_quantized_face(fm)
         return fm
+
+    def _swap_in_quantized_face(self, fm: FaceModels) -> None:
+        """Replace the fast face models of ``fm`` with their int8 serving
+        graphs, quantized from the current float trees
+        (models/quantized_face.py); a MediaPipe graph stays float."""
+        if not self._ref_face["face"]:
+            fm.face = QuantizedFaceFinder(quantize_face_finder(self._face_params["face"]),
+                                          self.statics.fd_size, device=self.device)
+        if not self._ref_face["lmk"]:
+            fm.lmk = QuantizedLandmarkNet(quantize_landmark_net(self._face_params["lmk"]),
+                                          device=self.device)
+        freeze(fm.face)
+        freeze(fm.lmk)
+
+    def _reference_face_swap(self) -> None:
+        """Check the geometry the MediaPipe graphs need and mark both face
+        models as theirs (what :meth:`use_reference_face_models` and
+        ``face_models='reference'`` do before the models are built)."""
+        st = self.statics
+        fd, lm = ReferenceFaceFinder.input_size, ReferenceLandmarkNet.input_size
+        if st.fd_size != fd or st.lmk_size != lm:
+            raise ValueError(
+                f"reference face graphs need fd_size={fd} / lmk_size={lm} (statics has "
+                f"{st.fd_size}/{st.lmk_size}); build the Engine with matching statics "
+                "before swapping")
+        if st.face_precision == "int8":
+            warnings.warn("face_precision='int8' does not apply to the reference ONNX face "
+                          "graphs; serving them in float", stacklevel=3)
+        self._ref_face = {"face": True, "lmk": True}
+
+    def use_reference_face_models(self) -> None:
+        """Serve the reference application's MediaPipe face graphs
+        (models/reference_face.py) on the face subpath, in f32 (with a
+        warning under ``face_precision='int8'``), and rebuild the steps and
+        the cached round steps.  They need ``fd_size=256`` and
+        ``lmk_size=192``: other statics raise ValueError and leave the
+        engine serving as it was.  A later :meth:`load_face_params`
+        reinstalls the fast models it loads."""
+        self._reference_face_swap()
+        self.face_models = self._build_face_models()
+        self._build_steps()
 
     def _build_steps(self) -> None:
         """(Re)build the serving steps over the current models."""
@@ -365,12 +432,19 @@ class Engine:
     def load_face_params(self, face_path, lmk_path=None) -> None:
         """Serve the FaceFinder tree of the ``.npz`` export ``face_path``
         and, with ``lmk_path``, the LandmarkNet tree of that one (else the
-        current one stays), as the constructor's ``face_params``."""
+        current one stays), as the constructor's ``face_params``; quantized
+        again with ``face_precision='int8'``.  Over a
+        :meth:`use_reference_face_models` swap, the fast FaceFinder comes
+        back, and the fast LandmarkNet with ``lmk_path`` only (else the
+        MediaPipe landmark graph stays, as in the reference)."""
         if lmk_path is not None:
             lmk = load_export(lmk_path)
         else:  # the current tree (drawn from the seed if there is none yet)
             lmk = (self._face_params or {"lmk": init_landmark_net_params(self.seed + 2)})["lmk"]
         self._face_params = {"face": load_export(face_path), "lmk": lmk}
+        self._ref_face["face"] = False
+        if lmk_path is not None:
+            self._ref_face["lmk"] = False
         self.face_models = self._build_face_models()
         self._build_steps()
 
