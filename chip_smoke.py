@@ -23,7 +23,8 @@ Phases, each announced by one line on stdout:
      or not; given the OHWI weights and not) at plan B's layer shapes
      (beside it the trunk's own conv on the same inputs, held and timed as
      its yardstick), the u1-out trunk at pico widths, the
-     natural layout's fused composite (720p, 288x512 alpha), the
+     natural layout's fused composite (720p, 288x512 alpha) at each upsample
+     method's taps (half-pixel, asymmetric, align-corners), the
      plane-prior temporal refine, fused_refine (f32 out), the fast
      form of the temporal refine in its three forms (head-grid logits
      [64, 72, 128], tap lanes [48, 64, 72, 128], both), and the stochastic
@@ -31,10 +32,10 @@ Phases, each announced by one line on stdout:
      +-inf, NaNs, values next to bf16's largest, normals at many scales):
      bit for bit, every output one of its two bf16 neighbours, a block of
      one value rounded up at its probability within 5 sigma;
-  4-33. serve: Engine(64, ...) answers 8 steps of 720p frames in
-     thirty phases, each with every launch count set to 0 just before it and read
-     just after, and none of its steps a passthrough (the engine's count of
-     them must stay 0):
+  4-38. serve: Engine(64, ...) answers 8 steps of 720p frames in
+     thirty-five phases, each with every launch count set to 0 just before it
+     and read just after, and none of its steps a passthrough (the engine's
+     count of them must stay 0):
        4. fast_int8_pico with the face path off, seeded weights, synthetic
           frames (a bright ellipse moving over noise);
        5. fast_int8_pico as its preset stands (face path on, fd/lmk 128,
@@ -99,15 +100,32 @@ Phases, each announced by one line on stdout:
           streams at each cadence step) and with face_tracking=
           'translation' (the detector on every firing stream's guide, the
           centre's delta as a whole-pixel translation);
+      34-38. the serving options of the float MatteNetHD and the upsample
+          and warp: fast with frame_layout='s2d' (the trained plan-A
+          mattenet_hd over packed frames at block 5, its stem one product,
+          the refine kernel once a step); fast_int8_pico with
+          warp_impl='exact', upsample_precision='exact' and
+          upsample_method='align_corners' (the 2-D nearest warp and the EMA
+          in PyTorch, fused_refine once a step, held against its plain
+          version and timed on the last step's inputs, the packed
+          composite's f32 products at the align-corners taps); fast_int8
+          (face path off) and multiclass_fast_pico with
+          matting_precision='bf16' (the float plan B and the float K=4 pico
+          over packed frames, on the seed-0 tree: no committed float
+          export; their map means held to the reference's,
+          REFERENCE_MEANS); active
+          with upsample_method='asymmetric' and use_fused_composite=True
+          (the composite kernel at the asymmetric taps);
      each checks shapes, dtypes, value ranges, the alpha against the frames'
-     ground truth (phases 5-33) or the ellipse (phase 4), that each counted
+     ground truth (phases 5-38) or the ellipse (phase 4), that each counted
      wrapper ran its expected number of times (every other one none), with
      the face path on that it was applied to at least one stream, in phases
-     7-8 and 28 that class_alpha sums to 1 within 1e-3, in phases 7-33 that
-     the IoU is at most 0.02 below the reference engine's, and in every trained
-     s2d phase that the served trunk equals its plain version on two
-     streams; each prints its median step time and the peak device memory;
-  34. degrade: Engine(64, fast_int8_pico) with the trained weights loaded
+     7-8, 28 and 37 that class_alpha sums to 1 within 1e-3, in the phases
+     with a bar that the IoU is at most 0.02 below the reference engine's,
+     and in every trained int8 s2d phase that the served trunk equals its
+     plain version on two streams; each prints its median step time and the
+     peak device memory;
+  39. degrade: Engine(64, fast_int8_pico) with the trained weights loaded
      through load_matting_params/load_face_params from weights/*.npz, its
      step replaced by one that raises, through process and through
      dispatch/collect: two passthrough failures, 'degraded' after the
@@ -116,18 +134,18 @@ Phases, each announced by one line on stdout:
      ones; the step restored and the probe due, the probe serves and
      health reads 'ok'; then one real failure on the card each of an
      out-of-memory and a launch the alpha head's C entry point refuses;
-  35. render: the sample background templates at each privacy level,
+  40. render: the sample background templates at each privacy level,
      rendered at 720p with PIL (background/render.py) and served;
-  36. server: a ControlServer on that engine at 127.0.0.1 on a free port:
+  41. server: a ControlServer on that engine at 127.0.0.1 on a free port:
      /stats, /healthz (503 while degraded), knobs, reset, a background
      colour, the privacy level and a template between served steps;
-  37. chunked, packed: process_chunked(frames, 16) against process on a
+  42. chunked, packed: process_chunked(frames, 16) against process on a
      second engine, element by element; output_layout='packed' after
      depth_to_space against 'natural', byte for byte;
-  38. api: segment, composite (colour, blur, image) and process_frame on
+  43. api: segment, composite (colour, blur, image) and process_frame on
      the committed frames with weights/mattenet.npz, the mask IoU within
      0.02 of the active phase's;
-  39. rotation, the production serving loop: StreamScheduler(Engine(400,
+  44. rotation, the production serving loop: StreamScheduler(Engine(400,
      fast_int8_pico with refine_alpha_src='lowres', guide_kernel_unfold=
      True, guide_source='host'), group_sizes=[96, 96, 96, 96, 16],
      fused_rounds=True) over the port's native FramePool (48 guide lanes
@@ -139,19 +157,19 @@ Phases, each announced by one line on stdout:
      one more round whose trunk and fast refine inputs are kept at each
      group size (96 and 16), and each kernel held against its plain
      version on them at the kernels phase's tolerances;
-  40. rotation failure: on that rotation, one round failing after its
+  45. rotation failure: on that rotation, one round failing after its
      first two groups wrote their rows: every group's input back as
      passthrough, the state restored from the failing dispatch's snapshot
      (affine, has_affine, frame_idx; a cold EMA), three rounds served,
      then one more round with its snapshot under
      set_sync_debug_mode('error');
-  41. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
+  46. routes: S=64 in groups [24, 24, 16], face_min_interval_s=0, the same
      frames through that route with fused rounds and through
      fast_int8_pico as its preset stands under per-group step_pipelined:
      prev_alpha within 1e-5, the refined alpha within 1e-2, IoU within
-     0.001; then on each route a round held as in phase 35 (trunk, fast
+     0.001; then on each route a round held as in phase 44 (trunk, fast
      and analytic refine at 24 and 16 streams);
-  42. refface round: StreamScheduler(Engine(64, fast_int8_pico_refface),
+  47. refface round: StreamScheduler(Engine(64, fast_int8_pico_refface),
      group_sizes=[24, 24, 16], fused_rounds=True), face_min_interval_s=0,
      2 rounds, then one more round whose step runs under
      torch.cuda.set_sync_debug_mode('error') (the MediaPipe graphs make no
@@ -161,7 +179,7 @@ Phases, each announced by one line on stdout:
      detector (256) and landmark graph (192), the int8 and the bf16
      FaceFinder and LandmarkNet (128), and the MediaPipe graphs on the card
      against the CPU on two of those streams;
-  43. train: the plan-D pico MatteNetHD at its full widths, fit on the
+  48. train: the plan-D pico MatteNetHD at its full widths, fit on the
      card with tools/train_flagship.py's schedule at fewer steps (20 at
      240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
      grad_norm finite and every leaf moved; one step's forward and
@@ -887,10 +905,17 @@ def check_fused_refine(dev) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def check_composite(dev) -> dict:
+COMPOSITE_METHODS = ("half_pixel", "asymmetric", "align_corners")
+
+
+def check_composite(dev) -> list[dict]:
     """The natural layout's fused composite at S=64, 720p, a 288x512 alpha
     (random, with rows of 0 and 1), random frames and backgrounds, against
-    its plain version (the matrix form, TF32 off)."""
+    its plain version (the matrix form, TF32 off), at each upsample method's
+    taps (one kernel: the wrapper hands it the method's tap tables).
+    Returns the half-pixel entry and the asymmetric one (the taps a serve
+    phase launches it at); the align-corners form is held and timed here
+    and printed."""
     from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
     from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 
@@ -904,40 +929,50 @@ def check_composite(dev) -> dict:
     alpha = torch.rand((S, mh, mw), generator=gen, device=dev)
     alpha[::3, :40] = 0.0
     alpha[1::3, -40:] = 1.0
-    got = KC.fused_composite(frames, alpha, bg)
     # the one-row background (a colour background's form, bg_stride 0)
     bg1 = bg[:1].contiguous()
-    got1 = KC.fused_composite(frames, alpha, bg1)
-    with pinned():
-        want = KC.fused_composite_plain(frames, alpha, bg)
-        want1 = KC.fused_composite_plain(frames, alpha, bg1)
-    torch.cuda.synchronize()
-    diff = (got.int() - want.int()).abs()
-    err = max(diff.max().item(), (got1.int() - want1.int()).abs().max().item())
-    say(f"  composite_fused: frames {tuple(frames.shape)} alpha {tuple(alpha.shape)}, "
-        f"background of S rows and of one row: max_abs_err {err} u8 steps (tolerance "
-        f"{COMPOSITE_TOL}), values apart {(diff > 0).sum().item()}")
-    if got.dtype != torch.uint8 or err > COMPOSITE_TOL:
-        raise AssertionError(f"composite kernel disagrees with its plain version: {err}")
-    ms = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg), 20)
-    with pinned():
-        plain_ms = cuda_time_ms(lambda: KC.fused_composite_plain(frames, alpha, bg), 3)
     bytes_moved = 3 * frames.numel() + 4 * alpha.numel()
     # a pixel: two vertical taps (f64) of its row value, two horizontal
     # taps, the clip, and per channel the blend and the rounding (~6)
     ops = S * fh * (mw * 3 + fw * (5 + 3 * 6))
     bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
-    ms1 = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg1), 20)
-    bound1_ms, bound1_by = bound(2 * frames.numel() + bg1.numel() + 4 * alpha.numel(), ops,
-                                 F32_OPS_PER_S)
-    say(f"  composite_fused: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {bytes_moved / 1e6:.1f} MB); one-row background {ms1:.3f} ms, bound "
-        f"{bound1_ms:.4f} ms ({bound1_by})")
-    return {"name": "composite_fused", "route": "cuda",
-            "source": "video_stream_segmenetation_tpu_torch/csrc/composite_fused.cu",
-            "replaces": "video_stream_segmenetation_tpu/kernels/composite_fused.py:84",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    entries = []
+    for method in COMPOSITE_METHODS:
+        got = KC.fused_composite(frames, alpha, bg, method=method)
+        got1 = KC.fused_composite(frames, alpha, bg1, method=method)
+        with pinned():
+            want = KC.fused_composite_plain(frames, alpha, bg, method)
+            want1 = KC.fused_composite_plain(frames, alpha, bg1, method)
+        torch.cuda.synchronize()
+        diff = (got.int() - want.int()).abs()
+        err = max(diff.max().item(), (got1.int() - want1.int()).abs().max().item())
+        say(f"  composite_fused ({method}): frames {tuple(frames.shape)} alpha "
+            f"{tuple(alpha.shape)}, background of S rows and of one row: max_abs_err {err} "
+            f"u8 steps (tolerance {COMPOSITE_TOL}), values apart {(diff > 0).sum().item()}")
+        if got.dtype != torch.uint8 or err > COMPOSITE_TOL:
+            raise AssertionError(f"composite kernel ({method}) disagrees with its plain "
+                                 f"version: {err}")
+        ms = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg, method=method), 20)
+        with pinned():
+            plain_ms = cuda_time_ms(
+                lambda: KC.fused_composite_plain(frames, alpha, bg, method), 3)
+        line = (f"  composite_fused ({method}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} MB)")
+        if method == "half_pixel":
+            ms1 = cuda_time_ms(lambda: KC.fused_composite(frames, alpha, bg1), 20)
+            bound1_ms, bound1_by = bound(2 * frames.numel() + bg1.numel() + 4 * alpha.numel(),
+                                         ops, F32_OPS_PER_S)
+            line += f"; one-row background {ms1:.3f} ms, bound {bound1_ms:.4f} ms ({bound1_by})"
+        say(line)
+        if method != "align_corners":
+            entries.append({
+                "name": "composite_fused" + ("" if method == "half_pixel" else f"_{method}"),
+                "route": "cuda",
+                "source": "video_stream_segmenetation_tpu_torch/csrc/composite_fused.cu",
+                "replaces": "video_stream_segmenetation_tpu/kernels/composite_fused.py:84",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
+    return entries
 
 
 
@@ -1064,20 +1099,36 @@ REFERENCE_IOU = {"multiclass_fast_pico": 0.6403, "multiclass_fast": 0.4980,
                  # test_torch_face_options_720p.py, 8 steps, the reference on
                  # its CPU route (the unfused refine chain)
                  "fast_int8_pico_refface": 0.9250, "fast_int8_pico_int8_face": 0.8717,
-                 "fast_int8_pico_uncompacted": 0.7862, "fast_int8_pico_translation": 0.8715}
+                 "fast_int8_pico_uncompacted": 0.7862, "fast_int8_pico_translation": 0.8715,
+                 # tests/test_torch_s2d_options_720p.py, 8 steps: the trained
+                 # plan-A mattenet_hd over packed frames (block 5), and pico
+                 # with the exact warp, exact upsample and align-corners taps
+                 "fast_s2d": 0.5881, "fast_int8_pico_exact_align_corners": 0.8514}
 IOU_SLACK = 0.02
-# The reference engine's mean of each class map over the last step's two
-# streams (tests/test_torch_multiclass_natural.py::test_trained_engine_iou_720p);
-# the served maps' means (each frame on half the streams) are held to them
-# within CLASS_MEAN_TOL (the port on the CPU is within 1e-3)
-REFERENCE_CLASS_MEANS = {"multiclass": (0.8593, 0.0725, 0.0581, 0.0101)}
+# The reference engine's mean of each map over the last step's two streams,
+# by phase label: the class maps of the trained K=4 MatteNet
+# (tests/test_torch_multiclass_natural.py::test_trained_engine_iou_720p), and
+# of the float MatteNetHD forms the card serves on the seed-0 tree (no
+# committed float export), the alpha of float plan B over packed frames and
+# the K=4 float pico's class maps (tests/test_torch_float_hd_720p.py: seeded
+# nets find no person, so these phases have no IoU bar; plan B's with the
+# face path off, whose compaction makes the means depend on S).  The served maps'
+# means (each frame on half the streams) are held to them within
+# CLASS_MEAN_TOL (the port on the CPU is within 1e-3)
+REFERENCE_MEANS = {"multiclass": (0.8593, 0.0725, 0.0581, 0.0101),
+                   "fast_int8, matting_precision='bf16', face_path=False": (0.7663,),
+                   "multiclass_fast_pico, matting_precision='bf16'": (0.2145, 0.2207, 0.3036,
+                                                                       0.2613)}
 CLASS_MEAN_TOL = 5e-3
 
-# serve phases: (label, preset, overrides, trained weights and frames,
-# launches a step of each counted wrapper that runs (every other one must
-# not), the least IoU of the served alpha > 0.5 (multi-class: the
-# foreground) against the frames' ground truth, the kernel entry the
-# trunk_int8 counter's launches go to).  The trained micro checkpoint
+# serve phases: (label, preset, overrides, the weights and frames (True:
+# trained weights and the committed frames; "seeded": the seed-0 matting
+# tree, the trained face models and the committed frames; False: seeded
+# weights and synthetic frames), launches a step of each counted wrapper
+# that runs (every other one must not), the least IoU of the served alpha >
+# 0.5 (multi-class: the foreground) against the frames' ground truth, the
+# kernel entry the trunk_int8 counter's launches go to, or a dict from
+# counter to the entry its launches go to).  The trained micro checkpoint
 # finds little of this person (served IoU about 0.23 on the card, 0.25
 # from the reference's own engine on the CPU, tests/test_torch_micro.py),
 # so micro's IoU is printed, not held to a floor; its served trunk is held
@@ -1155,6 +1206,29 @@ PHASES = (
     ("fast_int8_pico, face_tracking='translation'", "fast_int8_pico",
      {"face_tracking": "translation"}, True, {"trunk_int8": 1, "refine_fused": 1},
      REFERENCE_IOU["fast_int8_pico_translation"] - IOU_SLACK, "trunk_int8"),
+    # the float MatteNetHD over packed frames (trained plan A at block 5;
+    # seeded plan B and the seeded K=4 pico, held to their means); pico
+    # with the exact warp (fused_refine on the s2d route), the packed
+    # composite's f32 products and the align-corners taps; the composite
+    # kernel at the asymmetric taps (active's bar: the alpha does not depend
+    # on the upsample)
+    ("fast, frame_layout='s2d', s2d_block=5", "fast", {"frame_layout": "s2d", "s2d_block": 5},
+     True, {"refine_fused": 1}, REFERENCE_IOU["fast_s2d"] - IOU_SLACK, None),
+    ("fast_int8_pico, warp_impl='exact', upsample_precision='exact', "
+     "upsample_method='align_corners'", "fast_int8_pico",
+     {"warp_impl": "exact", "upsample_precision": "exact", "upsample_method": "align_corners"},
+     True, {"trunk_int8": 1, "fused_refine": 1},
+     REFERENCE_IOU["fast_int8_pico_exact_align_corners"] - IOU_SLACK,
+     {"trunk_int8": "trunk_int8", "fused_refine": "fused_refine_s2d"}),
+    ("fast_int8, matting_precision='bf16', face_path=False", "fast_int8",
+     {"matting_precision": "bf16", "face_path": False}, "seeded", {"refine_fused": 1}, None,
+     None),
+    ("multiclass_fast_pico, matting_precision='bf16'", "multiclass_fast_pico",
+     {"matting_precision": "bf16"}, "seeded", {}, None, None),
+    ("active, upsample_method='asymmetric', use_fused_composite=True", "active",
+     {"upsample_method": "asymmetric", "use_fused_composite": True}, True,
+     {"refine_fused": 1, "composite_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK,
+     {"composite_fused": "composite_fused_asymmetric"}),
 )
 # branch: with the face path off nothing in serving sets an affine, so the
 # even streams start with this 2-pixel shift (mask coordinates) and the max
@@ -1187,12 +1261,22 @@ def _counters():
             "stochastic_round": stochastic_round.stochastic_round_bf16}
 
 
+def phase_label(name: str, overrides=None) -> str:
+    """A serve phase's label: the preset and its overrides."""
+    return name + "".join(f", {k}={v!r}" for k, v in (overrides or {}).items())
+
+
 def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
-          overrides=None, trained: bool = False, min_iou=None) -> dict:
+          overrides=None, trained=False, min_iou=None) -> dict:
     """Drive the port's Engine for ``steps`` steps; returns per-step times,
-    the launch counts of the run, face and quality figures.  With trained
-    weights it then holds the served trunk against its plain version on
-    the last frames of two streams (trained weights, the card's inputs)."""
+    the launch counts of the run, face and quality figures.  ``trained``:
+    True, the trained weights and the committed frames; ``"seeded"``, the
+    seed-0 matting tree with the trained face models, the committed
+    frames; False, seeded weights and synthetic frames.  With the int8
+    trunk on committed frames it then holds the served trunk against its
+    plain version on the last frames of two streams (the card's inputs);
+    the exact warp's fused_refine on the s2d layout is held and timed on
+    the last step's inputs."""
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
@@ -1203,7 +1287,9 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     mh, mw = statics.mask_hw
     rng = np.random.default_rng(0)
     if trained:
-        eng = Engine(num_streams, statics, **bridge.trained_weights(statics), device=device)
+        weights = (bridge.trained_weights(statics) if trained is True else
+                   {"face_params": bridge.face_weights(statics)})
+        eng = Engine(num_streams, statics, **weights, seed=0, device=device)
         clip, gt = bridge.load_frames()
         order = [np.arange(num_streams) % 2, (np.arange(num_streams) + 1) % 2]
         batches = [(clip[o], gt[o] > 127) for o in order]
@@ -1228,20 +1314,24 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     applied = np.zeros((num_streams,), bool)
     prior = np.zeros((num_streams,), bool)
     scores = []
-    held_composite = {}
+    held_composite, held_refine = {}, {}
+    s2d_refine = statics.frame_layout == "s2d" and statics.warp_impl == "exact"
     for t in range(steps):
         if trained:
             frames, truth = batches[t % 2]
         else:
             frames, inside = synthetic_frames(rng, base, t)
         last = t == steps - 1
+        undo = []
         if last and statics.use_fused_composite is True:
-            restore = record_composite(held_composite)
+            undo.append(record_composite(held_composite))
+        if last and s2d_refine:
+            undo.append(record_fused_refine(held_refine))
         t0 = time.perf_counter()
         try:
             out = eng.process(frames)
         finally:
-            if last and statics.use_fused_composite is True:
+            for restore in undo:
                 restore()
         if device != "cpu":
             torch.cuda.synchronize()
@@ -1259,8 +1349,11 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     if passthrough:
         raise AssertionError(f"{passthrough} passthrough steps in a serve phase")
     alpha = out["alpha"].float()
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import refine_routing
+
+    # refined_dtype applies on the fused temporal refine only, as the reference
     want_dtype = (torch.bfloat16 if statics.refined_dtype == "bf16" and not multiclass
-                  else torch.float32)
+                  and refine_routing(statics)["use_fused_tr"] else torch.float32)
     frame = out["frame"]
     if tuple(frame.shape) != (num_streams, fh, fw, 3) or frame.dtype != torch.uint8:
         raise AssertionError(f"frame {tuple(frame.shape)} {frame.dtype}")
@@ -1280,6 +1373,8 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         res["bg_pixels"] = background_check(statics, frames, out)
     if held_composite:
         res["composite_err"] = hold_composite(held_composite)
+    if held_refine:
+        res["fused_refine"] = hold_fused_refine(held_refine)
     if multiclass:
         ca = out["class_alpha"]
         if tuple(ca.shape) != (num_streams, mh, mw, statics.num_classes) \
@@ -1288,13 +1383,15 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         res["simplex_err"] = (ca.sum(-1) - 1.0).abs().max().item()
         if not res["simplex_err"] <= 1e-3:
             raise AssertionError(f"class_alpha sums to 1 only within {res['simplex_err']}")
-        if trained and name in REFERENCE_CLASS_MEANS:
-            res["class_means"] = ca.double().mean(dim=(0, 1, 2)).tolist()
-            err = max(abs(g - w) for g, w in zip(res["class_means"],
-                                                  REFERENCE_CLASS_MEANS[name]))
-            if not err <= CLASS_MEAN_TOL:
-                raise AssertionError(f"class map means {res['class_means']} vs the "
-                                     f"reference's {REFERENCE_CLASS_MEANS[name]}: {err}")
+    ref_means = REFERENCE_MEANS.get(phase_label(name, overrides))
+    if trained and ref_means is not None:
+        maps = out["class_alpha"] if multiclass else alpha[..., None]
+        res["class_means"] = maps.double().mean(dim=(0, 1, 2)).tolist()
+        res["ref_means"] = ref_means
+        err = max(abs(g - w) for g, w in zip(res["class_means"], ref_means))
+        if not err <= CLASS_MEAN_TOL:
+            raise AssertionError(f"map means {res['class_means']} vs the reference's "
+                                 f"{ref_means}: {err}")
     if trained:
         if multiclass:
             pred = (1.0 - out["class_alpha"][..., 0]).cpu().numpy() > 0.5
@@ -1321,7 +1418,7 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
             got = res["prior"] if statics.face_models == "reference" else res["applied"]
             if got == 0:
                 raise AssertionError("the face path was applied to no stream")
-        if statics.frame_layout == "s2d":
+        if statics.frame_layout == "s2d" and statics.matting_precision == "int8":
             res["trunk_err"] = trunk_vs_plain(eng.model, frames[:2], statics.s2d_block)
             if not res["trunk_err"] <= TRUNK_TOL:
                 raise AssertionError(f"served trunk disagrees with its plain version: "
@@ -1345,9 +1442,9 @@ def record_composite(held: dict):
 
     orig = pipeline.fused_composite
 
-    def rec(frames, alpha, background):
-        held.setdefault("args", (frames.clone(), alpha.clone(), background.clone()))
-        return orig(frames, alpha, background)
+    def rec(frames, alpha, background, method="half_pixel"):
+        held.setdefault("args", (frames.clone(), alpha.clone(), background.clone(), method))
+        return orig(frames, alpha, background, method=method)
 
     pipeline.fused_composite = rec
     return lambda: setattr(pipeline, "fused_composite", orig)
@@ -1359,15 +1456,60 @@ def hold_composite(held: dict) -> int:
     from video_stream_segmenetation_tpu_torch.kernels import composite_fused as KC
     from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 
-    frames, alpha, bg = held["args"]
-    got = KC.fused_composite(frames, alpha, bg)
+    frames, alpha, bg, method = held["args"]
+    got = KC.fused_composite(frames, alpha, bg, method=method)
     with pinned():
-        want = KC.fused_composite_plain(frames, alpha.float(), bg)
+        want = KC.fused_composite_plain(frames, alpha.float(), bg, method)
     err = (got.int() - want.int()).abs().max().item()
     if err > COMPOSITE_TOL:
         raise AssertionError(f"composite kernel on a served step's inputs (background "
                              f"{tuple(bg.shape)}) disagrees with its plain version: {err}")
     return err
+
+
+def record_fused_refine(held: dict):
+    """Keep the inputs of the step's next fused_refine call in ``held`` (the
+    call goes on and counts); returns the undo."""
+    from video_stream_segmenetation_tpu_torch.runtime import pipeline
+
+    orig = pipeline.fused_refine
+
+    def rec(alpha, guide, prior, has_prior, knobs):
+        held.setdefault("args", tuple(t.clone() for t in (alpha, guide, prior, has_prior))
+                        + (knobs,))
+        return orig(alpha, guide, prior, has_prior, knobs)
+
+    pipeline.fused_refine = rec
+    return lambda: setattr(pipeline, "fused_refine", orig)
+
+
+def hold_fused_refine(held: dict) -> dict:
+    """fused_refine against its plain version on a served step's inputs (the
+    s2d exact-warp route: the warped and smoothed alpha, the planar u8
+    guide off the packed frames, the prior plane), then both timed there
+    (these launches come after the phase's counts were read)."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+
+    alpha, guide, plane, has_prior, knobs = held["args"]
+    table = TR.refine_table(knobs, has_prior)
+    got = TR.fused_refine(alpha, guide, plane, has_prior, knobs)
+    want = TR.fused_refine_plain(alpha, guide, plane, table)
+    err = (got - want).abs().max().item()
+    if not err <= REFINED_F32_TOL:
+        raise AssertionError(f"fused_refine on a served step's inputs disagrees with its "
+                             f"plain version: {err}")
+    ms = cuda_time_ms(lambda: TR.fused_refine(alpha, guide, plane, has_prior, knobs), 20)
+    plain_ms = cuda_time_ms(lambda: TR.fused_refine_plain(alpha, guide, plane, table), 3)
+    s, h, w = alpha.shape
+    px = s * h * w
+    bytes_moved = px * (4 + 3 + 4 + 4) + table.numel() * 4
+    ops = refine_ops(table, (h, w)) - 10 * px  # no EMA in this kernel
+    bound_ms, bound_by = bound(bytes_moved, ops, F32_OPS_PER_S)
+    return {"name": "fused_refine_s2d", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/refine_fused.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/refine_fused.py:522",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": (s, h, w)}
 
 
 def background_check(statics, frames_np, out) -> int:
@@ -2513,7 +2655,7 @@ def main() -> int:
 
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
     kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
-               check_u1_trunk(dev), check_composite(dev), check_refine_plane(dev),
+               check_u1_trunk(dev), *check_composite(dev), check_refine_plane(dev),
                check_fused_refine(dev), check_refine_fast(dev), check_stochastic_round(dev)]
     torch.cuda.empty_cache()
 
@@ -2524,14 +2666,28 @@ def main() -> int:
     for i, (label, preset_name, overrides, trained, per_step, min_iou,
             trunk_entry) in enumerate(PHASES):
         say(f"[{4 + i}/{steps} serve] Engine({S}, {label}), {SERVE_STEPS} steps, "
-            + ("trained weights, committed frames" if trained else "seeded weights"))
+            + {True: "trained weights, committed frames",
+               "seeded": "the seed-0 matting tree, trained face models, committed frames",
+               False: "seeded weights"}[trained])
         res = serve("cuda", S, SERVE_STEPS, preset_name, overrides, trained, min_iou)
+        if "fused_refine" in res:
+            fr = res.pop("fused_refine")
+            shape = fr.pop("shape")
+            if fr["name"] not in by_name:
+                fr["launches"] = 0
+                kernels.append(fr)
+                by_name[fr["name"]] = fr
+            say(f"  fused_refine on the s2d exact-warp route, the last step's inputs "
+                f"{shape}: max_abs_err {fr['max_abs_err']:.3e} (tolerance "
+                f"{REFINED_F32_TOL:g}), {fr['ms']:.3f} ms, plain {fr['plain_ms']:.3f} ms, "
+                f"bound {fr['bound_ms']:.4f} ms ({fr['bound_by']})")
+        entries = trunk_entry if isinstance(trunk_entry, dict) else {"trunk_int8": trunk_entry}
         for counter, n in res["launches"].items():
             want = per_step.get(counter, 0) * SERVE_STEPS
             if n != want:
                 raise AssertionError(f"{label}: {counter} launched {n} times in "
                                      f"{SERVE_STEPS} steps, expected {want}")
-            entry = trunk_entry if counter == "trunk_int8" else counter
+            entry = entries.get(counter, counter)
             if entry in by_name:
                 by_name[entry]["launches"] += n
         med = statistics.median(res["times_ms"])
@@ -2540,8 +2696,8 @@ def main() -> int:
                    + (f" (least allowed {min_iou:.4f})" if min_iou is not None else "")
                    + (f", class_alpha sums to 1 within {res['simplex_err']:.2e}"
                       if "simplex_err" in res else "")
-                   + (f", class map means {[round(v, 4) for v in res['class_means']]} "
-                      f"(the reference's {REFERENCE_CLASS_MEANS[preset_name]}, tolerance "
+                   + (f", map means {[round(v, 4) for v in res['class_means']]} "
+                      f"(the reference's {res['ref_means']}, tolerance "
                       f"{CLASS_MEAN_TOL:g})" if "class_means" in res else "")
                    + f", face_applied on "
                    f"{res['applied']} streams, the prior on {res['prior']}, mean det_score "

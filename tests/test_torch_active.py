@@ -571,7 +571,7 @@ def test_engine_defaults_to_the_reference_statics():
 @pytest.mark.parametrize("override", [
     {"refined_dtype": "f16"}, {"upsample_impl": "conv"}, {"affine_mode": "conjugate"},
     {"face_compact": 0}, {"resize_impl": "bicubic"}, {"crop_impl": "bicubic"},
-    {"face_input": "mask"}, {"upsample_method": "asymmetric"},
+    {"face_input": "mask"}, {"upsample_method": "bicubic"},
     {"upsample_precision": "highest"}, {"guide_impl": "bicubic"}])
 def test_active_refuses_unserved_options(override):
     """What active's step still does not serve is refused by name (the
@@ -581,8 +581,10 @@ def test_active_refuses_unserved_options(override):
     guide_impl='nearest_u8' since they were: tests/test_torch_active_
     options.py; affine_mode='reference', face_compact=False,
     crop_impl='mxu' and face_input='guide' since they were:
-    tests/test_torch_face_options.py, test_torch_face_sources.py; a value
-    the reference does not have stays refused)."""
+    tests/test_torch_face_options.py, test_torch_face_sources.py;
+    upsample_method 'asymmetric' and 'align_corners' since they were:
+    tests/test_torch_upsample_methods.py, test_torch_s2d_options.py; a
+    value the reference does not have stays refused)."""
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         Engine(1, preset("active", **override, **GEOM), device="cpu")
 

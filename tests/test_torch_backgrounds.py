@@ -152,11 +152,11 @@ def test_fused_composite_routes(over, launches):
     orig = composite_fused.fused_composite
     from video_stream_segmenetation_tpu_torch.runtime import pipeline
 
-    def spy(frames, alpha, bg):
+    def spy(frames, alpha, bg, method="half_pixel"):
         # the kernel takes contiguous tensors only
         assert frames.is_contiguous() and alpha.is_contiguous() and bg.is_contiguous()
         calls.append(tuple(bg.shape))
-        return orig(frames, alpha, bg)
+        return orig(frames, alpha, bg, method=method)
 
     pipeline.fused_composite = spy
     try:

@@ -132,14 +132,16 @@ def test_engine_refuses_unported_statics():
 @pytest.mark.parametrize("override", [
     {"affine_mode": "conjugate"}, {"guide_kernel_unfold": "yes"}, {"refine_alpha_src": "half"},
     {"face_input": "mask"}, {"face_compact": "yes"}, {"matting_decoder": "lite"},
-    {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}, {"warp_impl": "exact"},
-    {"matting_precision": "bf16"}])
+    {"int8_conv_impl": "mosaic"}, {"int8_head_impl": "f32"}, {"warp_impl": "bicubic"},
+    {"matting_precision": "fp8"}])
 def test_engine_refuses_unserved_options(override):
     """The presets are served as they stand and with the options the port
     serves; any other value of a static the step reads is refused, not
     silently served another way (affine_mode='reference', face_input=
     'frames' and face_compact=False, once refused here, are served:
-    tests/test_torch_face_options.py, test_torch_face_sources.py)."""
+    tests/test_torch_face_options.py, test_torch_face_sources.py; so are
+    warp_impl='exact' and matting_precision='bf16', the float MatteNetHD
+    over packed frames: tests/test_torch_s2d_options.py)."""
     for name in ("fast_int8_pico", "fast_int8_micro", "fast_int8", "fast_int8_lite"):
         with pytest.raises(NotImplementedError, match=next(iter(override))):
             Engine(1, preset(name, **override, **FACE_GEOM), device="cpu")
@@ -147,12 +149,13 @@ def test_engine_refuses_unserved_options(override):
 
 def test_engine_refuses_color_background():
     """The colour and blur backgrounds are served; a background mode the
-    reference does not have is refused, as is any background but 'image'
-    on the multi-class step (it composites by class_effects)."""
+    reference does not have is refused, on the single-class step and on
+    the multi-class one (which composites by class_effects and serves the
+    reference's modes by ignoring them, as the reference's does)."""
     with pytest.raises(NotImplementedError, match="background"):
         Engine(1, preset("fast_int8_pico", background="gradient", **GEOM), device="cpu")
     with pytest.raises(NotImplementedError, match="background"):
-        Engine(1, preset("multiclass_fast_pico", background="color", frame_hw=(80, 160),
+        Engine(1, preset("multiclass_fast_pico", background="gradient", frame_hw=(80, 160),
                          mask_hw=(8, 16)), device="cpu")
 
 

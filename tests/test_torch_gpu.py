@@ -1018,9 +1018,9 @@ def test_color_background_through_the_composite_kernel(card):
     kept = []
     orig = pipeline.fused_composite
 
-    def spy(frames, alpha, bg):
+    def spy(frames, alpha, bg, method="half_pixel"):
         kept.append((frames.clone(), alpha.clone(), bg.clone()))
-        return orig(frames, alpha, bg)
+        return orig(frames, alpha, bg, method=method)
 
     g = np.random.default_rng(3)
     n = KC.fused_composite.launches

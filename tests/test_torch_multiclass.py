@@ -389,8 +389,10 @@ def test_trained_engine_free_running_iou(trained_engines, record_property):
 def test_check_statics_refuses_unserved_multiclass():
     """The natural-layout multiclass preset (the K=4 float MatteNet) builds
     and steps; face_path=True with K > 1 is served and ignored, as the
-    reference's multi-class step never reads it; a micro trunk with K > 1
-    and an unknown effect are refused, each by name."""
+    reference's multi-class step never reads it; a plan the reference does
+    not have and an unknown effect are refused, each by name (the micro
+    trunk with K > 1, once refused here, is served:
+    tests/test_torch_multiclass_plans.py)."""
     frames = np.zeros((1, FH, FW, 3), np.uint8)
     out = Engine(1, preset("multiclass", frame_hw=(FH, FW), mask_hw=(32, 64)),
                  device="cpu").process(frames)
@@ -400,7 +402,7 @@ def test_check_statics_refuses_unserved_multiclass():
     out = e.process(frames)
     assert not out["face_applied"].any() and not out["passthrough"]
     with pytest.raises(NotImplementedError, match="matting_decoder"):
-        Engine(1, preset("multiclass_fast", matting_decoder="micro", frame_hw=(FH, FW),
+        Engine(1, preset("multiclass_fast", matting_decoder="mega", frame_hw=(FH, FW),
                          mask_hw=(32, 64)), device="cpu")
     effects = ({"blur": 8.0}, {"keep": True}, {"sparkle": True}, {"keep": True})
     with pytest.raises(ValueError, match="sparkle"):

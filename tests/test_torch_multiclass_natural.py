@@ -201,7 +201,7 @@ def test_trained_engine_iou_720p(record_property):
     tools/train_variants.py::train_multiclass) and finds none of this
     person (class 0 above 0.5 nearly everywhere, IoU 0 on both sides), so
     chip_smoke.py also holds the last step's class means to the
-    reference's (REFERENCE_CLASS_MEANS)."""
+    reference's (REFERENCE_MEANS)."""
     frames, gt = bridge.load_frames()
     st = preset("multiclass")
     w = bridge.trained_weights(st)

@@ -17,12 +17,14 @@ export``, which restores the checkpoints with the reference).
   LandmarkNet dict (``models/quantized_face.py``) -> the dict the port's
   int8 face models (models/quantized_face.py) take.
 * :func:`float_tree`: a reference flax float tree (MatteNet, with one
-  class or K, RecurrentMatteNet, SaliencyNet, the plan-A MatteNetHD,
-  FaceFinder, LandmarkNet) -> the numpy tree the port's float models load.
+  class or K, RecurrentMatteNet, SaliencyNet, the float MatteNetHD at any
+  plan and K, FaceFinder, LandmarkNet) -> the numpy tree the port's float
+  models load.
 * :func:`load_export` / :func:`save_export`: one tree <-> one ``.npz``
   (``np.load(..., allow_pickle=False)``; numpy is all they need).
 * :func:`trained_weights`: the committed trained weights a preset serves,
-  as ``Engine(params=..., face_params=...)`` takes them.
+  as ``Engine(params=..., face_params=...)`` takes them (a KeyError names
+  the checkpoint of a float MatteNetHD form with no committed export).
 """
 
 from __future__ import annotations
@@ -48,11 +50,15 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
-def params_from_jax(float_tree: dict, stem_stride: int = 10,
-                    decoder: str = "pico") -> dict:
+def params_from_jax(tree: dict, stem_stride: int = 10, decoder: str = "pico",
+                    statics=None) -> dict:
     """Float tree of the ``decoder`` plan (numpy leaves, or anything
-    ``np.asarray`` takes) -> int8 serving dict."""
-    return quantize_mattenet_hd(_numpy_tree(float_tree), stem_stride, decoder)
+    ``np.asarray`` takes) -> int8 serving dict; for ``statics`` that serve
+    the float MatteNetHD (``matting_precision='bf16'``) the float tree
+    itself, with numpy leaves (:func:`float_tree`)."""
+    if statics is not None and statics.matting_precision == "bf16":
+        return float_tree(tree)
+    return quantize_mattenet_hd(_numpy_tree(tree), stem_stride, decoder)
 
 
 def load_quantized(q: dict) -> dict:
@@ -153,29 +159,47 @@ def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     """The committed trained weights of a preset: ``{"params": the float
     tree of the natural layout's model (K classes: the K-class MatteNet,
     ``mattenet_multiclass``; ``matting_input='resized'``: by
-    ``matting_arch``, ``FLOAT_EXPORTS``: MatteNet, RVM, U2Net; 'native':
-    the plan-A MatteNetHD, ``mattenet_hd``), else the int8 serving dict of
-    statics.matting_decoder (``EXPORTS[plan]`` for one class,
-    ``MULTICLASS_EXPORTS[plan]`` for K), "face_params": {"face", "lmk"}}``
-    (face models keyed by geometry as the reference's checkpoints are: no
-    suffix at fd 256 / lmk 192, else '_<size>')."""
+    ``matting_arch``, ``FLOAT_EXPORTS``: MatteNet, RVM, U2Net), or of the
+    float MatteNetHD (``matting_precision='bf16'``: plan A, one class, on
+    either layout, ``mattenet_hd``; its other plans and K have no committed
+    float export, and a KeyError names the checkpoint), else the int8
+    serving dict of statics.matting_decoder (``EXPORTS[plan]`` for one
+    class, ``MULTICLASS_EXPORTS[plan]`` for K), "face_params":
+    :func:`face_weights`}``."""
     d = Path(weights_dir)
+    plan = statics.matting_decoder
     if statics.frame_layout == "natural" and statics.num_classes > 1:
         matting = NATURAL_MULTICLASS_EXPORT
-    elif statics.frame_layout == "natural" and statics.matting_input == "native":
-        matting = NATIVE_EXPORT
+    elif statics.matting_input == "native" and statics.matting_precision == "bf16":
+        if statics.s2d_block < 8 and statics.num_classes == 1:
+            matting = NATIVE_EXPORT  # plan A: the same tree over either layout
+        else:
+            ckpt = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS).get(plan)
+            where = (f"its trained float tree is the reference's orbax checkpoint "
+                     f"checkpoints/{ckpt} (restore it with JAX and pass it through "
+                     "float_tree)" if statics.s2d_block >= 8 and ckpt
+                     else "the reference has no trained tree of it")
+            raise KeyError(f"no committed float export of the MatteNetHD at s2d_block="
+                           f"{statics.s2d_block}, matting_decoder={plan!r}, num_classes="
+                           f"{statics.num_classes}: {where}; serve seeded weights "
+                           "(params=None) knowingly")
     elif statics.matting_input == "resized":
         matting = FLOAT_EXPORTS[statics.matting_arch]
     else:
-        plan = statics.matting_decoder
         matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]
+    return {"params": load_export(d / f"{matting}.npz"),
+            "face_params": face_weights(statics, weights_dir)}
+
+
+def face_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
+    """The committed trained face models of ``statics``' geometry, ``{"face",
+    "lmk"}`` (no suffix at fd 256 / lmk 192, else '_<size>', as the
+    reference's checkpoints are named)."""
+    d = Path(weights_dir)
     fd_suf = "" if statics.fd_size == 256 else f"_{statics.fd_size}"
     lmk_suf = "" if statics.lmk_size == 192 else f"_{statics.lmk_size}"
-    return {
-        "params": load_export(d / f"{matting}.npz"),
-        "face_params": {"face": load_export(d / f"facefinder{fd_suf}.npz"),
-                        "lmk": load_export(d / f"landmarknet{lmk_suf}.npz")},
-    }
+    return {"face": load_export(d / f"facefinder{fd_suf}.npz"),
+            "lmk": load_export(d / f"landmarknet{lmk_suf}.npz")}
 
 
 def load_frames(weights_dir=WEIGHTS_DIR) -> tuple[np.ndarray, np.ndarray]:

@@ -1,8 +1,10 @@
 // Fused composite for Hopper (sm_90a): the port of the Pallas kernel
 // video_stream_segmenetation_tpu/kernels/composite_fused.py::fused_composite
 // (pallas_call :84, _composite_kernel :46).  Per stream: the mask-resolution
-// alpha upsampled to the frame with half-pixel bilinear taps, clipped to
-// [0, 1], then out = frame * a + bg * (1 - a) in u8 units, rounded half up.
+// alpha upsampled to the frame with the bilinear taps of the upsample method
+// (half-pixel, asymmetric or align-corners: the wrapper hands them in as
+// tables, so the kernel is the same for all three), clipped to [0, 1], then
+// out = frame * a + bg * (1 - a) in u8 units, rounded half up.
 //
 // What it computes, not its layout.  The TPU kernel runs the horizontal pass
 // as one product with a dense [mw, 3W] matrix whose RGB columns are
@@ -11,11 +13,11 @@
 // column has at most two taps (ops/resize.py::_interp_matrix), and zeros
 // add exactly, so here each row value is the two-tap sum of the alpha rows
 // in f64 (both products exact, one rounding, so no order of summation can
-// change it; then rounded to f32), rounded to bf16 as the TPU kernel's
-// operand is, and each
-// pixel the two-tap sum of the bf16 row values with bf16 weights (exact
-// products, one f32 rounding), as the reference's bf16 product with f32
-// accumulation gives it.
+// change it, whatever the f32 weights -- not exact in bf16 at the
+// asymmetric and align-corners taps; then rounded to f32), rounded to bf16
+// as the TPU kernel's operand is, and each pixel the two-tap sum of the bf16
+// row values with bf16 weights (exact products, one f32 rounding), as the
+// reference's bf16 product with f32 accumulation gives it.
 //
 // What bounds it on an H100: it reads the frame, the background (u8) and
 // the alpha (f32) and writes the output (u8) once -- about 8.9 MB a

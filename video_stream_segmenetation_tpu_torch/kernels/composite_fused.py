@@ -4,12 +4,17 @@
 Replaces the Pallas kernel
 ``video_stream_segmenetation_tpu/kernels/composite_fused.py::
 fused_composite`` (pallas_call at line 84): the mask-resolution alpha
-upsampled to the frame with half-pixel bilinear taps (``V @ alpha``, the
-rows rounded to bf16, then the bf16 horizontal taps with f32 sums), clipped
-to [0, 1], blended ``frame * a + bg * (1 - a)`` in u8 units and rounded
-half up.  The reference reaches it with ``use_fused_composite=True`` on the
-natural layout when ``H % ROW_BLOCK == 0`` (``runtime/pipeline.py:837-843``;
-the port's pipeline keeps that routing).
+upsampled to the frame with the bilinear taps of ``method``
+(``upsample_method``: 'half_pixel', 'asymmetric' or 'align_corners';
+``V @ alpha``, the rows rounded to bf16, then the bf16 horizontal taps with
+f32 sums), clipped to [0, 1], blended ``frame * a + bg * (1 - a)`` in u8
+units and rounded half up.  The reference reaches it with
+``use_fused_composite=True`` on the natural layout when ``H % ROW_BLOCK ==
+0`` (``runtime/pipeline.py:837-843, 897-899``; the port's pipeline keeps
+that routing).  The taps come in as tables (:func:`_two_taps`), so one
+kernel serves every method: the vertical weights f32 as the reference's
+``V`` (not exact in bf16 at 'asymmetric' and 'align_corners'), the
+horizontal ones rounded to bf16 as its ``Wc``.
 
 Bound on an H100: bytes (frame, background and output u8 plus the alpha,
 about 8.9 MB a 720p stream) -- see the source's header for the design.  One
@@ -31,9 +36,10 @@ ROW_BLOCK = 80
 
 
 def fused_composite_plain(frames_u8, alpha, background_u8, method="half_pixel"):
-    """Plain PyTorch version, the matrix form: ``V @ alpha`` with f64 sums
-    rounded to f32 (the two-tap sums of a row, which no order of summation
-    rounds otherwise), the rows rounded to bf16, then their product with
+    """Plain PyTorch version, the matrix form at ``method``'s taps: ``V @
+    alpha`` with f64 sums rounded to f32 (the two-tap sums of a row: both
+    products of f32 weights and values exact in f64, so no order of
+    summation rounds them otherwise), the rows rounded to bf16, then their product with
     the bf16-rounded horizontal matrix in f32 (exact products; on the card
     with TF32 off, runtime/precision.py::pinned), clip, blend in u8 units,
     round half up.  frames_u8 ``[S, H, W, 3]`` u8, alpha ``[S, mh, mw]``,
@@ -54,7 +60,9 @@ def fused_composite_plain(frames_u8, alpha, background_u8, method="half_pixel"):
 def _two_taps(out_size: int, in_size: int, method: str):
     """The (at most two) nonzero columns of each row of the interpolation
     matrix: indices ``[out, 2]`` int32 and weights ``[out, 2]`` f32; a row
-    with one tap gets a second of weight 0 at the same index."""
+    with one tap (a clamped edge; at 'align_corners' and 'asymmetric' a
+    source on a whole pixel, weight 1) gets a second of weight 0 at the
+    same index."""
     m = _interp_matrix(out_size, in_size, method)
     idx = np.zeros((out_size, 2), np.int32)
     wgt = np.zeros((out_size, 2), np.float32)
@@ -81,7 +89,9 @@ def _taps(out_size, in_size, method, device, bf16_weights=False):
 def fused_composite(frames_u8: torch.Tensor, alpha: torch.Tensor,
                     background_u8: torch.Tensor, method: str = "half_pixel") -> torch.Tensor:
     """frames_u8 ``[S, H, W, 3]`` u8, alpha ``[S, mh, mw]`` (f32; bf16 is
-    read as f32), background_u8 ``[S, H, W, 3]`` or ``[1, H, W, 3]`` u8.
+    read as f32), background_u8 ``[S, H, W, 3]`` or ``[1, H, W, 3]`` u8;
+    ``method`` the upsample's taps ('half_pixel', 'asymmetric',
+    'align_corners').
     Returns the composited ``[S, H, W, 3]`` u8.  CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     alpha = alpha.to(torch.float32)

@@ -1,5 +1,5 @@
 """Conv building blocks of the float models (port of ``models/backbones.py``:
-``ConvBN`` with groups and dilation, ``Conv``, ``Dense``, ``SEBlock``,
+``ConvBN`` with groups and dilation, ``PatchifiedConv``, ``Conv``, ``Dense``, ``SEBlock``,
 ``InvertedResidual``, ``MobileEncoder``, ``EASPP``, ``nearest_x2``) and the
 seeded float trees the models load.
 
@@ -118,8 +118,12 @@ class ConvBN(_Layer):
                 mul[None, :, None, None], self.bias[None, :, None, None])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, mean, mul, bias = self.derived()
-        y = conv2d_same(x, w, self.stride, self.dilation, self.groups)
+        d = self.derived()
+        return self.epilogue(conv2d_same(x, d[0], self.stride, self.dilation, self.groups), d)
+
+    def epilogue(self, y: torch.Tensor, derived=None) -> torch.Tensor:
+        """BatchNorm and relu6 on the conv's NCHW output ``y``."""
+        _, mean, mul, bias = self.derived() if derived is None else derived
         y = ((y.to(torch.float32) - mean) * mul + bias).to(self.dtype)
         if not self.act:
             return y
@@ -133,6 +137,42 @@ class ConvBN(_Layer):
         return ({"Conv_0": {"kernel": _numpy(self.kernel, OIHW_TO_HWIO)},
                  "BatchNorm_0": {"scale": _numpy(self.scale), "bias": _numpy(self.bias)}},
                 {"BatchNorm_0": {"mean": _numpy(self.mean), "var": _numpy(self.var)}})
+
+
+def patch_weights(kernel_hwio, u8_input: bool):
+    """The reference's ``PatchifiedConv`` weights: an HWIO kernel (numpy or
+    torch) reshaped to ``[kh*kw*cin, cout]`` in (dy, dx, c) order, the
+    packed lane order; for u8 input the /255 of the frames folded into
+    the weights, in the kernel's own dtype."""
+    w = kernel_hwio.reshape(-1, kernel_hwio.shape[-1])
+    return w / 255.0 if u8_input else w
+
+
+class PatchifiedConv(_Layer):
+    """The conv of a ConvBN whose stride is its kernel, over packed input
+    ``[B, H/k, W/k, k*k*cin]`` (u8, or float in [0, 1]): one product with
+    :func:`patch_weights` (port of ``PatchifiedConv``).  As the reference:
+    u8 input multiplies the weights divided by 255 in f32, both operands
+    cast to the compute dtype (so it is not the natural conv of the frames
+    divided by 255 in that dtype); float input multiplies the weights
+    themselves.  It holds no parameter: it reads the kernel of ``conv``,
+    the ConvBN it serves (one tree for either input, as the reference's
+    ``Conv_0``).  Returns NCHW ``[B, cout, H/k, W/k]`` in the compute dtype
+    (the ConvBN's :meth:`~ConvBN.epilogue` comes after)."""
+
+    def __init__(self, conv: ConvBN):
+        super().__init__()
+        self.__dict__["conv"] = conv  # not a submodule: its kernel is the ConvBN's
+
+    def _derive(self):
+        k = self.conv.kernel.permute(*OIHW_TO_HWIO)
+        dt = self.conv.dtype
+        return patch_weights(k, True).to(dt), patch_weights(k, False).to(dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w_u8, w_f = self.derived()
+        w = w_u8 if x.dtype == torch.uint8 else w_f
+        return torch.matmul(x.to(w.dtype), w).permute(0, 3, 1, 2)
 
 
 class Conv(_Layer):

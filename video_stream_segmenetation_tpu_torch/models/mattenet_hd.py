@@ -3,11 +3,13 @@ full plans (port of the parameter layout of ``models/mattenet_hd.py::
 MatteNetHD._plan_d`` with ``decoder='pico'``, ``'nano'``, ``'femto'`` and
 ``'micro'``, ``_plan_c`` (``'light'``) and ``_plan_b`` (``'full'``)), and of
 plan A (a stem stride under 8, ``MatteNetHD()``'s defaults), with one head
-channel a class (``num_classes``); and the float :class:`MatteNetHD` of the
-``_plan_d`` branch, which the trainer (train/) fits, and of plan A, which the
-``fast`` preset serves over natural frames.
+channel a class (``num_classes``); and the float :class:`MatteNetHD` at
+every plan, with one class or K, over natural or packed frames: the
+``_plan_d`` branch is what the trainer (train/) fits, plan A what the
+``fast`` preset serves, and every plan what ``matting_precision='bf16'``
+serves on either layout.
 
-The s2d presets serve the int8 graph (models/quantized.py), so they need
+The int8 presets serve the int8 graph (models/quantized.py), so they need
 the float tree only as the quantizer's input: a nested dict of numpy arrays
 with the flax module names, ``{"params": ..., "batch_stats": ...}``.
 :func:`init_params` makes one from a seed with the same tree and shapes as
@@ -50,6 +52,7 @@ import torch.nn.functional as F
 from video_stream_segmenetation_tpu_torch.models.backbones import (
     Conv,
     ConvBN,
+    PatchifiedConv,
     SEBlock,
     export_layers,
     nearest_x2,
@@ -213,7 +216,8 @@ class _Block(torch.nn.Module):
 
 
 def _roles(decoder: str) -> dict:
-    """Role -> flax module name, in the reference's module order."""
+    """Role -> flax module name of the ``_plan_d`` branch, in the
+    reference's module order."""
     if decoder == "micro":
         names = ("ConvBN_0", "ConvBN_1", "_Block_0", "ConvBN_2", "_Block_1", "ConvBN_3",
                  "ConvBN_4", "ConvBN_5")
@@ -224,61 +228,85 @@ def _roles(decoder: str) -> dict:
     return roles
 
 
+_HEADS = {"sem": "Conv_0", "det": "Conv_1", "alpha": "Conv_2"}
 # plan A's roles (mattenet_hd.py:126-169), in module order
 PLAN_A_ROLES = {"stem": "ConvBN_0", "d1dn": "ConvBN_1", "d1b": "_Block_0",
                 "d2dn": "ConvBN_2", "d2b": "_Block_1", "d3dn": "ConvBN_3", "d3b": "_Block_2",
                 "ctx2": "ConvBN_4", "ctx4": "ConvBN_5", "ctxse": "SEBlock_0", "sem": "Conv_0",
                 "u2": "ConvBN_6", "u1": "ConvBN_7", "det": "Conv_1", "u0": "ConvBN_8",
                 "alpha": "Conv_2"}
+# plan B's ('full', mattenet_hd.py:355-387) and plan C's ('light', :282-328)
+PLAN_B_ROLES = {"stem": "ConvBN_0", "b1": "_Block_0", "d2dn": "ConvBN_1", "d2b": "_Block_1",
+                "d3dn": "ConvBN_2", "d3b": "_Block_2", "ctx2": "ConvBN_3", "ctx4": "ConvBN_4",
+                "ctxse": "SEBlock_0", "u2": "ConvBN_5", "u1": "ConvBN_6", **_HEADS}
+PLAN_C_ROLES = {"stem": "ConvBN_0", "b1": "ConvBN_1", "d2dn": "ConvBN_2", "d2b": "_Block_0",
+                "d3dn": "ConvBN_3", "d3b": "_Block_1", "ctx2": "ConvBN_4", "ctx4": "ConvBN_5",
+                "ctxse": "SEBlock_0", "u2red": "ConvBN_6", "u2": "ConvBN_7",
+                "u1red": "ConvBN_8", **_HEADS}
+
+
+def plan_roles(decoder: str, stem_stride: int) -> dict:
+    """Role -> flax module name of the plan the reference's ``__call__``
+    picks (mattenet_hd.py:108-114): plan A below stem stride 8 (whatever
+    the decoder), else plan B ('full'), C ('light') or the ``_plan_d``
+    branch."""
+    if stem_stride < 8:
+        return PLAN_A_ROLES
+    return {"full": PLAN_B_ROLES, "light": PLAN_C_ROLES}.get(decoder) or _roles(decoder)
 
 
 class MatteNetHD(torch.nn.Module):
-    """The float MatteNetHD, one class: the reference's ``_plan_d`` branch
-    (``mattenet_hd.py:188-280``; decoder 'pico', 'nano', 'femto' or
-    'micro', stem stride >= 8) or plan A (``:115-186``; stem stride under 8,
-    decoder 'full', ``head_upsample`` 2: the ``fast`` preset's net, the
-    registry's ``mattenet_hd``).  Natural ``[B, H, W, 3]`` frames (f32 in
-    [0, 1], or u8, divided by 255 in the compute dtype as the reference
-    does) -> ``{"alpha": [B, uf*H/ss, uf*W/ss], "semantic", "detail"}`` f32,
-    as the reference returns them (plan D: semantic at ``H/4ss``; plan A:
-    at ``H/8ss``; the K-class heads are not trained in the port yet).
-    Layers compute in ``dtype`` (bf16, the reference's default, or f32); the
-    alpha head's logits are upsampled in f32 by the half-pixel matrix
-    resize (ops/resize.py::resize_bilinear_mxu without the bf16 pass: the
-    reference's ``precision=None``, HIGHEST; QuantizedMatteNetHD.upsample
-    takes the same route).
+    """The float MatteNetHD at every plan, with one class or K (port of
+    ``models/mattenet_hd.py::MatteNetHD``): plan A (``:115-186``; stem
+    stride under 8, whatever the decoder, its head upsampled x2: the
+    ``fast`` preset's net, the registry's ``mattenet_hd``), plan B
+    (``'full'``, ``_plan_b`` ``:355-412``), plan C (``'light'``,
+    ``_plan_c`` ``:282-353``) or the ``_plan_d`` branch (``'pico'``,
+    ``'nano'``, ``'femto'``, ``'micro'``, ``:188-280``; the branch the
+    trainer, train/, fits), by the stem stride and the decoder.
 
-    ``params``: a flax-named float tree ``{"params", "batch_stats"}`` (numpy
-    leaves, e.g. :func:`init_params`, bridge.py::load_export); None makes
-    one with :func:`init_params` from seed 0.  :meth:`tree` gives the
-    module's tree back in the same form, :meth:`load_tree` loads one."""
+    Input: natural ``[B, H, W, 3]`` frames (u8, divided by 255 in the
+    compute dtype as the reference does, or f32 in [0, 1]), or the packed
+    frames ``[B, H/ss, W/ss, ss*ss*3]`` (u8, or float in [0, 1]), whose
+    stem is one product (backbones.py::PatchifiedConv over the stem's own
+    kernel: one tree serves either input).  Output ``{"alpha", "semantic",
+    "detail"}`` f32 as the reference returns them: with one class ``alpha
+    [B, uf*H/ss, uf*W/ss]`` (sigmoid), ``semantic`` (sigmoid) at the
+    context's grid (plans B, C, D: ``H/4ss``; plan A: ``H/8ss``) and the
+    ``detail`` logits; with K classes (``num_classes``, read from the
+    tree) each with a K axis last, ``alpha`` and ``semantic`` the softmax
+    over it.  The head's logits are upsampled in f32 one class plane at a
+    time by the half-pixel matrix resize (ops/resize.py::
+    resize_bilinear_mxu without the bf16 pass: the reference's
+    ``precision=None``, HIGHEST), x2 at plan A and x``head_upsample``
+    otherwise.  Layers compute in ``dtype`` (bf16, the reference's
+    default, or f32).
+
+    ``params``: a flax-named float tree ``{"params", "batch_stats"}``
+    (numpy leaves, e.g. :func:`init_params`, bridge.py::load_export); None
+    makes one with :func:`init_params` from seed 0 with ``num_classes``
+    classes.  :meth:`tree` gives the module's tree back in the same form,
+    :meth:`load_tree` loads one."""
 
     def __init__(self, stem_stride: int = 10, head_upsample: int = 4, decoder: str = "pico",
                  dtype: torch.dtype = torch.bfloat16, params: dict | None = None,
-                 device="cuda"):
+                 device="cuda", num_classes: int = 1):
         super().__init__()
         self.plan_a = stem_stride < 8
-        if self.plan_a and (decoder != "full" or head_upsample != 2):
-            raise ValueError(f"stem_stride {stem_stride}: plan A is decoder 'full' with "
-                             f"head_upsample 2 (its head is upsampled x2), got {decoder!r}, "
-                             f"{head_upsample}")
-        if not self.plan_a and decoder not in PLAN_D:
-            raise ValueError(f"decoder {decoder!r}: the float MatteNetHD has {PLAN_D} at a "
-                             "stem stride >= 8, and plan A ('full') below 8")
+        if self.plan_a and head_upsample != 2:
+            raise ValueError(f"stem_stride {stem_stride}: plan A is upsampled x2 (its head "
+                             f"upsample is fixed), so head_upsample 2, got {head_upsample}")
+        if decoder not in WIDTHS:
+            raise ValueError(f"decoder {decoder!r}: the float MatteNetHD has {sorted(WIDTHS)}")
         self.stem_stride, self.head_upsample = stem_stride, head_upsample
         self.decoder, self.dtype = decoder, dtype
-        tree = init_params(decoder, 0, stem_stride) if params is None else params
+        tree = init_params(decoder, 0, stem_stride, num_classes) if params is None else params
         p, st = tree["params"], tree["batch_stats"]
-        if self.plan_a:
-            self.roles = PLAN_A_ROLES
-            strides = {"stem": stem_stride, "d1dn": 2, "d2dn": 2, "d3dn": 2}
-            dilations = {"ctx2": 2, "ctx4": 4}
-            no_act = ("ctx4",)
-        else:
-            self.roles = _roles(decoder)
-            strides = {"stem": stem_stride, "d2dn": 2, "d3dn": 2}
-            dilations = {"ctx": 3}
-            no_act = ("ctx",)
+        self.num_classes = int(np.shape(p["Conv_2"]["kernel"])[-1])
+        self.roles = plan_roles(decoder, stem_stride)
+        strides = {"stem": stem_stride, "d1dn": 2, "d2dn": 2, "d3dn": 2}
+        dilations = {"ctx2": 2, "ctx4": 4, "ctx": 3}
+        no_act = ("ctx4", "ctx")
         layers = {}
         for role, name in self.roles.items():
             if name.startswith("_Block"):
@@ -292,6 +320,7 @@ class MatteNetHD(torch.nn.Module):
             else:
                 layers[name] = Conv(p[name], device, dtype)
         self.layers = torch.nn.ModuleDict(layers)
+        self.patch_stem = PatchifiedConv(self.layers[self.roles["stem"]])
         self.requires_grad_(True)  # trainable, unlike the serving models' layers
 
     def _run(self, role: str, x: torch.Tensor) -> torch.Tensor:
@@ -302,6 +331,11 @@ class MatteNetHD(torch.nn.Module):
         x = nearest_x2(x)[:, :, : skip.shape[2], : skip.shape[3]]
         return self._run(role, torch.cat([x, skip], dim=1))
 
+    def _context(self, d3: torch.Tensor) -> torch.Tensor:
+        """The 2/4 dilation context pair, + d3, relu6, SE (plans A, B, C)."""
+        ctx = self._run("ctx4", self._run("ctx2", d3))
+        return self._run("ctxse", F.relu6(ctx + d3))
+
     def _plan_a(self, x0: torch.Tensor):
         """Plan A after the stem: three stride-2 downs, each with its block
         (SE at /4 and /8), the 2/4 dilation context with SE, the sem head,
@@ -309,11 +343,31 @@ class MatteNetHD(torch.nn.Module):
         d1 = self._run("d1b", self._run("d1dn", x0))
         d2 = self._run("d2b", self._run("d2dn", d1))
         d3 = self._run("d3b", self._run("d3dn", d2))
-        ctx = self._run("ctx4", self._run("ctx2", d3))
-        ctx = self._run("ctxse", F.relu6(ctx + d3))
+        ctx = self._context(d3)
         u1 = self._up(self._up(ctx, d2, "u2"), d1, "u1")
         u0 = self._up(u1, x0, "u0")
         return ctx, u1, self._run("alpha", u0)
+
+    def _plan_b(self, x0: torch.Tensor):
+        """Plan B: the b1 block (no SE), two stride-2 downs with SE blocks,
+        the context, u2 and u1 as 3x3 convs over the concats."""
+        b1 = self._run("b1", x0)
+        d2 = self._run("d2b", self._run("d2dn", b1))
+        d3 = self._run("d3b", self._run("d3dn", d2))
+        ctx = self._context(d3)
+        u1 = self._up(self._up(ctx, d2, "u2"), b1, "u1")
+        return ctx, u1, self._run("alpha", u1)
+
+    def _plan_c(self, x0: torch.Tensor):
+        """Plan C: one 3x3 at b1, plan B's deep stages and context, the 1x1
+        u2red over the concat and one 3x3 at /2, the 1x1 u1red."""
+        b1 = self._run("b1", x0)
+        d2 = self._run("d2b", self._run("d2dn", b1))
+        d3 = self._run("d3b", self._run("d3dn", d2))
+        ctx = self._context(d3)
+        u2 = self._run("u2", self._up(ctx, d2, "u2red"))
+        u1 = self._up(u2, b1, "u1red")
+        return ctx, u1, self._run("alpha", u1)
 
     def _plan_d(self, x0: torch.Tensor):
         d2 = self._run("d2b", self._run("d2dn", x0))
@@ -322,19 +376,40 @@ class MatteNetHD(torch.nn.Module):
         u1 = self._up(self._up(ctx, d2, "u2red"), x0, "u1red")
         return ctx, u1, self._run("alpha", u1)
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem's output x0 (NCHW, compute dtype) of natural or packed
+        frames (the packed product, then the same BatchNorm and relu6)."""
+        ss = self.stem_stride
+        if x.shape[-1] == 3 * ss * ss:
+            return self.layers[self.roles["stem"]].epilogue(self.patch_stem(x))
         dt = self.dtype
         x = (x.to(dt) / 255.0 if x.dtype == torch.uint8 else x.to(dt)).permute(0, 3, 1, 2)
-        x0 = self._run("stem", x)
-        ctx, u1, logit = self._plan_a(x0) if self.plan_a else self._plan_d(x0)
+        return self._run("stem", x)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        return self.from_stem(self.stem(x))
+
+    def from_stem(self, x0: torch.Tensor) -> dict:
+        """Everything after the stem: the plan's layers, the heads, the
+        upsample and the sigmoid or softmax (:meth:`forward`'s output)."""
+        if self.plan_a:
+            plan = self._plan_a
+        else:
+            plan = {"full": self._plan_b, "light": self._plan_c}.get(self.decoder, self._plan_d)
+        ctx, u1, logit = plan(x0)
         sem = self._run("sem", ctx).to(torch.float32)
         det = self._run("det", u1).to(torch.float32)
         logit = logit.to(torch.float32)
-        uf = self.head_upsample
+        uf = 2 if self.plan_a else self.head_upsample
         logit = resize_bilinear_mxu(logit, (uf * logit.shape[2], uf * logit.shape[3]),
                                     method="half_pixel", channel_last=False)
-        return {"alpha": torch.sigmoid(logit)[:, 0], "semantic": torch.sigmoid(sem)[:, 0],
-                "detail": det[:, 0]}
+        if self.num_classes == 1:
+            return {"alpha": torch.sigmoid(logit)[:, 0], "semantic": torch.sigmoid(sem)[:, 0],
+                    "detail": det[:, 0]}
+        last = (0, 2, 3, 1)
+        return {"alpha": torch.softmax(logit, dim=1).permute(*last).contiguous(),
+                "semantic": torch.softmax(sem, dim=1).permute(*last).contiguous(),
+                "detail": det.permute(*last).contiguous()}
 
     def tree(self) -> dict:
         """The module's weights as a flax-named numpy tree ``{"params",
@@ -348,6 +423,9 @@ class MatteNetHD(torch.nn.Module):
         place (its layout must be this module's plan)."""
         fresh = MatteNetHD(self.stem_stride, self.head_upsample, self.decoder, self.dtype,
                            params=tree, device="cpu")
+        if fresh.num_classes != self.num_classes:
+            raise ValueError(f"tree does not fit: {fresh.num_classes} classes for "
+                             f"{self.num_classes}")
         with torch.no_grad():
             for (name, p), (fname, q) in zip(self.named_parameters(), fresh.named_parameters()):
                 if name != fname or p.shape != q.shape:

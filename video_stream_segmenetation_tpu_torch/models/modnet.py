@@ -140,3 +140,10 @@ class MatteNet(torch.nn.Module):
         if self.num_classes == 1:
             return {"alpha": torch.sigmoid(logit)[:, 0]}
         return {"alpha": torch.softmax(logit, dim=1).permute(0, 2, 3, 1)}
+
+
+def matting_alpha(model: MatteNet, frames: torch.Tensor) -> torch.Tensor:
+    """Convenience (the reference's ``matting_alpha``): frames ``[S, H, W,
+    3]`` in [0, 1] -> the model's alpha ``[S, H, W]`` (its weights are the
+    module's own, where the reference passes its params)."""
+    return model(frames)["alpha"]

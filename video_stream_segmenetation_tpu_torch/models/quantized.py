@@ -36,7 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_stream_segmenetation_tpu_torch.models.backbones import conv2d_same, same_pads
+from video_stream_segmenetation_tpu_torch.models.backbones import (
+    conv2d_same,
+    patch_weights,
+    same_pads,
+)
 from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear_mxu
 
 ACT_SCALE = 6.0 / 127.0  # relu6 output lattice
@@ -142,8 +146,7 @@ def quantize_mattenet_hd(float_tree: dict, stem_stride: int,
     p, st = float_tree["params"], float_tree["batch_stats"]
     q = {}
     w, b = _folded(p, st, "ConvBN_0")
-    wm = w.reshape(stem_stride * stem_stride * 3, -1) / 255.0
-    q["stem_w"] = wm.astype(np.float32)
+    q["stem_w"] = patch_weights(w, u8_input=True).astype(np.float32)
     q["stem_b"] = b.astype(np.float32)
     for name, mod in PLAN_LAYERS[decoder]:
         q[name] = _qconvbn(p, st, mod)
@@ -473,8 +476,6 @@ class QuantizedMatteNetHD(torch.nn.Module):
         self.head_impl = head_impl
         self.decoder = plan_of(q)
         self.num_classes = num_classes_of(q)
-        if self.decoder not in ("pico", "nano") and self.num_classes > 1:
-            raise NotImplementedError(f"the {self.decoder} plan serves one class only")
         self.register_buffer(
             "stem_w", torch.tensor(np.asarray(q["stem_w"], np.float32), device=device)
             .to(torch.bfloat16))

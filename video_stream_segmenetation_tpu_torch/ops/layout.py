@@ -127,27 +127,34 @@ def packed_color(color_f32, block: int, device="cpu") -> torch.Tensor:
     return c_u8.repeat(block * block)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to bf16 and back (a DEFAULT-precision product's operand
+    or result on the reference)."""
+    return x.to(torch.bfloat16).float()
+
+
 def alpha_composite_s2d(frame_p: torch.Tensor, alpha: torch.Tensor,
                         bg_p: torch.Tensor, frame_hw, block: int,
-                        method: str = "half_pixel") -> torch.Tensor:
+                        method: str = "half_pixel", precision: str = "fast") -> torch.Tensor:
     """Upsample ``alpha [S, mh, mw]`` to the frame and blend
     ``frame*a + bg*(1-a)`` in the packed layout; u8 out, round half up.
 
-    Same semantics as the reference's packed composite: half-pixel taps as
-    two interpolation products whose operands and results round to bf16
-    (the reference's DEFAULT-precision matmuls), the upsampled alpha
-    clamped to [0, 1].
+    Same semantics as the reference's packed composite: the ``method``
+    taps as two interpolation products, the upsampled alpha clamped to
+    [0, 1].  ``precision`` (``upsample_precision``): ``'fast'``, the
+    reference's DEFAULT-precision matmuls, whose operands and results round
+    to bf16; ``'exact'``, its HIGHEST: both products in f32, nothing
+    rounded to bf16 (f32 products need TF32 off, which the engine pins for
+    its steps, runtime/precision.py).
     """
     fh, fw = frame_hw
     s = frame_p.shape[0]
     dev = frame_p.device
-    a_h = interp_matrix(fh, alpha.shape[-2], method, device=dev)
-    a_w = interp_matrix(fw, alpha.shape[-1], method, device=dev)
-    bf = torch.bfloat16
-    a = alpha.to(bf).float()
-    c = torch.matmul(a_h.to(bf).float(), a).to(bf).float()  # [S, fh, mw]
-    up = torch.matmul(c, a_w.to(bf).float().t()).to(bf).float()  # [S, fh, fw]
-    up = torch.clamp(up, 0.0, 1.0)
+    rnd = _bf16 if precision == "fast" else (lambda x: x)
+    a_h = rnd(interp_matrix(fh, alpha.shape[-2], method, device=dev))
+    a_w = rnd(interp_matrix(fw, alpha.shape[-1], method, device=dev))
+    c = rnd(torch.matmul(a_h, rnd(alpha.float())))  # [S, fh, mw]
+    up = torch.clamp(rnd(torch.matmul(c, a_w.t())), 0.0, 1.0)  # [S, fh, fw]
     a_p = space_to_depth(up.unsqueeze(-1), block)  # [S, hp, wp, b*b]
     a_p = a_p.repeat_interleave(3, dim=-1)
     f = frame_p.float()
@@ -181,12 +188,6 @@ def effect_algebra(effects) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             raise ValueError(f"unknown effect {eff!r}: the effects are keep, color, "
                              "blur and tint")
     return alpha_w, beta_w, cmat
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """Round f32 to bf16 and back (a DEFAULT-precision product's operand
-    or result on the reference)."""
-    return x.to(torch.bfloat16).float()
 
 
 def multiclass_composite_s2d(frame_p: torch.Tensor, class_alpha: torch.Tensor, effects,

@@ -3,8 +3,11 @@ of ``ops/resize.py``): interpolation matrices, the gather and matrix forms
 of the separable resize, the nearest gathers, and the gather and matrix
 forms of the face path's ROI crop.
 
-``half_pixel``: src = (dst + 0.5) * in/out - 0.5, taps clamped to the edge
-and weights clipped into [0, 1] (Canvas2D drawImage / patched ONNX Resize).
+``asymmetric``: src = dst * in/out (tf.js resizeBilinear's default);
+``half_pixel``: src = (dst + 0.5) * in/out - 0.5 (Canvas2D drawImage /
+patched ONNX Resize); ``align_corners``: src = dst * (in - 1)/(out - 1), 0
+where out is 1 (the reference client's bilinearUpscale).  Taps are clamped
+to the edge and weights clipped into [0, 1].
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ def _axis_coords(out_size: int, in_size: int, method: str) -> np.ndarray:
         return d * (in_size / out_size)
     if method == "half_pixel":
         return (d + 0.5) * (in_size / out_size) - 0.5
+    if method == "align_corners":
+        if out_size == 1:
+            return np.zeros((1,), dtype=np.float64)
+        return d * (in_size - 1) / (out_size - 1)
     raise ValueError(f"unknown resize method: {method}")
 
 

@@ -3,9 +3,10 @@
     python3 -m video_stream_segmenetation_tpu_torch.profile_step [--streams 64]
         [--config pico_noface|pico|micro|mc_pico|mc|full|lite|active|fast|multiclass|
                   nano|femto|blaze|branch|rvm|u2|refface|pico_int8face|
-                  pico_uncompacted|pico_translation|train ...]
+                  pico_uncompacted|pico_translation|fast_s2d|pico_exact|full_bf16|
+                  mc_pico_bf16|active_asymmetric|train ...]
 
-For each configuration (default: all twenty) it builds Engine(S, preset):
+For each configuration (default: all twenty-five) it builds Engine(S, preset):
 ``pico_noface`` is fast_int8_pico with the face path off and seeded
 weights, ``pico``, ``micro``, ``mc_pico``, ``mc``, ``full``, ``lite``,
 ``active``, ``fast``, ``multiclass``, ``nano``, ``femto``, ``blaze``,
@@ -15,10 +16,17 @@ fast, multiclass, fast_int8_nano, fast_int8_femto, blaze_tracking, branch,
 rvm and u2 as their presets stand, ``refface`` is fast_int8_pico_refface
 (the MediaPipe face graphs), ``pico_int8face``, ``pico_uncompacted`` and
 ``pico_translation`` fast_int8_pico with face_precision='int8',
-face_compact=False and face_tracking='translation',
-with the committed trained weights and frames (branch with its even
-streams' affine primed, as chip_smoke.py's phase).  It warms the engine
-up, then
+face_compact=False and face_tracking='translation', ``fast_s2d`` fast
+with frame_layout='s2d' (the float plan A over packed frames),
+``pico_exact`` fast_int8_pico with warp_impl='exact',
+upsample_precision='exact' and upsample_method='align_corners',
+``full_bf16`` and ``mc_pico_bf16`` fast_int8 and multiclass_fast_pico with
+matting_precision='bf16' (the float plan B and K=4 pico over packed frames,
+on the seed-0 tree and the trained face models: no committed float
+export), ``active_asymmetric`` active with upsample_method='asymmetric'
+and use_fused_composite=True, with the committed trained weights and
+frames (branch with its even streams' affine primed, as chip_smoke.py's
+phase).  It warms the engine up, then
   * times each stage of the step with CUDA events, calling the step's own
     functions on the engine's tensors (frames host->device, s2d pack, stem,
     the trunk -- for micro its convolutions and its decoder levels plus
@@ -43,6 +51,8 @@ up, then
   * profiles whole ``Engine.process`` calls with torch.profiler: device time
     by kernel, copies apart from kernels, and the share of the wall time in
     which no kernel runs.
+The float MatteNetHD's stem over packed frames (the patch product) is timed
+apart from its layers after the stem.
 ``train`` (not in the default set) does the same for a training step of
 the pico MatteNetHD at the train phase's two geometries (profile_train).
 Needs a card; prints the card's name and power limit beside the numbers.
@@ -78,6 +88,13 @@ CONFIGS = {
     "pico_int8face": ("fast_int8_pico", {"face_precision": "int8"}, True),
     "pico_uncompacted": ("fast_int8_pico", {"face_compact": False}, True),
     "pico_translation": ("fast_int8_pico", {"face_tracking": "translation"}, True),
+    "fast_s2d": ("fast", {"frame_layout": "s2d", "s2d_block": 5}, True),
+    "pico_exact": ("fast_int8_pico", {"warp_impl": "exact", "upsample_precision": "exact",
+                                      "upsample_method": "align_corners"}, True),
+    "full_bf16": ("fast_int8", {"matting_precision": "bf16"}, "seeded"),
+    "mc_pico_bf16": ("multiclass_fast_pico", {"matting_precision": "bf16"}, "seeded"),
+    "active_asymmetric": ("active", {"upsample_method": "asymmetric",
+                                     "use_fused_composite": True}, True),
 }
 # branch: the even streams start with this affine (chip_smoke.py's
 # PRIMED_AFFINE), so that its max blend runs
@@ -154,7 +171,9 @@ def profile(config: str, s: int, steps: int, smi: str) -> None:
     st = preset(name, **overrides)
     fh, fw = st.frame_hw
     if trained:
-        eng = Engine(s, st, **bridge.trained_weights(st))
+        weights = (bridge.trained_weights(st) if trained is True
+                   else {"face_params": bridge.face_weights(st)})
+        eng = Engine(s, st, **weights, seed=0)
         clip, _ = bridge.load_frames()
         frames = np.ascontiguousarray(clip[np.arange(s) % 2])
     else:
@@ -204,12 +223,23 @@ def _packed_stages(eng, ft, stages, out_dtype):
     st = eng.statics
     blk = st.s2d_block
     stages["s2d pack"], fp = _event_ms(lambda: space_to_depth(ft, blk).contiguous())
-    stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(lambda: eng.model.stem(fp))
-    logits, trunk_kernels = _trunk_stages(eng.model, x0, stages)
-    if st.num_classes > 1:
-        _multiclass_stages(eng, logits, fp, stages)
+    if st.matting_precision == "bf16":  # the float MatteNetHD: no trunk kernel
+        model = eng.model
+        plan = "plan A" if model.plan_a else f"{model.decoder} plan"
+        tail = "softmax" if model.num_classes > 1 else "sigmoid"
+        stages[f"float stem (bf16 patch product, {blk * blk * 3} lanes, BN, relu6)"], x0 = \
+            _event_ms(lambda: model.stem(fp))
+        stages[f"float MatteNetHD {plan} after the stem (bf16; f32 upsample, {tail})"], out = \
+            _event_ms(lambda: model.from_stem(x0))
+        logits, maps, trunk_kernels = None, out["alpha"].to(torch.float32).contiguous(), []
     else:
-        _refine_stages(eng, logits, fp, stages, out_dtype)
+        stages["stem (bf16 patch matmul, requant)"], x0 = _event_ms(lambda: eng.model.stem(fp))
+        logits, trunk_kernels = _trunk_stages(eng.model, x0, stages)
+        maps = None
+    if st.num_classes > 1:
+        _multiclass_stages(eng, logits, maps, fp, stages)
+    else:
+        _refine_stages(eng, logits, maps, fp, stages, out_dtype)
     return trunk_kernels
 
 
@@ -286,11 +316,12 @@ def _face_refine_composite(eng, ft, alpha, guide, stages):
         a = _chain_stages(eng, alpha, guide, prior, has_prior, stages)
     bg = (torch.tensor(st.bg_color, device=dev) if st.background == "color"
           else eng.backgrounds)
+    method = st.upsample_method
     stages["plain composite (bf16-pass upsample, f32 blend)"], _ = _event_ms(
-        lambda: natural_composite(ft, a, bg))
+        lambda: natural_composite(ft, a, bg, method=method))
     if st.background == "image":
-        stages[f"{INSTEAD}composite kernel"], _ = _event_ms(
-            lambda: fused_composite(ft, a, eng.backgrounds))
+        stages[f"{INSTEAD}composite kernel ({method})"], _ = _event_ms(
+            lambda: fused_composite(ft, a, eng.backgrounds, method=method))
 
 
 def _natural_multiclass_stages(eng, ft, stages):
@@ -343,10 +374,11 @@ def _chain_stages(eng, alpha, guide, prior, has_prior, stages):
     return a
 
 
-def _multiclass_stages(eng, logits, fp, stages):
-    """The multi-class step after the trunk: upsample and softmax, the
-    simplex EMA and renorm (the step's own code, timed whole), the
-    per-class composite, and its blurred guide apart."""
+def _multiclass_stages(eng, logits, maps, fp, stages):
+    """The multi-class step after the trunk: upsample and softmax (the
+    float model's ``maps`` come with them), the simplex EMA and renorm (the
+    step's own code, timed whole), the per-class composite, and its blurred
+    guide apart."""
     from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_planar_mxu
     from video_stream_segmenetation_tpu_torch.ops.layout import (
         depth_to_space,
@@ -360,8 +392,11 @@ def _multiclass_stages(eng, logits, fp, stages):
     mh, mw = st.mask_hw
     blk = st.s2d_block
     uf = eng.model.head_upsample
-    stages[f"x{uf} per-class upsample, softmax"], ca = _event_ms(
-        lambda: eng.model.upsample(logits))
+    if maps is None:
+        stages[f"x{uf} per-class upsample, softmax"], ca = _event_ms(
+            lambda: eng.model.upsample(logits))
+    else:
+        ca = maps
     stages["simplex EMA + renorm"], blended = _event_ms(
         lambda: simplex_ema(ca, eng.state.rec[0], eng.knobs, eng.state.initialized))
     effects = st.class_effects
@@ -370,13 +405,20 @@ def _multiclass_stages(eng, logits, fp, stages):
         lambda: gaussian_blur_planar_mxu(guide_from_s2d(fp, (fh, fw), (mh, mw), blk)
                                          .float() / 255.0, sigma))
     stages["per-class packed composite (plain PyTorch)"], out = _event_ms(
-        lambda: multiclass_composite_s2d(fp, blended, effects, (fh, fw), blk))
+        lambda: multiclass_composite_s2d(fp, blended, effects, (fh, fw), blk,
+                                         method=st.upsample_method))
     stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
 
 
-def _refine_stages(eng, logits, fp, stages, out_dtype):
-    """The single-class step after the trunk."""
-    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import fused_temporal_refine
+def _refine_stages(eng, logits, maps, fp, stages, out_dtype):
+    """The single-class step after the trunk (the float model's ``maps``
+    come upsampled): the refine by its route (the fused temporal refine,
+    or the eager warp, blend and EMA, then fused_refine), the packed
+    composite at the statics' method and precision."""
+    from video_stream_segmenetation_tpu_torch.kernels.refine_fused import (
+        fused_refine,
+        fused_temporal_refine,
+    )
     from video_stream_segmenetation_tpu_torch.ops.layout import (
         alpha_composite_s2d,
         depth_to_space,
@@ -390,8 +432,13 @@ def _refine_stages(eng, logits, fp, stages, out_dtype):
     mh, mw = st.mask_hw
     blk = st.s2d_block
     dev = eng.device
-    stages["x4 upsample, sigmoid"], alpha = _event_ms(lambda: eng.model.upsample(logits))
-    alpha = alpha.contiguous()
+    if maps is None:
+        stages["x4 upsample, sigmoid"], alpha = _event_ms(lambda: eng.model.upsample(logits))
+        alpha = alpha.contiguous()
+    else:
+        alpha = maps
+    route = P.refine_routing(st)
+    form = "params" if route["analytic_prior"] else "plane"
     stages["planar guide"], guide = _event_ms(
         lambda: guide_from_s2d(fp, (fh, fw), (mh, mw), blk).contiguous())
     gate = torch.ones((s,), dtype=torch.bool, device=dev)
@@ -410,19 +457,34 @@ def _refine_stages(eng, logits, fp, stages, out_dtype):
         prior, has_prior = face[0].contiguous(), face[1]
     elif st.face_path:
         fidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+        # the face source: the guide, or with face_input='frames' the packed
+        # frames (the gathered streams unpacked)
+        src = (dict(src=guide) if st.face_input == "guide"
+               else dict(src=fp, src_planar=False, s2d_block=blk))
         stages[f"face subpath (K={-(-s // st.lmk_interval)} of {s} streams, {models})"], \
-            face = _event_ms(lambda: P.face_subpath_compact(eng.face_models, guide, fidx, gate,
-                                                            st))
+            face = _event_ms(lambda: P.face_subpath_compact(
+                eng.face_models, frame_idx=fidx, face_gate=gate, statics=st, prior_form=form,
+                **src))
         prior, has_prior = face[0].contiguous(), face[1]
     else:
-        prior = torch.zeros((s, 4), device=dev)
+        prior = torch.zeros((s, 4) if form == "params" else (s, mh, mw), device=dev)
         has_prior = torch.zeros((s,), dtype=torch.bool, device=dev)
-    stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
-        alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
-        eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
-        out_dtype=out_dtype))
-    stages["packed composite"], out = _event_ms(
-        lambda: alpha_composite_s2d(fp, a, eng.backgrounds, (fh, fw), blk))
+    if route["use_fused_tr"]:
+        stages["refine kernel (+index prep)"], (_, a) = _event_ms(lambda: fused_temporal_refine(
+            alpha, eng.state.prev_alpha, eng.state.affine, eng.state.has_affine,
+            eng.state.initialized, st.warp_blend_weight, guide, prior, has_prior, eng.knobs,
+            out_dtype=out_dtype))
+    else:
+        stages[f"warp ({st.warp_impl}) + blend, EMA (eager)"], (_, a) = _event_ms(
+            lambda: P.temporal_filter(eng.state, P.warp_blend(eng.state, alpha, st), eng.knobs,
+                                      st))
+        a = a.contiguous()
+        stages["fused_refine kernel"], a = _event_ms(
+            lambda: fused_refine(a, guide, prior, has_prior, eng.knobs))
+    stages[f"packed composite ({st.upsample_method}, {st.upsample_precision})"], out = \
+        _event_ms(lambda: alpha_composite_s2d(fp, a, eng.backgrounds, (fh, fw), blk,
+                                              method=st.upsample_method,
+                                              precision=st.upsample_precision))
     stages["unpack (depth_to_space)"], _ = _event_ms(lambda: depth_to_space(out, blk))
 
 

@@ -138,7 +138,8 @@ class PipelineStatics:
     warp_impl: str = "separable"
     # the plain composite's alpha upsample: 'mxu' (planar interpolation
     # products) or 'gather' (two-tap gathers); the products' precision
-    # 'fast' (the reference's one bf16 pass) or 'exact' (f32)
+    # (the natural plain composite and the packed one) 'fast' (the
+    # reference's one bf16 pass) or 'exact' (f32)
     upsample_impl: str = "mxu"
     upsample_precision: str = "fast"
     # the refine kernels: 'auto' or True (the kernel on the card, its
@@ -161,9 +162,9 @@ class PipelineStatics:
     # DEFAULT precision) or 'exact' (f32)
     preprocess_precision: str = "fast"
     # matting input: 'resized' (frames resized to the mask, the float
-    # MatteNet) or 'native' (the full-resolution frames: the int8
-    # MatteNetHD on s2d-packed frames, or the float plan-A MatteNetHD on
-    # natural frames, the fast preset; its strided stem does the resize)
+    # MatteNet) or 'native' (the full-resolution frames, natural or
+    # s2d-packed: the MatteNetHD, int8 or float by matting_precision; its
+    # strided stem does the resize)
     matting_input: str = "resized"
     # face source: 'frames' (the full-resolution frames; on s2d the packed
     # frames of the gathered streams unpacked) or 'guide' (the
@@ -175,8 +176,9 @@ class PipelineStatics:
     # input is its own guide
     guide_impl: str = "bilinear"
     s2d_block: int = 5
-    # the port serves 'pico', 'nano', 'femto', 'micro', 'light' and 'full'
-    # with one class, 'pico' and 'nano' with K (s2d only)
+    # the MatteNetHD's plan at a stem stride of 8 or more: 'pico', 'nano',
+    # 'femto', 'micro' (plan D's branch), 'light' (plan C), 'full' (plan B);
+    # below 8 the net is plan A whatever this says
     matting_decoder: str = "full"
     # matting architecture: 'feedforward', 'recurrent' (RVM-class model
     # threading ConvGRU state through StreamState.rec), or 'saliency'
@@ -205,9 +207,10 @@ class PipelineStatics:
     # {"color": rgb}), K of them
     num_classes: int = 1
     class_effects: tuple = ()
-    upsample_method: str = "half_pixel"  # the port serves 'half_pixel' only
-    # 'natural' [S, H, W, 3] with the bf16 MatteNet, or 's2d'
-    # [S, H/b, W/b, b*b*3] with the int8 MatteNetHD
+    upsample_method: str = "half_pixel"  # also "asymmetric", "align_corners"
+    # 'natural' [S, H, W, 3] with the float models, or 's2d'
+    # [S, H/b, W/b, b*b*3] with the MatteNetHD ('int8' or the float 'bf16'
+    # by matting_precision)
     frame_layout: str = "natural"
     matting_precision: str = "bf16"
     # the int8 graph's lowerings (models/quantized.py::QuantizedMatteNetHD):

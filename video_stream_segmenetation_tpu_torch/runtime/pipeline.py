@@ -11,12 +11,15 @@ s2d layout), face path on or off, and the multi-class step of
     the mask (gathers, or interpolation products with resize_impl='mxu')
     -> bf16 MatteNet, SaliencyNet or RecurrentMatteNet (its ConvGRU state
     in StreamState.rec), and the planar u8 guide floor(small*255+0.5);
-  or (fast, matting_input='native') the u8 frames -> the bf16 plan-A
-    MatteNetHD (5x5 stride-5 stem), and the guide as the frames' nearest
+  or (fast, matting_input='native') the u8 frames -> the bf16 float
+    MatteNetHD of the plan the stem stride and decoder pick (plan A's 5x5
+    stride-5 stem, or plans B, C, D), and the guide as the frames' nearest
     u8 taps (guide_impl='nearest_u8');
-  or packed u8 frames [S, H/b, W/b, b*b*3] -> int8 MatteNetHD (bf16 stem,
-    trunk kernel, x4 upsample, sigmoid), and the planar u8 guide as lanes
-    of the packed frames; with refine_alpha_src='lowres' the head-grid
+  or packed u8 frames [S, H/b, W/b, b*b*3] -> the int8 MatteNetHD (bf16
+    stem, trunk kernel, x4 upsample, sigmoid) or, matting_precision=
+    'bf16', the float one (its stem one product over the packed lanes),
+    and the planar u8 guide as lanes of the packed frames (guide_impl=
+    'bilinear': the unpacked frames' resize); with refine_alpha_src='lowres' the head-grid
     logits instead (the refine kernel upsamples them), with
     guide_kernel_unfold=True the guide's raw tap lanes (gathered here, or
     with guide_source='host' handed in beside the packed frames);
@@ -39,7 +42,9 @@ s2d layout), face path on or off, and the multi-class step of
        unfused chain (morphology, bilateral, threshold/gamma)
     -> natural: the fused composite kernel (use_fused_composite=True) or
        the upsample (planar products, or gathers with
-       upsample_impl='gather') and blend; s2d: the packed composite; over each
+       upsample_impl='gather') and blend; s2d: the packed composite
+       (bf16 products, or f32 with upsample_precision='exact'); each at
+       upsample_method's taps; over each
        stream's image, one colour, or (background='blur') the frames
        blurred, by the plain upsample and blend
     -> affine low-pass with the face path's updates (translation: the
@@ -127,74 +132,76 @@ from video_stream_segmenetation_tpu_torch.runtime.state import (
     map_state,
 )
 
-# (field, the only value the port serves) -- anything else is refused
-_SERVED = (("upsample_method", "half_pixel"),)
-# ... by frame layout: the int8 MatteNetHD over packed frames, or the
-# float models (MatteNet, RecurrentMatteNet, SaliencyNet over resized
-# natural frames; the plan-A MatteNetHD over the natural frames themselves)
-_SERVED_LAYOUT = {
-    "s2d": (("matting_input", "native"), ("matting_precision", "int8"),
-            ("matting_arch", "feedforward"), ("warp_impl", "separable"),
-            ("upsample_precision", "fast")),
-    "natural": (("matting_precision", "bf16"),),
-}
-# ... the single-class step's bilateral guide (natural: _ALLOWED_NATURAL)
-_SERVED_GUIDE = {"s2d": (("guide_impl", "nearest_u8"),), "natural": ()}
-# the multi-class step bypasses the single-matte stages and the face path
-# (the reference's step never reads face_path): they stay at the
-# reference's defaults; natural frames go to the K-class MatteNet resized
-_SERVED_MULTICLASS = (
-    ("background", "image"), ("matting_arch", "feedforward"),
-    ("face_tracking", "landmarks"), ("temporal_filter", "ema"), ("warp_blend_mode", "lerp"),
-    ("morphology", True), ("refine_alpha_src", "full"), ("guide_kernel_unfold", False),
-    ("guide_source", "gather"),
-)
-_SERVED_MULTICLASS_LAYOUT = {
-    "s2d": _SERVED_LAYOUT["s2d"],
-    "natural": (("matting_input", "resized"), ("matting_precision", "bf16")),
-}
-# (field, the values the port serves)
+# (field, the values the port serves, where the row holds) -- one table;
+# every value the reference has is served unless a row below pins it.
+# Where: None every statics, else a predicate of _WHERE.
 _ALLOWED = (
-    ("prior_impl", ("auto", "plane")),
-    ("use_fused_composite", (False, True, "auto")),
-    ("refined_dtype", ("f32", "bf16")),
-    ("warp_impl", ("separable", "exact")),
-    ("upsample_precision", ("fast", "exact")),
-    ("upsample_impl", ("mxu", "gather")),
-    ("preprocess_precision", ("fast", "exact")),
-    ("resize_impl", ("gather", "mxu")),
-    ("affine_mode", ("exact", "reference")),
-    ("face_models", ("fast", "reference")),
-    ("face_precision", ("bf16", "int8")),
+    ("frame_layout", ("s2d", "natural"), None),
+    # the s2d layout feeds the packed frames to a MatteNetHD (the
+    # reference raises without the native input, runtime/pipeline.py:
+    # 444-451; its Engine builds a MatteNet, RVM or U2Net on no layout but
+    # the natural one)
+    ("matting_input", ("native",), "s2d"),
+    ("matting_arch", ("feedforward",), "s2d"),
+    # the natural layout's models are float (its int8 graph is
+    # MatteNetHD's alone)
+    ("matting_precision", ("bf16",), "natural"),
+    # the native input on the natural layout is the float MatteNetHD
+    ("matting_arch", ("feedforward",), "natural native"),
+    # K classes: the reference's Engine makes the recurrent state for
+    # matting_arch='recurrent' (service/engine.py:145) and hands
+    # guide_source='host' steps a (packed, lanes) tuple (:222-236), which
+    # its multi-class step does not take; its natural multi-class step
+    # feeds the MatteNetHD the mask-size resize, whose alpha is off the
+    # mask grid (it fails at the first step: "sub got incompatible shapes
+    # for broadcasting")
+    ("matting_arch", ("feedforward",), "multi-class"),
+    ("guide_source", ("gather",), "multi-class"),
+    ("matting_input", ("resized",), "natural multi-class"),
+    ("matting_input", ("resized", "native"), None),
+    ("matting_precision", ("int8", "bf16"), None),
+    ("matting_arch", ("feedforward", "recurrent", "saliency"), None),
+    ("matting_decoder", ("pico", "nano", "femto", "micro", "light", "full"), None),
+    ("upsample_method", ("half_pixel", "asymmetric", "align_corners"), None),
+    ("upsample_precision", ("fast", "exact"), None),
+    ("upsample_impl", ("mxu", "gather"), None),
+    ("warp_impl", ("separable", "exact"), None),
+    ("guide_impl", ("bilinear", "nearest_u8"), None),
+    ("prior_impl", ("auto", "plane"), None),
+    ("use_fused_composite", (False, True, "auto"), None),
+    ("use_fused_refine", ("auto", True, False), None),
+    ("refined_dtype", ("f32", "bf16"), None),
+    ("preprocess_precision", ("fast", "exact"), None),
+    ("resize_impl", ("gather", "mxu"), None),
+    ("affine_mode", ("exact", "reference"), None),
+    ("face_models", ("fast", "reference"), None),
+    ("face_precision", ("bf16", "int8"), None),
+    ("int8_conv_impl", ("xla", "pallas"), None),
+    ("int8_head_impl", ("int8", "bf16"), None),
+    # the single-class step's stages; the multi-class step and the
+    # reference's Engine never read these with K classes, so there they
+    # are served and ignored, as face_path is
+    ("background", ("image", "color", "blur"), None),
+    ("refine_alpha_src", ("full", "lowres", "auto"), None),
+    ("guide_kernel_unfold", (False, True, "auto"), None),
+    ("guide_source", ("gather", "host"), None),
+    ("morphology", (True, False), None),
+    ("temporal_filter", ("ema", "hole_fill", "none"), None),
+    ("warp_blend_mode", ("lerp", "max"), None),
+    ("face_tracking", ("landmarks", "translation"), None),
+    ("face_compact", (True, False), None),
+    ("face_input", ("frames", "guide"), None),
+    ("crop_impl", ("gather", "mxu"), None),
 )
-# the single-class step: the background, the fast refine's inputs ('auto'
-# resolves as off the TPU), and the stage chain's options
-_ALLOWED_SINGLE = (
-    ("background", ("image", "color", "blur")),
-    ("refine_alpha_src", ("full", "lowres", "auto")),
-    ("guide_kernel_unfold", (False, True, "auto")),
-    ("guide_source", ("gather", "host")),
-    ("use_fused_refine", ("auto", True, False)),
-    ("morphology", (True, False)),
-    ("temporal_filter", ("ema", "hole_fill", "none")),
-    ("warp_blend_mode", ("lerp", "max")),
-    ("face_tracking", ("landmarks", "translation")),
-    ("matting_arch", ("feedforward", "recurrent", "saliency")),
-    ("face_compact", (True, False)),
-    ("face_input", ("frames", "guide")),
-    ("crop_impl", ("gather", "mxu")),
-)
-_ALLOWED_NATURAL = (
-    ("matting_input", ("resized", "native")),
-    ("guide_impl", ("bilinear", "nearest_u8")),
-)
-_ALLOWED_S2D = (
-    ("int8_conv_impl", ("xla", "pallas")),
-    ("int8_head_impl", ("int8", "bf16")),
-)
-# the trunk plans the port serves, with one class and with K
-_DECODERS = {False: ("pico", "nano", "femto", "micro", "light", "full"),
-             True: ("pico", "nano")}
+_WHERE = {
+    None: lambda st: True,
+    "s2d": lambda st: st.frame_layout == "s2d",
+    "natural": lambda st: st.frame_layout == "natural",
+    "natural native": lambda st: (st.frame_layout == "natural"
+                                  and st.matting_input == "native" and st.num_classes == 1),
+    "multi-class": lambda st: st.num_classes > 1,
+    "natural multi-class": lambda st: st.frame_layout == "natural" and st.num_classes > 1,
+}
 
 
 def _refuse(field, got, want, suffix=""):
@@ -203,46 +210,27 @@ def _refuse(field, got, want, suffix=""):
 
 
 def check_statics(statics: PipelineStatics) -> None:
-    """Refuse what the port's steps do not serve: the s2d layout with
-    another matting architecture or the exact warp; on the natural layout
-    the native input (the plan-A MatteNetHD) with another architecture or
-    a stem stride of 8 or more; upsample methods but 'half_pixel'; and
-    every value the reference does not have."""
+    """Refuse what the port's steps do not serve (the rows of
+    ``_ALLOWED``, in order): the s2d layout with another input or matting
+    architecture; the natural layout's int8 precision; with K classes the
+    recurrent and saliency models, host guide lanes and the natural
+    layout's native input; and every value the reference does not have.
+    A one-value row names its value (with K classes, and the class count),
+    other rows the tuple of values."""
     multiclass = statics.num_classes > 1
-    layout = statics.frame_layout
-    if layout not in _SERVED_LAYOUT:
-        _refuse("frame_layout", layout, tuple(_SERVED_LAYOUT))
-    if multiclass:
-        served = _SERVED_MULTICLASS + _SERVED + _SERVED_MULTICLASS_LAYOUT[layout]
-    else:
-        served = _SERVED + _SERVED_LAYOUT[layout] + _SERVED_GUIDE[layout]
-        if layout == "natural" and statics.matting_input == "native":
-            # the plan-A float MatteNetHD (mattenet_hd.py:115-186)
-            served += (("matting_arch", "feedforward"),)
-            if statics.s2d_block >= 8:
-                raise NotImplementedError(
-                    f"s2d_block={statics.s2d_block}: the torch port serves the natural "
-                    "layout's native input with plan A's stem stride (under 8) only")
     suffix = f" with num_classes={statics.num_classes}" if multiclass else ""
-    for field, want in served:
-        got = getattr(statics, field)
-        if got != want or type(got) is not type(want):
-            _refuse(field, got, want, suffix)
-    allowed = _ALLOWED + ((("use_fused_refine", ("auto", True)),) if multiclass
-                          else _ALLOWED_SINGLE)
-    if layout == "s2d":
-        allowed += (("matting_decoder", _DECODERS[multiclass]),) + _ALLOWED_S2D
-    elif not multiclass:
-        allowed += _ALLOWED_NATURAL
     if multiclass:
         if len(statics.class_effects) != statics.num_classes:
             raise ValueError(f"class_effects: {len(statics.class_effects)} effects for "
                              f"{statics.num_classes} classes")
         effect_algebra(statics.class_effects)
-    for field, values in allowed:
+    for field, values, where in _ALLOWED:
+        if not _WHERE[where](statics):
+            continue
         got = getattr(statics, field)
         if not any(got == v and type(got) is type(v) for v in values):
-            _refuse(field, got, values)
+            one = len(values) == 1
+            _refuse(field, got, values[0] if one else values, suffix if one else "")
 
 
 @dataclasses.dataclass
@@ -489,10 +477,13 @@ def make_multiclass_step(model, statics: PipelineStatics):
             frame_idx=state.frame_idx + 1,
             rec=(blended,),
         )
+        # the outputs are copies: the state's tensors are written in place
+        # by a later admission or eviction (runtime/state.py::reset_streams),
+        # which must not rewrite a step's results once returned
         outputs = {
             "frame": out_u8,
-            "alpha": alpha,
-            "class_alpha": blended,
+            "alpha": alpha.clone(),
+            "class_alpha": blended.clone(),
             "det_score": torch.zeros((s,), dtype=torch.float32, device=dev),
             "face_applied": torch.zeros((s,), dtype=torch.bool, device=dev),
         }
@@ -617,9 +608,10 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
 
     ``model``: the MatteNet or SaliencyNet (``small -> {"alpha"}``), the
     RecurrentMatteNet (``(small, rec) -> {"alpha", "state"}``, the state
-    threaded through ``StreamState.rec``), the float plan-A MatteNetHD
-    (the u8 natural frames, ``matting_input='native'``) or the int8
-    MatteNetHD, by ``statics.matting_arch``, the input and the layout.
+    threaded through ``StreamState.rec``), the float MatteNetHD (the u8
+    natural or packed frames, ``matting_input='native'``) or the int8
+    MatteNetHD, by ``statics.matting_arch``, the input, the layout and
+    ``statics.matting_precision``.
     ``small`` is the frames resized to the mask (``resize_impl``: the
     gathers, or the interpolation products at ``preprocess_precision``);
     the natural guide is ``floor(small*255+0.5)``, or with the native
@@ -646,6 +638,7 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     use_fused, use_fused_tr = refine_route["use_fused"], refine_route["use_fused_tr"]
     prior_form = "params" if refine_route["analytic_prior"] else "plane"
     bg_mode = statics.background
+    method = statics.upsample_method
     fused_comp = (natural and statics.use_fused_composite is True and bg_mode != "blur"
                   and fh % ROW_BLOCK == 0)
     out_dtype = torch.bfloat16 if statics.refined_dtype == "bf16" else torch.float32
@@ -677,14 +670,15 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             bg = backgrounds if bg_mode == "image" else device_const(
                 ("packed_color", statics.bg_color, blk), dev,
                 lambda: packed_color(statics.bg_color, blk))
-            return alpha_composite_s2d(frames, a, bg, (fh, fw), blk)
+            return alpha_composite_s2d(frames, a, bg, (fh, fw), blk, method=method,
+                                       precision=statics.upsample_precision)
         if fused_comp:
             bg = backgrounds if bg_mode == "image" else device_const(
                 ("color_row", statics.bg_color, fh, fw), dev,
                 lambda: np.ascontiguousarray(np.broadcast_to(
                     np.floor(np.asarray(statics.bg_color, np.float32) * np.float32(255.0)
                              + np.float32(0.5)).astype(np.uint8), (1, fh, fw, 3))))
-            return fused_composite(frames, a, bg)
+            return fused_composite(frames, a, bg, method=method)
         nat = frames if natural else depth_to_space(frames, blk)
         if bg_mode == "blur":
             bg = gaussian_blur_auto(nat.to(torch.float32) / 255.0, statics.bg_blur_sigma)
@@ -693,7 +687,8 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                               lambda: np.asarray(statics.bg_color, np.float32))
         else:
             bg = backgrounds
-        return natural_composite(nat, a, bg, bf16_pass=statics.upsample_precision == "fast",
+        return natural_composite(nat, a, bg, method=method,
+                                 bf16_pass=statics.upsample_precision == "fast",
                                  impl=statics.upsample_impl)
 
     def unfused(state, alpha_raw, guide, prior, has_prior, knobs):
@@ -738,7 +733,11 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             # lowres: the head-grid logits; the refine kernel upsamples them
             alpha_raw = (model(frames, lowres=True)["alpha_logit_lr"] if lowres
                          else model(frames)["alpha"])
-            if lane_geom is None:
+            if statics.guide_impl == "bilinear":
+                # the reference resizes the unpacked frames (its frames_nat)
+                small = resize_down(depth_to_space(frames, blk))
+                guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8).permute(0, 3, 1, 2)
+            elif lane_geom is None:
                 guide = guide_from_s2d(frames, (fh, fw), (mh, mw), blk)
             elif lanes is None:
                 guide = guide_lanes_s2d(frames, (fh, fw), (mh, mw), blk)[0]
@@ -911,3 +910,16 @@ def make_round_step(model, statics: PipelineStatics, group_sizes,
         return full_state, face_last, outs
 
     return round_step
+
+
+def segment_once(model, statics: PipelineStatics):
+    """Single-shot ``segment(frames) -> mask`` (the reference's
+    ``segment_once``): ``seg(frames_u8 [S, H, W, 3]) -> alpha [S, mh, mw]
+    f32``, the frames over 255 resized to the mask (asymmetric taps) and
+    the model's alpha; no temporal state, no refine."""
+
+    def seg(frames_u8: torch.Tensor) -> torch.Tensor:
+        small = resize_frames_u8(frames_u8, tuple(statics.mask_hw), "asymmetric")
+        return model(small)["alpha"].to(torch.float32)
+
+    return seg

@@ -17,6 +17,8 @@ ported, as the reference defines them: all sixteen.  ``preset(name,
 
 from __future__ import annotations
 
+import dataclasses
+
 from video_stream_segmenetation_tpu_torch.runtime.config import PipelineStatics
 
 _FAST_INT8 = dict(
@@ -128,3 +130,14 @@ def preset(name: str, **overrides) -> PipelineStatics:
 
 def list_presets() -> list[str]:
     return sorted(_PRESETS)
+
+
+def describe(name: str) -> str:
+    """One line naming a preset and the statics it sets apart from
+    ``PipelineStatics()``'s defaults (the reference's ``describe``; the
+    fields in the port's order, of the fields the port has)."""
+    base = PipelineStatics()
+    p = preset(name)
+    diffs = {f.name: getattr(p, f.name) for f in dataclasses.fields(PipelineStatics)
+             if getattr(p, f.name) != getattr(base, f.name)}
+    return f"{name}: {diffs or 'defaults (the active frameProcessorTest pipeline)'}"

@@ -172,14 +172,14 @@ class Engine:
         default (``active``).  ``params``: for the natural layout the float
         tree of ``statics.matting_arch``'s model (flax-shaped ``{"params",
         "batch_stats"}``, e.g. bridge.py::trained_weights: MatteNet (K
-        class heads with ``num_classes``), RecurrentMatteNet, SaliencyNet,
-        or the plan-A MatteNetHD with ``matting_input='native'``), for the
-        s2d layout the int8 serving
-        dict of ``statics.matting_decoder``'s plan with
+        class heads with ``num_classes``), RecurrentMatteNet, SaliencyNet),
+        with ``matting_input='native'`` the MatteNetHD's: its float tree
+        (``matting_precision='bf16'``, either layout) or the int8 serving
+        dict (``'int8'``, s2d) of ``statics.matting_decoder``'s plan with
         ``statics.num_classes`` head classes (models/quantized.py
         ``quantize_mattenet_hd`` or bridge.py); None makes a float tree
         from ``seed`` (models/modnet.py, rvm.py, u2net.py,
-        models/mattenet_hd.py; s2d: then quantized).  ``face_params``:
+        models/mattenet_hd.py; int8: then quantized).  ``face_params``:
         ``{"face": FaceFinder tree, "lmk": LandmarkNet tree}`` (flax-shaped
         float trees, e.g.
         bridge.py::trained_weights); None makes both from ``seed``.
@@ -272,24 +272,24 @@ class Engine:
         return ()
 
     def _matting_model(self, params) -> torch.nn.Module:
-        """The matting model by ``statics.matting_arch`` (the reference's
-        service/engine.py:347-391): the int8 MatteNetHD for the s2d
-        layout, else the K-class MatteNet (natural, ``num_classes > 1``),
-        the RecurrentMatteNet, the SaliencyNet, the float plan-A MatteNetHD
-        (``matting_input='native'``) or the float MatteNet, each from
+        """The matting model (the reference's service/engine.py:338-424):
+        with the native input the MatteNetHD, int8 or float by
+        ``matting_precision``, on either layout; else the K-class MatteNet
+        (``num_classes > 1``), the RecurrentMatteNet, the SaliencyNet or
+        the float MatteNet, by ``statics.matting_arch``; each from
         ``params`` or a tree drawn from the seed."""
         st = self.statics
         arch = st.matting_arch
-        if self.packed:
+        if st.matting_input == "native" and st.matting_precision == "int8":
             model = self._int8_model(params)
+        elif st.matting_input == "native":
+            model = self._float_hd_model(params)
         elif st.num_classes > 1:
             model = MatteNet(init_mattenet_params(self.seed, st.num_classes) if params is None
                              else params, device=self.device)
             if model.num_classes != st.num_classes:
                 raise ValueError(f"params have {model.num_classes} classes; statics ask "
                                  f"for num_classes={st.num_classes}")
-        elif arch == "feedforward" and st.matting_input == "native":
-            model = self._plan_a_model(params)
         elif arch == "recurrent":
             model = RecurrentMatteNet(init_rvm_params(self.seed) if params is None else params,
                                       device=self.device)
@@ -303,10 +303,12 @@ class Engine:
         # the rounds' in-place row writes)
         return freeze(model)
 
-    def _plan_a_model(self, params) -> MatteNetHD:
-        """The float MatteNetHD of plan A over the natural frames (the
-        reference's service/engine.py:374-388): the mask is uf x the stem
-        grid ``ceil(frame / s2d_block)``; plan A's head upsample is x2."""
+    def _float_hd_model(self, params) -> MatteNetHD:
+        """The float MatteNetHD over the natural or packed frames (the
+        reference's service/engine.py:345-388): the plan of the stem
+        stride ``s2d_block`` and ``matting_decoder``, ``num_classes``
+        classes; the mask is uf x the stem grid ``ceil(frame /
+        s2d_block)``."""
         st = self.statics
         fh, fw = st.frame_hw
         mh, mw = st.mask_hw
@@ -316,8 +318,13 @@ class Engine:
         if (uf * stem_hw[0], uf * stem_hw[1]) != (mh, mw):
             raise ValueError(f"native matting: mask_hw must be an integer multiple of the "
                              f"stem grid ceil(frame/{ss}) = {stem_hw}, got {(mh, mw)}")
-        tree = init_params("full", self.seed, ss) if params is None else params
-        return MatteNetHD(ss, uf, "full", params=tree, device=self.device)
+        if params is None:
+            params = init_params(st.matting_decoder, self.seed, ss, st.num_classes)
+        model = MatteNetHD(ss, uf, st.matting_decoder, params=params, device=self.device)
+        if model.num_classes != st.num_classes:
+            raise ValueError(f"params have {model.num_classes} classes; statics ask "
+                             f"for num_classes={st.num_classes}")
+        return model
 
     def _int8_model(self, params) -> QuantizedMatteNetHD:
         st = self.statics
@@ -422,9 +429,9 @@ class Engine:
     def load_matting_params(self, path) -> None:
         """Serve the matting weights of an ``.npz`` export
         (bridge.py::save_export; the committed ones are under ``weights/``):
-        the int8 serving dict for the s2d presets, the float tree of the
-        natural layout's model (``mattenet.npz``, ``rvm.npz``,
-        ``u2net.npz``, ``mattenet_hd.npz``, ``mattenet_multiclass.npz``),
+        the int8 serving dict for the int8 presets, else the float tree of
+        the model (``mattenet.npz``, ``rvm.npz``, ``u2net.npz``,
+        ``mattenet_hd.npz`` on either layout, ``mattenet_multiclass.npz``),
         as the constructor's ``params``."""
         self.model = self._matting_model(load_export(path))
         self._build_steps()
