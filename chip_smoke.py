@@ -31,7 +31,10 @@ Phases, each announced by one line on stdout:
      rounding f32 -> bf16 on 64 M values (+-0, subnormals, exact values,
      +-inf, NaNs, values next to bf16's largest, normals at many scales):
      bit for bit, every output one of its two bf16 neighbours, a block of
-     one value rounded up at its probability within 5 sigma;
+     one value rounded up at its probability within 5 sigma; then the
+     refine kernel's bench-only debug variants ('no_morph', 'no_bilateral',
+     both) of the analytic (bf16), plane (f32) and fast (logits and lanes)
+     forms against their plain versions with the same tokens, and timed;
   4-38. serve: Engine(64, ...) answers 8 steps of 720p frames in
      thirty-five phases, each with every launch count set to 0 just before it
      and read just after, and none of its steps a passthrough (the engine's
@@ -72,7 +75,8 @@ Phases, each announced by one line on stdout:
       22-25. the reference application's other pipelines as their presets
           stand, on the unfused refine chain (no counted kernel):
           blaze_tracking (translation tracking, the detector on every
-          stream's 720p frame every step, a colour background), branch
+          stream's 720p frame every step, a colour background; the face
+          gate off, face_min_interval_s=0, as its bar's reference), branch
           (the max blend and the hole-filling EMA; the even streams primed
           with PRIMED_AFFINE), rvm (the RecurrentMatteNet, its ConvGRU
           state in StreamState.rec) and u2 (the SaliencyNet at 320x320, no
@@ -179,7 +183,22 @@ Phases, each announced by one line on stdout:
      detector (256) and landmark graph (192), the int8 and the bf16
      FaceFinder and LandmarkNet (128), and the MediaPipe graphs on the card
      against the CPU on two of those streams;
-  48. train: the plan-D pico MatteNetHD at its full widths, fit on the
+  48. rollout (runtime/rollout.py): on Engine(64, fast_int8_pico), trained
+     weights and the committed frames, a step rollout of 4 steps against 4
+     sequential make_step calls on the same tagged frames (state and both
+     buffers bit for bit; the trunk and the refine kernel 4 times), then
+     its slope between chains of 2 and 10 steps (median of 5 paired reps;
+     host clock and CUDA events; acc_mode 'buffer' and 'reduce') beside
+     the host-clock median of 8 Engine.process calls; on the production
+     rotation (400 streams in [96, 96, 96, 96, 16], the fast route), a round
+     rollout of 3 rounds under set_sync_debug_mode('error') against 3
+     sequential round steps (bit for bit; the trunk and the fast refine
+     once a group a round), then its slope between 1 and 3 rounds (3 reps);
+  49. snapshot: Engine(64, fast_int8_pico) saved after 3 steps
+     (utils/checkpoint.py), restored into a fresh engine of another seed,
+     both stepped 4 times on the same frames (the last a face cadence
+     step): state and outputs bit for bit;
+  50. train: the plan-D pico MatteNetHD at its full widths, fit on the
      card with tools/train_flagship.py's schedule at fewer steps (20 at
      240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
      grad_norm finite and every leaf moved; one step's forward and
@@ -203,6 +222,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -230,17 +250,11 @@ def say(*parts) -> None:
 
 
 def cuda_time_ms(fn, iters: int) -> float:
-    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after a warm-up
+    (utils/profiling.py::event_ms)."""
+    from video_stream_segmenetation_tpu_torch.utils.profiling import event_ms
+
+    return event_ms(fn, iters)[0]
 
 
 def trunk_macs(x0_shape, tp, head: bool = True) -> int:
@@ -614,6 +628,72 @@ def check_refine_fast(dev) -> dict:
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "forms_ms": {k: v[0] for k, v in times.items()}}
+
+
+# the refine kernel's debug variants (the reference's bench-only tokens)
+REFINE_DEBUGS = (("no_morph",), ("no_bilateral",), ("no_morph", "no_bilateral"))
+
+
+def check_refine_debug(dev) -> dict:
+    """Rows 2, 2p and 2f (the analytic form with its bf16 out, the plane
+    form with f32, the fast form from logits and lanes) in each debug
+    variant, on the inputs those rows' checks use, against the plain
+    version with the same tokens at those rows' tolerances, and timed.
+    Returns ``{row's kernel name: the largest error}``."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.prior import prior_plane_from_params
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    forms = {}
+    (alpha, prev, guide, affine, init, use_warp, has_prior, pp, knobs) = _refine_inputs(dev, 2)
+    hw = alpha.shape[-2:]
+    yi, xi = separable_warp_indices(affine, hw)
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+    forms["refine_fused"] = (
+        lambda d: TR._launch(alpha, prev, yi, xi, guide, table, bf16, debug=d),
+        lambda d: TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table, bf16,
+                                                 debug=d), REFINED_TOL)
+    (alpha_p, prev_p, guide_p, affine_p, init_p, warp_p, hp_p, pp_p, knobs_p) = \
+        _refine_inputs(dev, 6)
+    plane = torch.where(hp_p[:, None, None], prior_plane_from_params(pp_p, hw),
+                        torch.zeros((), device=dev)).contiguous()
+    yi_p, xi_p = separable_warp_indices(affine_p, hw)
+    table_p = TR.scalar_table(knobs_p, warp_p, init_p, 0.3, torch.zeros_like(pp_p), hp_p)
+    forms["refine_fused_plane"] = (
+        lambda d: TR._launch(alpha_p, prev_p, yi_p, xi_p, guide_p, table_p, f32, plane,
+                             debug=d),
+        lambda d: TR.fused_temporal_refine_plain(alpha_p, prev_p, yi_p, xi_p, guide_p, table_p,
+                                                 f32, plane, debug=d), REFINED_F32_TOL)
+    (logits, _, lanes, geom, prev_f, _, affine_f, init_f, warp_f, hp_f, pp_f,
+     knobs_f) = fast_refine_inputs(dev, 9)
+    yi_f, xi_f = separable_warp_indices(affine_f, hw)
+    table_f = TR.scalar_table(knobs_f, warp_f, init_f, 0.3, pp_f, hp_f)
+    forms["refine_fused_fast"] = (
+        lambda d: TR._launch(logits, prev_f, yi_f, xi_f, lanes, table_f, bf16, None, hw, geom,
+                             debug=d),
+        lambda d: TR.fused_temporal_refine_plain(logits, prev_f, yi_f, xi_f, lanes, table_f,
+                                                 bf16, None, hw, geom, d), REFINED_TOL)
+    errs = {}
+    for name, (kernel, plain, tol) in forms.items():
+        for debug in REFINE_DEBUGS:
+            got_prev, got = kernel(debug)
+            with pinned():
+                want_prev, want = plain(debug)
+            torch.cuda.synchronize()
+            err_prev = (got_prev - want_prev).abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            label = ",".join(debug)
+            if not (err_prev <= PREV_TOL and err <= tol):
+                raise AssertionError(f"{name} {label} disagrees with its plain version: "
+                                     f"{err_prev}, {err}")
+            ms = cuda_time_ms(lambda: kernel(debug), 20)
+            say(f"  {name} {label}: new_prev max_abs_err {err_prev:.3e} (tolerance "
+                f"{PREV_TOL:g}), refined {got.dtype} max_abs_err {err:.3e} (tolerance "
+                f"{tol:g}), {ms:.3f} ms")
+            errs[name] = max(errs.get(name, 0.0), err_prev, err)
+    return errs
 
 
 def check_decoder(dev) -> dict:
@@ -1230,6 +1310,9 @@ PHASES = (
      {"refine_fused": 1, "composite_fused": 1}, REFERENCE_IOU["active"] - IOU_SLACK,
      {"composite_fused": "composite_fused_asymmetric"}),
 )
+# phases served with the face gate off (face_min_interval_s=0), as the
+# reference engine that gives their bar runs (tests/test_torch_zoo_720p.py)
+FACE_GATE_OFF = ("blaze_tracking",)
 # branch: with the face path off nothing in serving sets an affine, so the
 # even streams start with this 2-pixel shift (mask coordinates) and the max
 # blend runs from the second step (the reference's tests prime it so too)
@@ -1297,6 +1380,10 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         eng = Engine(num_streams, statics, seed=0, device=device)
         base = (rng.random((num_streams, fh, fw, 3)) * 90).astype(np.uint8)
     eng.admit_all()
+    if name in FACE_GATE_OFF:
+        # the engine's 0.180 s wall-clock face gate against steps of about
+        # 90 ms would make the served IoU follow the host clock
+        eng.face_min_interval_s = 0.0
     if name == "branch":
         even = torch.as_tensor(np.arange(num_streams) % 2 == 0, device=eng.device)
         eng.state.affine[even] = torch.tensor(PRIMED_AFFINE, device=eng.device)
@@ -1950,6 +2037,221 @@ def phase_refface_round(device, sizes=(24, 24, 16), rounds=2) -> dict:
                                          f"{errs[f'{label} {name}']}")
     out.update(times_ms=times, graph_err=errs)
     return out
+
+
+# the step rollout: fast_int8_pico at S streams, a parity chain of
+# ROLL_PARITY_N steps, slopes at (ROLL_N1, ROLL_N2) over ROLL_REPS paired
+# reps; the round rollout: the production rotation (ROTATION, FAST_ROUTE),
+# a parity chain of ROUND_N2 rounds, slopes at (ROUND_N1, ROUND_N2) over
+# ROUND_REPS reps
+ROLL_PARITY_N, ROLL_N1, ROLL_N2, ROLL_REPS = 4, 2, 10, 5
+ROUND_N1, ROUND_N2, ROUND_REPS = 1, 3, 3
+
+
+def _state_gap(a, b) -> float:
+    """The largest difference of two StreamStates, every tensor."""
+    from video_stream_segmenetation_tpu_torch.runtime.state import state_tensors
+
+    return max((x.double() - y.double()).abs().max().item()
+               for x, y in zip(state_tensors(a), state_tensors(b)))
+
+
+def _acc_gap(a, b) -> float:
+    """The largest difference of two accumulators (u8 buffers modulo 256)."""
+    if a.dtype == torch.uint8:
+        d = (a.int() - b.int()) % 256
+        return torch.minimum(d, 256 - d).max().item()
+    return (a.double() - b.double()).abs().max().item()
+
+
+def phase_rollout(device) -> dict:
+    """The rollouts (runtime/rollout.py) on the card.  The step rollout on
+    fast_int8_pico at S streams (trained weights, committed frames): a chain
+    of ROLL_PARITY_N steps against as many sequential make_step calls on the
+    same tagged frames (state and both buffers bit for bit), then the slopes
+    at (ROLL_N1, ROLL_N2) on both clocks in both acc_modes, beside the
+    host-clock median of Engine.process.  The round rollout on the
+    production rotation (ROTATION in groups, FAST_ROUTE): ROUND_N2 rounds
+    under set_sync_debug_mode('error') against as many sequential round
+    steps (bit for bit), the trunk and the fast refine launched once a
+    group a round, then the slopes at (ROUND_N1, ROUND_N2)."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.runtime import rollout as RO
+    from video_stream_segmenetation_tpu_torch.runtime.pipeline import (
+        make_round_step,
+        make_step,
+    )
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.runtime.state import map_state
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+
+    counters = _counters()
+    clip, _ = bridge.load_frames()
+    out = {"launches": {k: 0 for k in counters}}
+
+    def count(fn):
+        for c in counters.values():
+            c.launches = 0
+        r = fn()
+        got = {k: c.launches for k, c in counters.items()}
+        for k, v in got.items():
+            out["launches"][k] += v
+        return r, got
+
+    # ---- the step rollout
+    st = preset("fast_int8_pico")
+    weights = bridge.trained_weights(st)
+    eng = Engine(S, st, **weights, seed=0, device=device)
+    eng.face_min_interval_s = 0.0
+    eng.admit_all()
+    batches = [np.ascontiguousarray(clip[(np.arange(S) + t) % 2]) for t in range(2)]
+    frames = batches[0]
+    times = []
+    for t in range(SERVE_STEPS):
+        t0 = time.perf_counter()
+        eng.process(batches[t % 2])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["process_ms"] = times
+    fj = eng._ingest(frames)[1]
+    gate = torch.ones((S,), dtype=torch.bool, device=eng.device)
+    args = (eng.state, fj, eng.backgrounds, eng.knobs, gate)
+    n = ROLL_PARITY_N
+    rolls = {acc: RO.make_step_rollout(eng.model, st, eng.face_models, acc_mode=acc)
+             for acc in ("buffer", "reduce")}
+    (st_r, acc_f, acc_a), got = count(lambda: rolls["buffer"](*args, n))
+    if device != "cpu" and (got["trunk_int8"] != n or got["refine_fused"] != n):
+        raise AssertionError(f"step rollout of {n}: launches {got}")
+    step = make_step(eng.model, st, eng.face_models)
+
+    def sequential():
+        s_, f_, a_ = eng.state, None, None
+        with pinned():
+            for i in range(n):
+                s_, o = step(s_, fj if i == 0 else RO._perturb(fj, i), eng.backgrounds,
+                             eng.knobs, gate)
+                f_ = o["frame"] if f_ is None else f_ + o["frame"]
+                a_ = o["alpha"] if a_ is None else a_ + o["alpha"]
+        return s_, f_, a_
+
+    (st_s, exp_f, exp_a), _ = count(sequential)
+    torch.cuda.synchronize()
+    out["step_parity"] = {"state": _state_gap(st_r, st_s), "frame": _acc_gap(acc_f, exp_f),
+                          "alpha": _acc_gap(acc_a, exp_a)}
+    if any(out["step_parity"].values()):
+        raise AssertionError(f"step rollout vs {n} sequential steps: {out['step_parity']}")
+    (timed, got) = count(lambda: RO.time_rollout([rolls["buffer"], rolls["reduce"]], args,
+                                                 ROLL_N1, ROLL_N2, ROLL_REPS, device=device))
+    out["step_slopes"] = dict(zip(("buffer", "reduce"), timed))
+    del eng, rolls, args, st_r, st_s, acc_f, exp_f, acc_a, exp_a, fj
+    torch.cuda.empty_cache()
+
+    # ---- the round rollout: the production rotation
+    sizes = list(ROTATION)
+    nr = sum(sizes)
+    st = preset("fast_int8_pico", **FAST_ROUTE)
+    eng = Engine(nr, st, **weights, seed=0, device=device)
+    eng.admit_all()
+    offs = np.cumsum([0, *sizes])
+    groups = [eng._ingest(np.ascontiguousarray(clip[np.arange(offs[g], offs[g + 1]) % 2]),
+                          rows=sizes[g])[1] for g in range(len(sizes))]
+    now0 = torch.full((), 5.0, dtype=torch.float32, device=eng.device)
+    mi = eng._min_interval_device()
+
+    def fresh():
+        return (map_state(torch.clone, eng.state), groups, eng.backgrounds, eng.knobs,
+                torch.full((nr,), -1e9, dtype=torch.float32, device=eng.device), now0, mi)
+
+    roll = RO.make_round_rollout(eng.model, st, sizes, eng.face_models)
+    roll(*fresh(), 1)  # first use: allocations and the library's handles
+    torch.cuda.synchronize()
+    n = ROUND_N2
+    args = fresh()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (rs, rlast, accs), got = count(lambda: roll(*args, n))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = len(sizes) * n
+    if device != "cpu" and (got["trunk_int8"] != want or got["refine_fused_fast"] != want):
+        raise AssertionError(f"round rollout of {n}: launches {got}, expected {want} each")
+    rstep = make_round_step(eng.model, st, sizes, eng.face_models)
+
+    def sequential_rounds():
+        s_, _, _, _, last, _, _ = fresh()
+        exp = None
+        with pinned():
+            for i in range(n):
+                now = now0 + float(np.float32(i) * np.float32(1.0 / 30.0))
+                fl = groups if i == 0 else [RO._perturb(f, i) for f in groups]
+                s_, last, outs = rstep(s_, fl, eng.backgrounds, eng.knobs, last, now, mi)
+                o = [(x["frame"], x["alpha"]) for x in outs]
+                exp = o if exp is None else [(a + f, b + al) for (a, b), (f, al) in zip(exp, o)]
+        return s_, last, exp
+
+    (ss, slast, exp), _ = count(sequential_rounds)
+    torch.cuda.synchronize()
+    out["round_parity"] = {
+        "state": _state_gap(rs, ss), "face_last": _acc_gap(rlast, slast),
+        "frame": max(_acc_gap(a[0], e[0]) for a, e in zip(accs, exp)),
+        "alpha": max(_acc_gap(a[1], e[1]) for a, e in zip(accs, exp))}
+    if any(out["round_parity"].values()):
+        raise AssertionError(f"round rollout vs {n} sequential rounds: {out['round_parity']}")
+    del rs, ss, accs, exp
+    (timed, _) = count(lambda: RO.time_rollout(roll, fresh, ROUND_N1, ROUND_N2, ROUND_REPS,
+                                               device=device))
+    out["round_slopes"] = timed
+    del eng, groups
+    torch.cuda.empty_cache()
+    return out
+
+
+SNAPSHOT_STEPS = 4
+
+
+def phase_snapshot(device) -> dict:
+    """utils/checkpoint.py on the card: Engine(S, fast_int8_pico) on the
+    trained weights serves 3 steps of the committed frames and is saved; a
+    fresh engine (another seed) restores it; both serve SNAPSHOT_STEPS more
+    steps of the same frames (the last one a face cadence step), and every
+    output and the state must be equal bit for bit."""
+    import tempfile
+
+    from video_stream_segmenetation_tpu_torch import bridge, utils
+    from video_stream_segmenetation_tpu_torch.kernels import _build
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    st = preset("fast_int8_pico")
+    clip, _ = bridge.load_frames()
+    batches = [np.ascontiguousarray(clip[(np.arange(S) + t) % 2]) for t in range(2)]
+    a = Engine(S, st, **bridge.trained_weights(st), seed=0, device=device)
+    a.face_min_interval_s = 0.0
+    a.admit_all()
+    for t in range(3):
+        a.process(batches[t % 2])
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        utils.save_engine(tmp + "/engine", a)
+        size = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        b = Engine(S, st, seed=9, device=device)
+        b.face_min_interval_s = 0.0
+        b.admit_all()
+        utils.restore_engine(tmp + "/engine", b)
+    gaps = {"state after the restore": _state_gap(a.state, b.state)}
+    for t in range(SNAPSHOT_STEPS):
+        oa, ob = a.process(batches[t % 2]), b.process(batches[t % 2])
+        for k in ("frame", "alpha", "det_score", "face_applied"):
+            gaps[f"step {t} {k}"] = _acc_gap(oa[k], ob[k])
+        gaps[f"step {t} state"] = _state_gap(a.state, b.state)
+    if any(gaps.values()):
+        raise AssertionError(f"restored engine departs from the uninterrupted one: {gaps}")
+    return {"bytes": size, "launches": {k: c.launches for k, c in counters.items()},
+            "applied": int(oa["face_applied"].sum().item())}
 
 
 def _pico_engine(device, num_streams: int | None = None, **kw):
@@ -2642,7 +2944,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 13 + len(PHASES)
+    steps = 15 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -2657,6 +2959,11 @@ def main() -> int:
     kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
                check_u1_trunk(dev), *check_composite(dev), check_refine_plane(dev),
                check_fused_refine(dev), check_refine_fast(dev), check_stochastic_round(dev)]
+    say("  the refine kernel's debug variants (bench-only: 'no_morph' skips stages 5 and 7, "
+        "'no_bilateral' stage 8) vs their plain versions with the same tokens:")
+    debug_errs = check_refine_debug(dev)
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], debug_errs.get(k["name"], 0.0))
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -2834,7 +3141,57 @@ def main() -> int:
     del rr
     torch.cuda.empty_cache()
 
-    say(f"[{k + 9}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
+    say(f"[{k + 9}/{steps} rollout] the step rollout on Engine({S}, fast_int8_pico) and the "
+        f"round rollout on the production rotation ({list(ROTATION)}, {FAST_ROUTE}), trained "
+        "weights, committed frames")
+    ro = phase_rollout("cuda")
+    for counter, got in ro["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    sp, rp = ro["step_parity"], ro["round_parity"]
+    say(f"  rollout: a chain of {ROLL_PARITY_N} steps vs {ROLL_PARITY_N} sequential make_step "
+        f"calls on the same tagged frames: state, frame buffer and alpha buffer max_abs_err "
+        f"{sp['state']:.3e} / {sp['frame']:.3e} / {sp['alpha']:.3e} (tolerance 0); a chain "
+        f"of {ROUND_N2} rounds under set_sync_debug_mode('error') vs {ROUND_N2} sequential "
+        f"round steps: state, face clock, frame and alpha buffers {rp['state']:.3e} / "
+        f"{rp['face_last']:.3e} / {rp['frame']:.3e} / {rp['alpha']:.3e} (tolerance 0); "
+        f"launches {ro['launches']}")
+    for acc, r in ro["step_slopes"].items():
+        say(f"  step rollout slope ({acc}, xor; n {ROLL_N1} -> {ROLL_N2}, median of "
+            f"{ROLL_REPS} paired reps): host clock {r['host_ms']['slope']:.3f} ms a step "
+            f"(fixed {r['host_ms']['fixed']:.2f} ms; reps "
+            f"{[round(v, 3) for v in r['host_ms']['slopes']]}), CUDA events "
+            f"{r['event_ms']['slope']:.3f} ms a step (fixed {r['event_ms']['fixed']:.2f} ms; "
+            f"reps {[round(v, 3) for v in r['event_ms']['slopes']]}); {smi}")
+    r = ro["round_slopes"]
+    say(f"  round rollout slope ({sum(ROTATION)} streams in {list(ROTATION)}, buffer, xor; "
+        f"n {ROUND_N1} -> {ROUND_N2}, median of {ROUND_REPS} paired reps): host clock "
+        f"{r['host_ms']['slope']:.3f} ms a round (fixed {r['host_ms']['fixed']:.2f} ms; reps "
+        f"{[round(v, 3) for v in r['host_ms']['slopes']]}), CUDA events "
+        f"{r['event_ms']['slope']:.3f} ms a round (reps "
+        f"{[round(v, 3) for v in r['event_ms']['slopes']]}); {smi}")
+    say(f"  Engine.process at S={S}, host clock synchronized, median of {SERVE_STEPS}: "
+        f"{statistics.median(ro['process_ms']):.2f} ms "
+        f"({[round(t, 1) for t in ro['process_ms']]}); the rollout's slope leaves out the "
+        f"frames' copy to the card and the per-call costs")
+    del ro
+    torch.cuda.empty_cache()
+
+    say(f"[{k + 10}/{steps} snapshot] Engine({S}, fast_int8_pico) saved after 3 steps "
+        f"(utils/checkpoint.py::save_engine), restored into a fresh engine, both stepped "
+        f"{SNAPSHOT_STEPS} times")
+    sn = phase_snapshot("cuda")
+    for counter, got in sn["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    say(f"  snapshot: {sn['bytes'] / 2**20:.1f} MiB on disk; the restored engine's state and "
+        f"its next {SNAPSHOT_STEPS} steps' frame, alpha, det_score and face_applied equal the "
+        f"uninterrupted "
+        f"engine's bit for bit (face applied on {sn['applied']} streams at the last step); "
+        f"launches {sn['launches']}")
+    torch.cuda.empty_cache()
+
+    say(f"[{k + 11}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
         f"the card: fit {TRAIN_STEPS} steps at 240x320 batch 32 lr 5e-4, then {FT_STEPS} at "
         "720x1280 batch 8 lr 5e-4/3 seed 1; one step against the CPU; the trained tree "
         "stochastically rounded, quantized and served one step of Engine(8, fast_int8_pico, "

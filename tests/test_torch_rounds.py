@@ -374,6 +374,8 @@ ROUTING = {
     "plan_b": ("fast_int8", FAST),
     "natural": ("active", FAST),
     "natural_plane": ("active", dict(FAST, prior_impl="plane")),
+    # the refine skipped: the head-grid logits are not taken
+    "model_only": ("fast_int8_pico", dict(FAST, debug_stage="model_only")),
 }
 
 

@@ -45,6 +45,7 @@ SIGNATURES = {
     "vst_se_requant": [_P] * 7 + [_I] * 4 + [_P],
     "vst_alpha_head_i8": [_P] * 5 + [_I] * 5 + [_P],
     "vst_temporal_refine": [_P] * 11 + [_I] * 10 + [_P],
+    "vst_temporal_refine_debug": [_P] * 11 + [_I] * 11 + [_P],
     "vst_refine": [_P] * 5 + [_I] * 3 + [_P],
     "vst_composite": [_P, _P, ctypes.c_longlong] + [_P] * 6 + [_I] * 5 + [_P],
     "vst_decoder_level_i8": [_P] * 7 + [_I] * 6 + [_P],

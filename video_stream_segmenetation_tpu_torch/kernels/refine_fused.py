@@ -1,4 +1,4 @@
-"""The mask path's refine stages as CUDA kernels (``csrc/refine_fused.cu``).
+"""The mask path's refine stages as CUDA kernels (``csrc/refine_fused.cuh``).
 
 Replaces the Pallas kernels of
 ``video_stream_segmenetation_tpu/kernels/refine_fused.py``:
@@ -22,6 +22,11 @@ Replaces the Pallas kernels of
 
 new_prev stays f32; the temporal forms' refined alpha is bf16 or f32
 (``out_dtype``, the reference's ``refined_dtype``), fused_refine's f32.
+
+The temporal forms take the reference's bench-only ``debug`` tokens
+(``'no_morph'``: stages 5 and 7 skipped; ``'no_bilateral'``: stage 8
+skipped): compile-time variants of the body (``csrc/refine_debug.cu``),
+which count in the same wrapper's ``launches``; any other token raises.
 
 Bound on an H100: bytes (15-23 bytes a pixel) -- see the source's header
 for the design (a block rolls down one stream's strip of columns, a row a
@@ -78,13 +83,29 @@ def scalar_table(knobs, use_warp, initialized, warp_blend, prior_params,
     return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
 
 
-def _chain_plain(a, guide, prior, k, flag):
+# the debug tokens and their bits in the kernel (csrc/refine_fused.cuh)
+DEBUG_BITS = {"no_morph": 1, "no_bilateral": 2}
+
+
+def debug_bits(debug) -> int:
+    """The kernel's variant of the ``debug`` tokens; an unknown token raises."""
+    unknown = [t for t in debug if t not in DEBUG_BITS]
+    if unknown:
+        raise ValueError(f"fused_temporal_refine: unknown debug token {unknown[0]!r}; "
+                         f"the tokens are {tuple(DEBUG_BITS)}")
+    return sum(DEBUG_BITS[t] for t in set(debug))
+
+
+def _chain_plain(a, guide, prior, k, flag, debug=()):
     """Stages 5, 7, 8 and 9 (the reference's ``_chain_body``) from ops/*;
-    ``prior`` is already zero for the streams without one."""
-    a = morphological_opening(a)
-    a = morphological_closing_in_prior(a, prior, flag["has_prior"])
-    a_bi = joint_bilateral3x3(a, guide, k["sigma_spatial"], k["sigma_range"])
-    a = torch.where(flag["use_bilateral"][:, None, None], a_bi, a)
+    ``prior`` is already zero for the streams without one; ``debug``:
+    ``'no_morph'`` skips stages 5 and 7, ``'no_bilateral'`` stage 8."""
+    if "no_morph" not in debug:
+        a = morphological_opening(a)
+        a = morphological_closing_in_prior(a, prior, flag["has_prior"])
+    if "no_bilateral" not in debug:
+        a_bi = joint_bilateral3x3(a, guide, k["sigma_spatial"], k["sigma_range"])
+        a = torch.where(flag["use_bilateral"][:, None, None], a_bi, a)
     return refine_alpha(a, k["low"], k["high"], k["gamma"], prior, flag["has_prior"])
 
 
@@ -100,13 +121,15 @@ def _gated(prior, has_prior):
 
 def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table,
                                 out_dtype=torch.bfloat16, prior_plane=None,
-                                alpha_lowres_hw=None, guide_lanes_geom=None):
+                                alpha_lowres_hw=None, guide_lanes_geom=None, debug=()):
     """Plain PyTorch version, built from ops/*: same arguments as the
     kernel's wrapper after index and scalar preparation; the prior
     rasterised from the table's scalars, or ``prior_plane [S, H, W]``.
     With ``alpha_lowres_hw`` alpha_raw is the head-grid logits, upsampled
     (f32 interpolation products) and put through the sigmoid here; with
-    ``guide_lanes_geom`` guide is the tap lanes, reassembled here."""
+    ``guide_lanes_geom`` guide is the tap lanes, reassembled here;
+    ``debug`` the tokens of :func:`_chain_plain`."""
+    debug_bits(debug)
     if alpha_lowres_hw is not None:
         alpha_raw = torch.sigmoid(resize_bilinear_mxu(alpha_raw, alpha_lowres_hw, "half_pixel",
                                                       channel_last=False))
@@ -123,7 +146,7 @@ def fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table,
     if prior_plane is None:
         params = torch.stack([k["prior_cx"], k["prior_cy"], k["prior_rx"], k["prior_ry"]], 1)
         prior_plane = prior_plane_from_params(params, (h, w))
-    a = _chain_plain(a, guide, _gated(prior_plane, flag["has_prior"]), k, flag)
+    a = _chain_plain(a, guide, _gated(prior_plane, flag["has_prior"]), k, flag, debug)
     return new_prev, a.to(out_dtype)
 
 
@@ -139,11 +162,12 @@ def _ptr(t):
 
 
 def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfloat16,
-            prior_plane=None, alpha_lowres_hw=None, guide_lanes_geom=None):
+            prior_plane=None, alpha_lowres_hw=None, guide_lanes_geom=None, debug=()):
     """One launch of the temporal refine: the analytic form; the plane form
     with ``prior_plane``; the fast form (analytic prior) with
-    ``alpha_lowres_hw`` and/or ``guide_lanes_geom``.  Returns (new_prev,
-    refined)."""
+    ``alpha_lowres_hw`` and/or ``guide_lanes_geom``; the debug variant of
+    the ``debug`` tokens.  Returns (new_prev, refined)."""
+    bits = debug_bits(debug)
     s, h, w = prev_alpha.shape
     lowres, lanes = alpha_lowres_hw is not None, guide_lanes_geom is not None
     if prior_plane is not None and (lowres or lanes):
@@ -177,12 +201,15 @@ def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfl
     new_prev = torch.empty_like(prev_alpha)
     out = torch.empty((s, h, w), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib, lib.vst_temporal_refine(
-        alpha_src.data_ptr(), prev_alpha.data_ptr(), yi.data_ptr(), xi.data_ptr(),
-        guide_src.data_ptr(), table.data_ptr(), _ptr(prior_plane), _ptr(taps), _ptr(wts),
-        new_prev.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32),
-        int(lanes), s, h, w, h0, w0, fy, fx, prior_pad((h, w)), stream,
-    ), "temporal_refine")
+    args = (alpha_src.data_ptr(), prev_alpha.data_ptr(), yi.data_ptr(), xi.data_ptr(),
+            guide_src.data_ptr(), table.data_ptr(), _ptr(prior_plane), _ptr(taps), _ptr(wts),
+            new_prev.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32),
+            int(lanes), s, h, w, h0, w0, fy, fx, prior_pad((h, w)))
+    if bits:
+        code = lib.vst_temporal_refine_debug(*args, bits, stream)
+    else:
+        code = lib.vst_temporal_refine(*args, stream)
+    _build.check(lib, code, "temporal_refine")
     if lowres or lanes:
         counter = fused_temporal_refine_fast
     else:
@@ -193,21 +220,22 @@ def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfl
 
 def fused_temporal_refine(alpha_raw, prev_alpha, affine, use_warp, initialized,
                           warp_blend, guide, prior_params, has_prior, knobs,
-                          out_dtype=torch.bfloat16):
+                          out_dtype=torch.bfloat16, debug=()):
     """Stages 3-9.  alpha_raw, prev_alpha ``[S, H, W]`` f32; affine ``[S, 6]``
     (its scale+translate part warps prev); use_warp, initialized, has_prior
     ``[S]`` bool; guide ``[S, 3, H, W]`` u8; prior_params ``[S, 4]``
-    (cx, cy, rx, ry); knobs a PipelineKnobs; out_dtype bf16 or f32.
-    Returns (new_prev f32, refined in out_dtype).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    (cx, cy, rx, ry); knobs a PipelineKnobs; out_dtype bf16 or f32; debug
+    the bench-only tokens (module docstring).  Returns (new_prev f32,
+    refined in out_dtype).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     h, w = alpha_raw.shape[-2:]
     yi, xi = separable_warp_indices(affine, (h, w))
     table = scalar_table(knobs, use_warp, initialized, warp_blend,
                          prior_params, has_prior)
     if alpha_raw.device.type == "cpu":
         return fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide,
-                                           table, out_dtype)
-    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype)
+                                           table, out_dtype, debug=debug)
+    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype, debug=debug)
 
 
 fused_temporal_refine.launches = 0
@@ -215,7 +243,7 @@ fused_temporal_refine.launches = 0
 
 def fused_temporal_refine_plane(alpha_raw, prev_alpha, affine, use_warp, initialized,
                                 warp_blend, guide, prior_plane, has_prior, knobs,
-                                out_dtype=torch.bfloat16):
+                                out_dtype=torch.bfloat16, debug=()):
     """Stages 3-9 with the prior as a plane ``prior_plane [S, H, W]`` f32
     (the face path's rendered prior, zero where no face was found); the
     rest as :func:`fused_temporal_refine`.  Returns (new_prev f32, refined
@@ -228,8 +256,9 @@ def fused_temporal_refine_plane(alpha_raw, prev_alpha, affine, use_warp, initial
                          has_prior)
     if alpha_raw.device.type == "cpu":
         return fused_temporal_refine_plain(alpha_raw, prev_alpha, yi, xi, guide, table,
-                                           out_dtype, prior_plane)
-    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype, prior_plane)
+                                           out_dtype, prior_plane, debug=debug)
+    return _launch(alpha_raw, prev_alpha, yi, xi, guide, table, out_dtype, prior_plane,
+                   debug=debug)
 
 
 fused_temporal_refine_plane.launches = 0
@@ -264,7 +293,7 @@ def lowres_taps(hw, hw0, device) -> tuple[torch.Tensor, torch.Tensor]:
 def fused_temporal_refine_fast(alpha_src, prev_alpha, affine, use_warp, initialized,
                                warp_blend, guide_src, prior_params, has_prior, knobs,
                                out_dtype=torch.bfloat16, alpha_lowres_hw=None,
-                               guide_lanes_geom=None):
+                               guide_lanes_geom=None, debug=()):
     """Stages 3-9 with the analytic prior, as :func:`fused_temporal_refine`,
     with one or both of the fast form's inputs: ``alpha_lowres_hw=(H, W)``
     takes ``alpha_src`` as the head-grid logits ``[S, h0, w0]`` f32 (the
@@ -280,9 +309,10 @@ def fused_temporal_refine_fast(alpha_src, prev_alpha, affine, use_warp, initiali
                          prior_params, has_prior)
     if prev_alpha.device.type == "cpu":
         return fused_temporal_refine_plain(alpha_src, prev_alpha, yi, xi, guide_src, table,
-                                           out_dtype, None, alpha_lowres_hw, guide_lanes_geom)
+                                           out_dtype, None, alpha_lowres_hw, guide_lanes_geom,
+                                           debug)
     return _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype, None,
-                   alpha_lowres_hw, guide_lanes_geom)
+                   alpha_lowres_hw, guide_lanes_geom, debug)
 
 
 fused_temporal_refine_fast.launches = 0

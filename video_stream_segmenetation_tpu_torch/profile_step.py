@@ -56,6 +56,20 @@ apart from its layers after the stem.
 ``train`` (not in the default set) does the same for a training step of
 the pico MatteNetHD at the train phase's two geometries (profile_train).
 Needs a card; prints the card's name and power limit beside the numbers.
+
+    python3 -m video_stream_segmenetation_tpu_torch.profile_step --ablate
+        [--preset fast_int8_pico ...] [--streams 64] [--n1 2] [--n2 10] [--reps 5]
+
+``--ablate`` (the reference's tools/bench_step_ablate.py, bench_face_ablate.py
+and bench_rollout_ablate.py in one): for each preset (trained weights,
+committed frames) one engine a variant of ABLATIONS (``debug_stage`` tokens,
+and the face path off), each timed by the step rollout's slope
+(runtime/rollout.py::time_rollout: paired chains of n1 and n2 steps, the
+variants interleaved within each rep, the median of the reps; host clock
+and CUDA events), then the harness's own terms on the full step ('reduce'
+against 'buffer', 'weights' and no perturbation against 'xor'), and the
+differences that attribute a stage (ATTRIBUTION).  The rollout's frames are
+on the card already: the slope leaves out the frames' copy.
 """
 
 from __future__ import annotations
@@ -106,15 +120,11 @@ INSTEAD = "  (instead of the plain composite) "
 
 
 def _event_ms(fn, iters=5):
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        out = fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters, out
+    """(CUDA-event ms a call, mean of ``iters`` after a warm-up, the last
+    call's result): utils/profiling.py::event_ms."""
+    from video_stream_segmenetation_tpu_torch.utils.profiling import event_ms
+
+    return event_ms(fn, iters)
 
 
 def _kernel_ms(fn):
@@ -582,18 +592,138 @@ def profile_train(steps: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the --ablate variants: (label, statics overrides)
+ABLATIONS = (
+    ("full", {}),
+    ("model_only", {"debug_stage": "model_only"}),
+    ("no_composite", {"debug_stage": "no_composite"}),
+    ("model_only,no_composite", {"debug_stage": "model_only,no_composite"}),
+    ("no_morph", {"debug_stage": "no_morph"}),
+    ("no_bilateral", {"debug_stage": "no_bilateral"}),
+    ("no_guide", {"debug_stage": "no_guide"}),
+    ("fd_only", {"debug_stage": "fd_only"}),
+    ("fd_only,fd_stub", {"debug_stage": "fd_only,fd_stub"}),
+    ("no_lmk", {"debug_stage": "no_lmk"}),
+    ("face_path=False", {"face_path": False}),
+)
+# (stage, the variant with it, the variant without it)
+ATTRIBUTION = (
+    ("refine (warp, EMA, morphology, bilateral, threshold)", "full", "model_only"),
+    ("composite", "model_only", "model_only,no_composite"),
+    ("composite, with the refine's output", "full", "no_composite"),
+    ("morphology (stages 5 + 7, in the kernel)", "full", "no_morph"),
+    ("bilateral (stage 8, in the kernel)", "full", "no_bilateral"),
+    ("guide (built for the kernel)", "full", "no_guide"),
+    ("face path", "full", "face_path=False"),
+    ("FaceFinder forward", "fd_only", "fd_only,fd_stub"),
+    ("prior after the detector", "no_lmk", "fd_only"),
+    ("landmarks (ROI, LandmarkNet, Procrustes)", "full", "no_lmk"),
+    ("model, guide, face path, state (the rest)", "model_only,no_composite", None),
+)
+# the harness's own terms on the full step: (label, acc_mode, perturb)
+HARNESS = (("buffer, xor", "buffer", "xor"), ("reduce, xor", "reduce", "xor"),
+           ("buffer, weights", "buffer", "weights"), ("buffer, no perturbation", "buffer",
+                                                      False))
+
+
+def ablate(name: str, s: int, n1: int, n2: int, reps: int, smi: str,
+           device="cuda") -> dict:
+    """Step-rollout slopes of ``name``'s ablation variants and harness terms
+    at S = ``s``, trained weights, committed frames; prints them and the
+    attribution.  Returns ``{label: time_rollout's result}`` (on the CPU,
+    a rehearsal, the host clock alone)."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+    from video_stream_segmenetation_tpu_torch.runtime.rollout import (
+        make_step_rollout,
+        perturbed_models,
+        time_rollout,
+    )
+    from video_stream_segmenetation_tpu_torch.service.engine import Engine
+
+    clip, _ = bridge.load_frames()
+    frames = np.ascontiguousarray(clip[np.arange(s) % 2])
+    weights = bridge.trained_weights(preset(name))
+    rolls, args = {}, {}
+    for label, over in ABLATIONS:
+        eng = Engine(s, preset(name, **over), **weights, seed=0, device=device)
+        eng.face_min_interval_s = 0.0
+        eng.admit_all()
+        eng.process(frames)
+        gate = torch.ones((s,), dtype=torch.bool, device=eng.device)
+        args[label] = (eng.state, eng._ingest(frames)[1], eng.backgrounds, eng.knobs, gate)
+        if label == "full":
+            for h_label, acc, perturb in HARNESS:
+                pm = perturbed_models(eng) if perturb == "weights" else None
+                rolls[h_label] = make_step_rollout(eng.model, eng.statics, eng.face_models,
+                                                   acc, perturb, pm)
+                args[h_label] = args[label]
+            rolls[label] = rolls["buffer, xor"]
+        else:
+            rolls[label] = make_step_rollout(eng.model, eng.statics, eng.face_models)
+    # the variants interleaved within each rep, each with its engine's arguments
+    order = [label for label, _ in ABLATIONS] + [h for h, _, _ in HARNESS[1:]]
+    results = time_rollout([rolls[k] for k in order], [args[k] for k in order], n1, n2, reps,
+                           device=device)
+    res = dict(zip(order, results))
+    res["buffer, xor"] = res["full"]
+
+    def slope(k, clock):
+        r = res[k][clock]
+        return None if r is None else r["slope"]
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:8.3f}"
+
+    def diff(a, b, clock):
+        va, vb = slope(a, clock), (slope(b, clock) if b else 0.0)
+        return None if va is None or vb is None else va - vb
+
+    print(f"[ablate {name}] S={s}, step rollout slope (n1={n1}, n2={n2}, median of {reps} "
+          f"paired reps, variants interleaved; 'buffer', 'xor' unless named), ms a step, "
+          f"host clock / CUDA events ({smi}):", flush=True)
+    for k in order:
+        fixed = res[k]["host_ms"]["fixed"]
+        print(f"  {k:34s} {fmt(slope(k, 'host_ms'))} / {fmt(slope(k, 'event_ms'))}   "
+              f"(fixed term, host: {fixed:.2f} ms)", flush=True)
+    print(f"[ablate {name}] attribution, ms a step (host / events):", flush=True)
+    for stage, a, b in ATTRIBUTION:
+        what = f"{a} - {b}" if b else a
+        print(f"  {stage:52s} {fmt(diff(a, b, 'host_ms'))} / {fmt(diff(a, b, 'event_ms'))}"
+              f"   ({what})", flush=True)
+    for stage, a, b in (("buffer - reduce (the output's store)", "buffer, xor", "reduce, xor"),
+                        ("xor - weights (the tagged frames)", "buffer, xor",
+                         "buffer, weights"),
+                        ("weights - no perturbation", "buffer, weights",
+                         "buffer, no perturbation")):
+        print(f"  {stage:52s} {fmt(diff(a, b, 'host_ms'))} / {fmt(diff(a, b, 'event_ms'))}",
+              flush=True)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=64)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--config", nargs="*", default=list(CONFIGS),
                     choices=[*CONFIGS, "train"])
+    ap.add_argument("--ablate", action="store_true",
+                    help="time the debug_stage variants by the step rollout's slope")
+    ap.add_argument("--preset", nargs="*", default=["fast_int8_pico"])
+    ap.add_argument("--n1", type=int, default=2)
+    ap.add_argument("--n2", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
+    if args.ablate:
+        for name in args.preset:
+            ablate(name, args.streams, args.n1, args.n2, args.reps, smi)
+            torch.cuda.empty_cache()
+        return
     for config in args.config:
         if config == "train":
             profile_train(args.steps, smi)

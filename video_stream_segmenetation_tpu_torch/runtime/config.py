@@ -228,3 +228,24 @@ class PipelineStatics:
     # 'int8' | 'bf16' -- the alpha head: int8 on u1 (in the trunk kernel),
     # or u1 out of the trunk and a bf16 conv with the float head
     int8_head_impl: str = "int8"
+    # bench-only stage truncation for step-cost attribution (profile_step.py
+    # --ablate): '' = full step; 'model_only' = skip warp/EMA/refine (a =
+    # raw model alpha); 'no_composite' = full refine, passthrough output;
+    # 'no_morph' / 'no_bilateral' = the fused temporal refine without stages
+    # 5+7 / 8; 'no_guide' = a zero guide into that kernel; 'fd_stub',
+    # 'fd_only', 'no_lmk' = the face subpath cut short (DEBUG_TOKENS).
+    # Comma-combinable ('model_only,no_composite' = bare trunk cost).  NOT a
+    # serving mode.
+    debug_stage: str = ""
+
+
+# the tokens debug_stage may combine (runtime/pipeline.py::check_statics
+# refuses any other)
+DEBUG_TOKENS = ("model_only", "no_composite", "fd_stub", "fd_only", "no_lmk", "no_morph",
+                "no_bilateral", "no_guide")
+
+
+def debug_tokens(statics: PipelineStatics) -> frozenset:
+    """The tokens of ``statics.debug_stage`` (comma-separated, blanks
+    ignored)."""
+    return frozenset(t.strip() for t in statics.debug_stage.split(",") if t.strip())

@@ -121,10 +121,12 @@ from video_stream_segmenetation_tpu_torch.ops.warp import (
     warp_affine_separable,
 )
 from video_stream_segmenetation_tpu_torch.runtime.config import (
+    DEBUG_TOKENS,
     EMA_ADAPT_T0,
     EMA_ADAPT_T1,
     PipelineKnobs,
     PipelineStatics,
+    debug_tokens,
 )
 from video_stream_segmenetation_tpu_torch.runtime.state import (
     IDENTITY_AFFINE,
@@ -216,7 +218,12 @@ def check_statics(statics: PipelineStatics) -> None:
     recurrent and saliency models, host guide lanes and the natural
     layout's native input; and every value the reference does not have.
     A one-value row names its value (with K classes, and the class count),
-    other rows the tuple of values."""
+    other rows the tuple of values.  Every ``debug_stage`` token must be
+    one of ``DEBUG_TOKENS``: a typo must not time the full step."""
+    unknown = sorted(debug_tokens(statics) - set(DEBUG_TOKENS))
+    if unknown:
+        raise ValueError(f"debug_stage={statics.debug_stage!r}: unknown token "
+                         f"{unknown[0]!r}; the tokens are {DEBUG_TOKENS}")
     multiclass = statics.num_classes > 1
     suffix = f" with num_classes={statics.num_classes}" if multiclass else ""
     if multiclass:
@@ -263,19 +270,44 @@ def face_subpath(models: FaceModels, frames_f32: torch.Tensor, fire: torch.Tenso
     ``fire [K]`` gates the streams.  Returns (prior, has_prior,
     affine_update ``[K, 6]``, has_update, det_score): the prior as its 4
     scalars ``[K, 4]`` (``prior_form='params'``) or as the rendered plane
-    ``[K, mh, mw]``, zero where the detection failed (``'plane'``)."""
+    ``[K, mh, mw]``, zero where the detection failed (``'plane'``).
+
+    The bench-only ``debug_stage`` tokens cut it short (the reference's
+    runtime/pipeline.py:112-158): ``fd_stub`` a fixed box and score in
+    place of the detector's forward (plus an epsilon of the letterbox, so
+    that it still runs), ``fd_only`` the detector alone (no prior, no
+    update), ``no_lmk`` the detector and the prior (no update)."""
     mh, mw = statics.mask_hw
     fh, fw = statics.frame_hw
+    k = frames_f32.shape[0]
+    dev = frames_f32.device
+    debug = debug_tokens(statics)
     fd_in = letterbox_to_square(frames_f32, (fh, fw), statics.fd_size, statics.resize_impl)
-    det = models.face(fd_in)
-    box, score, valid = best_box_decode(det["box_coords"], det["box_scores"], (fh, fw),
-                                        statics.fd_size, letterboxed=True)
+    if "fd_stub" in debug:
+        eps = torch.sum(fd_in.to(torch.float32)) * 1e-20
+        # a device constant: a copy from the host would wait for the card
+        box = device_const(("fd_stub_box", fh, fw), dev, lambda: np.asarray(
+            [fw * 0.3, fh * 0.2, fw * 0.7, fh * 0.8], np.float32)).expand(k, 4) + eps
+        score = torch.full((k,), 0.9, dtype=torch.float32, device=dev) + eps
+        valid = torch.ones((k,), dtype=torch.bool, device=dev)
+    else:
+        det = models.face(fd_in)
+        box, score, valid = best_box_decode(det["box_coords"], det["box_scores"], (fh, fw),
+                                            statics.fd_size, letterboxed=True)
     det_ok = fire & valid & (score >= statics.face_score_thresh)
+    no_update = torch.zeros((k, 6), dtype=torch.float32, device=dev)
+    if "fd_only" in debug:
+        zero_prior = torch.zeros((k, 4) if prior_form == "params" else (k, mh, mw),
+                                 dtype=torch.float32, device=dev)
+        return (zero_prior, det_ok & False, no_update, det_ok & False,
+                torch.where(fire, score, 0.0))
     if prior_form == "params":
         prior = face_prior_params(box, (fh, fw), (mh, mw))
     else:
         prior = torch.where(det_ok[:, None, None], face_prior_mask(box, (fh, fw), (mh, mw)),
                             torch.zeros((), device=box.device))
+    if "no_lmk" in debug:
+        return prior, det_ok, no_update, det_ok & False, torch.where(fire, score, 0.0)
     roi = pad_box(box, statics.roi_pad, (fh, fw))
     crop = crop_and_resize if statics.crop_impl == "gather" else crop_and_resize_mxu
     roi_img = crop(frames_f32, roi, (statics.lmk_size, statics.lmk_size))
@@ -446,11 +478,15 @@ def make_multiclass_step(model, statics: PipelineStatics):
     bypassed, as in the reference.  Same signature as :func:`make_step`'s
     step; ``outputs``: ``frame`` (u8, the frames' layout), ``alpha`` (class
     1's map ``[S, mh, mw]``, as the reference), ``class_alpha`` ``[S, mh,
-    mw, K]``, ``det_score`` and ``face_applied`` (zeros)."""
+    mw, K]``, ``det_score`` and ``face_applied`` (zeros).  ``debug_stage``:
+    ``model_only`` takes the raw class maps (no EMA, no renormalisation),
+    ``no_composite`` passes the frames through (the reference's
+    runtime/pipeline.py:374-402)."""
     fh, fw = statics.frame_hw
     mh, mw = statics.mask_hw
     blk = statics.s2d_block
     s2d = statics.frame_layout == "s2d"
+    debug = debug_tokens(statics)
 
     def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
         s = frames.shape[0]
@@ -461,8 +497,11 @@ def make_multiclass_step(model, statics: PipelineStatics):
             frames_f32 = frames.to(torch.float32) / 255.0
             ca = model(planar_resize_f32(frames_f32, (mh, mw)))["alpha"]
         ca = ca.to(torch.float32)  # [S, mh, mw, K]
-        blended = simplex_ema(ca, state.rec[0], knobs, state.initialized)
-        if s2d:
+        blended = (ca if "model_only" in debug
+                   else simplex_ema(ca, state.rec[0], knobs, state.initialized))
+        if "no_composite" in debug:
+            out_u8 = frames
+        elif s2d:
             out_u8 = multiclass_composite_s2d(frames, blended, statics.class_effects, (fh, fw),
                                               blk, method=statics.upsample_method)
         else:
@@ -508,28 +547,36 @@ def refine_routing(statics: PipelineStatics) -> dict:
             "analytic_prior": use_fused_tr and statics.prior_impl != "plane"}
 
 
+def planar_guide_route(statics: PipelineStatics) -> bool:
+    """The reference's ``planar_guide`` (runtime/pipeline.py:488-498): the
+    fused temporal refine takes the planar u8 guide of the packed frames
+    (or its tap lanes), which nothing else of the step needs."""
+    return bool(refine_routing(statics)["use_fused_tr"] and statics.frame_layout == "s2d"
+                and statics.matting_input == "native"
+                and statics.matting_arch == "feedforward"
+                and statics.guide_impl == "nearest_u8"
+                and (not statics.face_path
+                     or (statics.face_compact and statics.face_tracking != "translation")))
+
+
 def fast_routing(model, statics: PipelineStatics) -> dict:
     """The reference's build-time routing of the fast refine's inputs
     (runtime/pipeline.py:476-539): ``use_lowres_alpha``,
     ``use_guide_lanes``, ``lane_geom`` ((fy, fx) or None) and
     ``host_lanes``, each under the reference's conditions (on the fused
-    temporal refine of :func:`refine_routing`, a feed-forward model), with
-    what the port fixes: no stem-aux guide, no debug stages.  'auto'
-    resolves as the reference resolves it off a TPU (its ``_on_tpu`` is
-    False there): off."""
+    temporal refine of :func:`refine_routing`, a feed-forward model, the
+    low-res alpha not under ``debug_stage='model_only'``), with what the
+    port fixes: no stem-aux guide.  'auto' resolves as the reference
+    resolves it off a TPU (its ``_on_tpu`` is False there): off."""
     fh, fw = statics.frame_hw
     mh, mw = statics.mask_hw
     blk = statics.s2d_block
-    s2d = statics.frame_layout == "s2d"
-    route = refine_routing(statics)
     feedforward = statics.matting_arch == "feedforward"
-    analytic_prior = statics.num_classes == 1 and route["analytic_prior"]
-    planar_guide = (route["use_fused_tr"] and s2d and statics.matting_input == "native"
-                    and feedforward and statics.guide_impl == "nearest_u8"
-                    and (not statics.face_path
-                         or (statics.face_compact and statics.face_tracking != "translation")))
+    analytic_prior = statics.num_classes == 1 and refine_routing(statics)["analytic_prior"]
+    planar_guide = planar_guide_route(statics)
     use_lowres_alpha = bool(
         analytic_prior and feedforward and statics.matting_input == "native"
+        and "model_only" not in debug_tokens(statics)
         and getattr(model, "supports_lowres_alpha", False)
         and getattr(model, "head_upsample", 1) > 1
         and statics.refine_alpha_src == "lowres")
@@ -619,7 +666,17 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     refine stages take the route of :func:`refine_routing`.
 
     With the fast refine's ``host_lanes`` on (:func:`fast_routing`), frames
-    is a ``(packed, lanes [nl, S, hp, wp] u8)`` tuple."""
+    is a ``(packed, lanes [nl, S, hp, wp] u8)`` tuple.
+
+    ``debug_stage`` (bench-only, the reference's runtime/pipeline.py:
+    737-846): ``model_only`` serves the model's alpha f32 as it is (no
+    warp, EMA or refine; it is also the new prev_alpha), ``no_morph`` and
+    ``no_bilateral`` reach the fused temporal refine's variants,
+    ``no_guide`` hands that kernel a zero guide of its input's shape (the
+    planar guide or the tap lanes) where the packed frames' guide feeds
+    nothing but the kernel (the guide is then not built unless the face
+    path reads it), ``no_composite`` passes the frames through; the face
+    tokens act in :func:`face_subpath`."""
     check_statics(statics)
     if statics.num_classes > 1:
         return make_multiclass_step(model, statics)
@@ -647,6 +704,12 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
     lowres = route["use_lowres_alpha"]
     lane_geom = route["lane_geom"]
     host_lanes = route["host_lanes"]
+    debug = debug_tokens(statics)
+    model_only = "model_only" in debug
+    kdebug = tuple(t for t in ("no_morph", "no_bilateral") if t in debug)
+    no_guide = "no_guide" in debug and planar_guide_route(statics)
+    # the guide is not built at all where only the kernel reads it
+    skip_guide = no_guide and not (statics.face_path and face_guide)
     if statics.resize_impl == "mxu":
         bf16_pre = statics.preprocess_precision == "fast"
 
@@ -737,6 +800,10 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
                 # the reference resizes the unpacked frames (its frames_nat)
                 small = resize_down(depth_to_space(frames, blk))
                 guide = torch.floor(small * 255.0 + 0.5).to(torch.uint8).permute(0, 3, 1, 2)
+            elif skip_guide and lanes is None:
+                fy, fx = lane_geom or (1, 1)
+                guide = torch.zeros((3 * fy * fx, s, mh // fy, mw // fx) if lane_geom
+                                    else (s, 3, mh, mw), dtype=torch.uint8, device=dev)
             elif lane_geom is None:
                 guide = guide_from_s2d(frames, (fh, fw), (mh, mw), blk)
             elif lanes is None:
@@ -784,20 +851,27 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             det_score = torch.zeros((s,), dtype=torch.float32, device=dev)
 
         use_warp = state.has_affine & state.initialized
-        if not use_fused_tr:
+        kguide = guide
+        if no_guide and (guide is lanes or not skip_guide):
+            kguide = torch.zeros_like(guide)
+        if model_only:
+            # the output a copy: the state's tensor is written in place later
+            new_prev, a = alpha_raw, alpha_raw.clone()
+        elif not use_fused_tr:
             new_prev, a = unfused(state, alpha_raw, guide, prior, has_prior, knobs)
         elif lowres or lane_geom is not None:
             new_prev, a = fused_temporal_refine_fast(
                 alpha_raw, state.prev_alpha, state.affine, use_warp, state.initialized, wb,
-                guide, prior, has_prior, knobs, out_dtype=out_dtype,
-                alpha_lowres_hw=(mh, mw) if lowres else None, guide_lanes_geom=lane_geom)
+                kguide, prior, has_prior, knobs, out_dtype=out_dtype,
+                alpha_lowres_hw=(mh, mw) if lowres else None, guide_lanes_geom=lane_geom,
+                debug=kdebug)
         else:
             refine = fused_temporal_refine if prior_form == "params" \
                 else fused_temporal_refine_plane
             new_prev, a = refine(alpha_raw, state.prev_alpha, state.affine, use_warp,
-                                 state.initialized, wb, guide, prior, has_prior, knobs,
-                                 out_dtype=out_dtype)
-        out_u8 = composite(frames, a, backgrounds)
+                                 state.initialized, wb, kguide, prior, has_prior, knobs,
+                                 out_dtype=out_dtype, debug=kdebug)
+        out_u8 = frames if "no_composite" in debug else composite(frames, a, backgrounds)
         if statics.face_tracking == "translation":
             # a per-frame displacement, applied once, then identity
             # (frameProcessor.ts:375-384)

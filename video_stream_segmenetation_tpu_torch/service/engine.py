@@ -217,7 +217,9 @@ class Engine:
                     and (mh % 16 or mw % 16)):
                 raise ValueError(f"mask_hw {st.mask_hw}: MatteNet needs multiples of 16")
             bg_shape = (num_streams, fh, fw, 3)
-        self.model = self._matting_model(params)
+        # the trees the models are built from (utils/checkpoint.py saves them)
+        self.matte_params = self._seeded_matting_tree() if params is None else params
+        self.model = self._matting_model(self.matte_params)
         self._face_params = face_params
         # which of the two face models are the MediaPipe graphs
         self._ref_face = {"face": False, "lmk": False}
@@ -271,13 +273,28 @@ class Engine:
                                 dtype=torch.float32, device=self.device),)
         return ()
 
+    def _seeded_matting_tree(self) -> dict:
+        """The matting tree drawn from the seed: the MatteNetHD's float tree
+        of the plan (int8: then quantized) with the native input, else the
+        K-class MatteNet's, the RecurrentMatteNet's, the SaliencyNet's or
+        the MatteNet's, by ``statics.matting_arch``."""
+        st = self.statics
+        if st.matting_input == "native":
+            tree = init_params(st.matting_decoder, self.seed, st.s2d_block, st.num_classes)
+            if st.matting_precision == "int8":
+                tree = quantize_mattenet_hd(tree, st.s2d_block, st.matting_decoder)
+            return tree
+        if st.num_classes > 1:
+            return init_mattenet_params(self.seed, st.num_classes)
+        init = {"recurrent": init_rvm_params, "saliency": init_u2net_params}
+        return init.get(st.matting_arch, init_mattenet_params)(self.seed)
+
     def _matting_model(self, params) -> torch.nn.Module:
-        """The matting model (the reference's service/engine.py:338-424):
-        with the native input the MatteNetHD, int8 or float by
-        ``matting_precision``, on either layout; else the K-class MatteNet
-        (``num_classes > 1``), the RecurrentMatteNet, the SaliencyNet or
-        the float MatteNet, by ``statics.matting_arch``; each from
-        ``params`` or a tree drawn from the seed."""
+        """The matting model (the reference's service/engine.py:338-424) on
+        the tree ``params``: with the native input the MatteNetHD, int8 or
+        float by ``matting_precision``, on either layout; else the K-class
+        MatteNet (``num_classes > 1``), the RecurrentMatteNet, the
+        SaliencyNet or the float MatteNet, by ``statics.matting_arch``."""
         st = self.statics
         arch = st.matting_arch
         if st.matting_input == "native" and st.matting_precision == "int8":
@@ -285,20 +302,16 @@ class Engine:
         elif st.matting_input == "native":
             model = self._float_hd_model(params)
         elif st.num_classes > 1:
-            model = MatteNet(init_mattenet_params(self.seed, st.num_classes) if params is None
-                             else params, device=self.device)
+            model = MatteNet(params, device=self.device)
             if model.num_classes != st.num_classes:
                 raise ValueError(f"params have {model.num_classes} classes; statics ask "
                                  f"for num_classes={st.num_classes}")
         elif arch == "recurrent":
-            model = RecurrentMatteNet(init_rvm_params(self.seed) if params is None else params,
-                                      device=self.device)
+            model = RecurrentMatteNet(params, device=self.device)
         elif arch == "saliency":
-            model = SaliencyNet(init_u2net_params(self.seed) if params is None else params,
-                                device=self.device)
+            model = SaliencyNet(params, device=self.device)
         else:
-            model = MatteNet(init_mattenet_params(self.seed) if params is None else params,
-                             device=self.device)
+            model = MatteNet(params, device=self.device)
         # served models are frozen (not inference_mode, whose tensors refuse
         # the rounds' in-place row writes)
         return freeze(model)
@@ -318,8 +331,6 @@ class Engine:
         if (uf * stem_hw[0], uf * stem_hw[1]) != (mh, mw):
             raise ValueError(f"native matting: mask_hw must be an integer multiple of the "
                              f"stem grid ceil(frame/{ss}) = {stem_hw}, got {(mh, mw)}")
-        if params is None:
-            params = init_params(st.matting_decoder, self.seed, ss, st.num_classes)
         model = MatteNetHD(ss, uf, st.matting_decoder, params=params, device=self.device)
         if model.num_classes != st.num_classes:
             raise ValueError(f"params have {model.num_classes} classes; statics ask "
@@ -337,10 +348,6 @@ class Engine:
         if mh % hp or mw % wp or mh // hp != mw // wp:
             raise ValueError(f"mask_hw {st.mask_hw} must be one integer multiple "
                              f"of the stem grid {(hp, wp)}")
-        if params is None:
-            params = quantize_mattenet_hd(
-                init_params(st.matting_decoder, self.seed, blk, st.num_classes), blk,
-                st.matting_decoder)
         # the head grid is the stem grid; mask_hw = uf x that (uf = 1: the
         # class maps are served at the head grid, as multiclass_fast_pico)
         model = QuantizedMatteNetHD(params, blk, mh // hp, device=self.device,
@@ -354,36 +361,37 @@ class Engine:
                              f"for num_classes={st.num_classes}")
         return model
 
-    def _build_face_models(self) -> FaceModels | None:
+    def _build_face_models(self, trees: dict | None = None) -> FaceModels | None:
         """The face subpath's two models: each the MediaPipe graph where
         :meth:`use_reference_face_models` put it, else the fast model on its
-        float tree (:meth:`_swap_in_quantized_face` with
-        ``face_precision='int8'``)."""
+        float tree, from ``trees`` (``{"face", "lmk"}``) or the engine's own
+        (:meth:`_swap_in_quantized_face` with ``face_precision='int8'``)."""
         if not self.statics.face_path:
             return None
         if self._face_params is None:
             self._face_params = {"face": init_face_finder_params(self.seed + 1),
                                  "lmk": init_landmark_net_params(self.seed + 2)}
+        trees = trees or self._face_params
         fm = FaceModels(
             face=ReferenceFaceFinder(self.device) if self._ref_face["face"] else FaceFinder(
-                self._face_params["face"], self.statics.fd_size, device=self.device),
+                trees["face"], self.statics.fd_size, device=self.device),
             lmk=ReferenceLandmarkNet(self.device) if self._ref_face["lmk"] else LandmarkNet(
-                self._face_params["lmk"], device=self.device))
+                trees["lmk"], device=self.device))
         freeze(fm.face)
         freeze(fm.lmk)
         if self.statics.face_precision == "int8":
-            self._swap_in_quantized_face(fm)
+            self._swap_in_quantized_face(fm, trees)
         return fm
 
-    def _swap_in_quantized_face(self, fm: FaceModels) -> None:
+    def _swap_in_quantized_face(self, fm: FaceModels, trees: dict) -> None:
         """Replace the fast face models of ``fm`` with their int8 serving
-        graphs, quantized from the current float trees
-        (models/quantized_face.py); a MediaPipe graph stays float."""
+        graphs, quantized from the float ``trees`` (models/quantized_face.py);
+        a MediaPipe graph stays float."""
         if not self._ref_face["face"]:
-            fm.face = QuantizedFaceFinder(quantize_face_finder(self._face_params["face"]),
+            fm.face = QuantizedFaceFinder(quantize_face_finder(trees["face"]),
                                           self.statics.fd_size, device=self.device)
         if not self._ref_face["lmk"]:
-            fm.lmk = QuantizedLandmarkNet(quantize_landmark_net(self._face_params["lmk"]),
+            fm.lmk = QuantizedLandmarkNet(quantize_landmark_net(trees["lmk"]),
                                           device=self.device)
         freeze(fm.face)
         freeze(fm.lmk)
@@ -433,8 +441,29 @@ class Engine:
         the model (``mattenet.npz``, ``rvm.npz``, ``u2net.npz``,
         ``mattenet_hd.npz`` on either layout, ``mattenet_multiclass.npz``),
         as the constructor's ``params``."""
-        self.model = self._matting_model(load_export(path))
+        self.load_matting_tree(load_export(path))
+
+    def load_matting_tree(self, tree: dict) -> None:
+        """Serve the matting tree ``tree`` (as the constructor's ``params``)
+        and rebuild the steps."""
+        self.model = self._matting_model(tree)
+        self.matte_params = tree
         self._build_steps()
+
+    @property
+    def params(self) -> dict:
+        """The trees the engine's models are built from (the reference's
+        ``bundle.params``): ``{"matte", "face", "lmk"}``, the face trees None
+        without the face path."""
+        faces = self._face_params if self.statics.face_path else None
+        return {"matte": self.matte_params, "face": (faces or {}).get("face"),
+                "lmk": (faces or {}).get("lmk")}
+
+    def build_models(self, matte: dict, faces: dict | None = None):
+        """``(model, face_models)`` built from the trees ``matte`` and
+        ``faces`` (``{"face", "lmk"}``; None: the engine's own) by the
+        engine's own builders, without serving them."""
+        return self._matting_model(matte), self._build_face_models(faces)
 
     def load_face_params(self, face_path, lmk_path=None) -> None:
         """Serve the FaceFinder tree of the ``.npz`` export ``face_path``
