@@ -206,7 +206,28 @@ Phases, each announced by one line on stdout:
      tree stochastically rounded to bf16 through the kernel, leaf by
      leaf, quantized by the port's quantizer and served one step of
      Engine(8, fast_int8_pico, face_path=False) through the CUDA trunk;
-     it prints ms a step (CUDA events) and the peak memory.
+     it prints ms a step (CUDA events) and the peak memory;
+  51. train_zoo: every trainer of train/ at its full widths and the
+     reference's geometry and batch, a few steps: the FaceFinder (FD 128)
+     and the LandmarkNet (LMK 128) on 288x512 scenes, batch 32, 20 steps
+     each (train/face_trainer.py); the RecurrentMatteNet (288x512, batch
+     8, unroll 3), the SaliencyNet (320x320, batch 16) and the K=4
+     MatteNet (288x512, batch 12), 5 steps each, the K=4 MatteNetHD pico
+     5 steps at 240x320 batch 24 then 3 at 720p batch 6
+     (train/variants.py); the flagship's plans A, B, C and the MatteNet,
+     5 steps of pretraining and 3 of fine-tuning (train/flagship.py's
+     rows through train/loop.py::fit).  Each: losses finite, every leaf
+     moved (BatchNorm statistics included), one step's loss and gradients
+     on the card against the CPU at phase 50's bars, ms a step (CUDA
+     events) and the peak memory; then each trained tree serves 2 steps of
+     Engine(8) at 720p on the committed frames with no passthrough: the
+     face pair in fast_int8_pico (its face models run), the MatteNet in
+     active, the K=4 MatteNet in multiclass, RVM in rvm, the SaliencyNet
+     in u2, plan A in fast and the K=4 pico, quantized by the port's
+     quantizer, in multiclass_fast_pico (the int8 trunk held against its
+     plain version); last an articulated clip of 4 frames at 720p
+     (utils/clips.py) rendered on the card against the CPU's render of
+     the same draws.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result line {"ok": true, "device":
 {...}}.  Any failure raises and exits non-zero; without a card it exits
@@ -1350,16 +1371,20 @@ def phase_label(name: str, overrides=None) -> str:
 
 
 def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
-          overrides=None, trained=False, min_iou=None) -> dict:
+          overrides=None, trained=False, min_iou=None, trees=None) -> dict:
     """Drive the port's Engine for ``steps`` steps; returns per-step times,
     the launch counts of the run, face and quality figures.  ``trained``:
     True, the trained weights and the committed frames; ``"seeded"``, the
     seed-0 matting tree with the trained face models, the committed
-    frames; False, seeded weights and synthetic frames.  With the int8
-    trunk on committed frames it then holds the served trunk against its
-    plain version on the last frames of two streams (the card's inputs);
-    the exact warp's fused_refine on the s2d layout is held and timed on
-    the last step's inputs."""
+    frames; False, seeded weights and synthetic frames.  ``trees``
+    (``params`` and/or ``face_params``, with ``trained=True``) replaces
+    the committed weights by trees this run trained: then no reference
+    mean or face bar applies, and with the face path on its models must
+    have run on some stream.  With the int8 trunk on committed frames it
+    then holds the served trunk against its plain version on the last
+    frames of two streams (the card's inputs); the exact warp's
+    fused_refine on the s2d layout is held and timed on the last step's
+    inputs."""
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
@@ -1372,6 +1397,7 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
     if trained:
         weights = (bridge.trained_weights(statics) if trained is True else
                    {"face_params": bridge.face_weights(statics)})
+        weights.update(trees or {})
         eng = Engine(num_streams, statics, **weights, seed=0, device=device)
         clip, gt = bridge.load_frames()
         order = [np.arange(num_streams) % 2, (np.arange(num_streams) + 1) % 2]
@@ -1457,7 +1483,8 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
                         else None)}
     if statics.background != "image":
         res["background"] = statics.background
-        res["bg_pixels"] = background_check(statics, frames, out)
+        # a tree trained a few steps may leave no pixel at exactly 0
+        res["bg_pixels"] = background_check(statics, frames, out, require=not trees)
     if held_composite:
         res["composite_err"] = hold_composite(held_composite)
     if held_refine:
@@ -1470,7 +1497,7 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         res["simplex_err"] = (ca.sum(-1) - 1.0).abs().max().item()
         if not res["simplex_err"] <= 1e-3:
             raise AssertionError(f"class_alpha sums to 1 only within {res['simplex_err']}")
-    ref_means = REFERENCE_MEANS.get(phase_label(name, overrides))
+    ref_means = None if trees else REFERENCE_MEANS.get(phase_label(name, overrides))
     if trained and ref_means is not None:
         maps = out["class_alpha"] if multiclass else alpha[..., None]
         res["class_means"] = maps.double().mean(dim=(0, 1, 2)).tolist()
@@ -1503,6 +1530,8 @@ def serve(device, num_streams: int, steps: int, name: str = "fast_int8_pico",
         # have been applied instead of the affine
         if statics.face_path and not multiclass:
             got = res["prior"] if statics.face_models == "reference" else res["applied"]
+            if trees:  # freshly trained face models: they must have run
+                got = len(scores)
             if got == 0:
                 raise AssertionError("the face path was applied to no stream")
         if statics.frame_layout == "s2d" and statics.matting_precision == "int8":
@@ -1599,10 +1628,11 @@ def hold_fused_refine(held: dict) -> dict:
             "bound_by": bound_by, "library_ms": None, "shape": (s, h, w)}
 
 
-def background_check(statics, frames_np, out) -> int:
+def background_check(statics, frames_np, out, require: bool = True) -> int:
     """Where the served alpha upsamples to exactly 0 (every tap on a zero
     of the refined alpha), the served frame is the background: the colour
-    rounded to u8, or the frame blurred.  Returns the pixels checked."""
+    rounded to u8, or the frame blurred.  Returns the pixels checked; with
+    ``require`` there must be some."""
     from video_stream_segmenetation_tpu_torch.ops.blur import gaussian_blur_auto
     from video_stream_segmenetation_tpu_torch.ops.color import denormalize_to_u8
     from video_stream_segmenetation_tpu_torch.ops.resize import interp_matrix
@@ -1623,7 +1653,7 @@ def background_check(statics, frames_np, out) -> int:
         bg = denormalize_to_u8(gaussian_blur_auto(f.float() / 255.0, statics.bg_blur_sigma))
         bad = (frame[zero] != bg[zero]).any(-1).sum().item()
     checked = int(zero.sum().item())
-    if checked == 0 or bad:
+    if (require and checked == 0) or bad:
         raise AssertionError(f"background='{statics.background}': {bad} of {checked} "
                              "pixels where the alpha is 0 are not the background")
     return checked
@@ -2759,15 +2789,17 @@ STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-3
 # it departs only where a gradient near 0 changes sign, and by the rounding
 # of p + u in f32 (an ulp of p, ~1e-5 of u)
 STEP_F32_UPDATE_TOL = 1e-3
+# phase 51's bf16 leaf bar never falls below this, however far the CPU's own
+# bf16 gradient of a leaf lies from its f32 one (a gradient the CPU gets
+# wrong, not a rounding gap, would otherwise lower its own bar)
+ZOO_BF16_COS_FLOOR = 0.9
 
 
-def fit_timed(model, **fit_kw) -> dict:
-    """``train.loop.fit`` on the card with a CUDA event after every step:
-    the trained tree, the history, each step's losses and grad_norm, the
-    ms between consecutive steps' ends (the batch's generation and the
-    step), the peak device memory."""
-    from video_stream_segmenetation_tpu_torch.train.loop import fit
-
+def trainer_timed(run) -> dict:
+    """``run(on_step) -> tree`` (a trainer of train/) on the card with a CUDA
+    event after every step: the trained tree, each step's loss and
+    grad_norm, the ms between consecutive steps' ends (the batch's
+    generation and the step), the wall time and the peak device memory."""
     events, seen = [], []
 
     def on_step(i, metrics):
@@ -2778,13 +2810,27 @@ def fit_timed(model, **fit_kw) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tree, history = fit(model, on_step=on_step, **fit_kw)
+    tree = run(on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     loss, gnorm = torch.stack(seen).cpu().numpy().T
-    return {"tree": tree, "history": history, "loss": loss, "grad_norm": gnorm,
-            "ms": ms, "wall_s": wall, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    return {"tree": tree, "loss": loss, "grad_norm": gnorm, "ms": ms, "wall_s": wall,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def fit_timed(model, **fit_kw) -> dict:
+    """:func:`trainer_timed` of ``train.loop.fit``, its history added."""
+    from video_stream_segmenetation_tpu_torch.train.loop import fit
+
+    history = []
+
+    def run(on_step):
+        tree, hist = fit(model, on_step=on_step, **fit_kw)
+        history.extend(hist)
+        return tree
+
+    return dict(trainer_timed(run), history=history)
 
 
 def step_vs_cpu(tree, dev) -> dict:
@@ -2921,6 +2967,306 @@ def phase_train(dev, counters: dict) -> dict:
             "shapes": sorted({tuple(v.shape) for v in trained.values()}), "sr_err": sr_err,
             "qerr": qerr, "alpha_mean": alpha.mean().item()}
 
+# the train_zoo phase: every trainer of train/ at its full widths and the
+# reference's geometry and batch, a few steps each
+ZOO_FACE_STEPS, ZOO_STEPS, ZOO_FT_STEPS = 20, 5, 3
+ZOO_CPU_BATCH = 2  # the card-vs-CPU step's batch (the trainers' geometry)
+ZOO_SERVE_S, ZOO_SERVE_STEPS = 8, 2
+CLIP_FRAMES = 4
+# the trainers' geometry and batch (the reference's): hw and batch of each
+ZOO_GEOM = {"face": ((288, 512), 32), "rvm": ((288, 512), 8), "u2": ((320, 320), 16),
+            "multiclass": ((288, 512), 12), "mc_pre": ((240, 320), 24),
+            "mc_ft": (FRAME_HW, 6)}
+# the preset serving each trained tree (zoo_jobs' keys)
+ZOO_SERVES = {"fast_int8_pico": {"face_params": {"face": "face", "lmk": "lmk"}},
+              "active": {"params": "mattenet"}, "multiclass": {"params": "multiclass"},
+              "rvm": {"params": "rvm"}, "u2": {"params": "u2"}, "fast": {"params": "plan_a"},
+              "multiclass_fast_pico": {"params": "mc_pico"}}
+# the clip's frames (u8) and alpha, card vs CPU: the two evaluate sin, atan2
+# and sqrt to other last bits, and an f32 pixel coordinate at 720p resolves
+# only 6.1e-5 px (its ulp between 512 and 1024) across soft edges at least
+# 1 px wide (an H100 against its host CPU: 1.96e-5)
+CLIP_U8_TOL, CLIP_ALPHA_TOL = 1, 5e-5
+
+
+def zoo_jobs(dev) -> list[dict]:
+    """The trainers, each ``{"label", "key", "start" (the seeded tree it starts
+    from), "phases" [(label, run(on_step) -> tree)], "model(tree, dtype,
+    device)", "batch()" (CPU tensors), "loss(model, *batch)"}``: the face
+    models at FD/LMK 128 on 288x512 scenes, batch 32 (train/
+    face_trainer.py); RVM, SaliencyNet, the K=4 MatteNet and the K=4
+    MatteNetHD pico (train/variants.py); the flagship's plans A, B, C and
+    the MatteNet (train/flagship.py, train/loop.py::fit)."""
+    from video_stream_segmenetation_tpu_torch.models.blazeface import (
+        FaceFinder,
+        init_face_finder_params,
+    )
+    from video_stream_segmenetation_tpu_torch.models.facemesh import (
+        LandmarkNet,
+        init_landmark_net_params,
+    )
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD, init_params
+    from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_mattenet_params
+    from video_stream_segmenetation_tpu_torch.models.rvm import RecurrentMatteNet, init_rvm_params
+    from video_stream_segmenetation_tpu_torch.models.u2net import SaliencyNet, init_u2net_params
+    from video_stream_segmenetation_tpu_torch.train import face_trainer as FT
+    from video_stream_segmenetation_tpu_torch.train import flagship as FL
+    from video_stream_segmenetation_tpu_torch.train import variants as PV
+    from video_stream_segmenetation_tpu_torch.train.face import (
+        detector_loss,
+        landmark_loss,
+        synthetic_face_batch,
+    )
+    from video_stream_segmenetation_tpu_torch.train.loop import (
+        fit,
+        seeded_tree,
+        synthetic_matting_batch,
+    )
+    from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
+
+    fd = lmk = 128
+    (scene, face_b), b = ZOO_GEOM["face"], ZOO_CPU_BATCH
+    (rvm_hw, rvm_b), (u2_hw, u2_b) = ZOO_GEOM["rvm"], ZOO_GEOM["u2"]
+    (mc_hw, mc_b), (pre_hw, pre_b), (ft_hw, ft_b) = (ZOO_GEOM[k] for k in ("multiclass",
+                                                                       "mc_pre", "mc_ft"))
+
+    def gen():
+        return torch.Generator().manual_seed(3)
+
+    def face_batch():
+        return synthetic_face_batch(gen(), b, scene)
+
+    def class_batch(hw):
+        def make():
+            frames, _, _, parts = synthetic_face_batch(gen(), b, hw, return_parts=True)
+            return frames, PV._class_simplex(parts)
+        return make
+
+    def matting_batch(hw):
+        return lambda: synthetic_matting_batch(gen(), b, hw)
+
+    def class_loss(m, frames, gt):
+        return PV.class_loss(m(frames)["alpha"], gt)
+
+    jobs = []
+    fd_model = FaceFinder(init_face_finder_params(0), fd, device=dev)
+    jobs.append({
+        "label": f"FaceFinder FD {fd}, {scene[0]}x{scene[1]} scenes, batch {face_b}",
+        "key": "face", "start": init_face_finder_params(0),
+        "phases": [("", lambda on_step: FT.train_model(
+            "facefinder", fd_model, FT.detector_loss_fn(fd_model, face_b, scene), ZOO_FACE_STEPS,
+            on_step=on_step)[0])],
+        "model": lambda t, dt, d: FaceFinder(t, fd, device=d, dtype=dt),
+        "batch": lambda: FT.letterbox_batch(*face_batch()[:2], fd, scene),
+        "loss": lambda m, x, gt: detector_loss(m(x), gt, m.anchors)})
+    lmk_model = LandmarkNet(init_landmark_net_params(0), device=dev)
+
+    def lmk_batch():
+        frames, box, landmarks = face_batch()
+        return FT.lmk_batch(FT.lmk_draws(gen(), b), frames, box, landmarks, lmk, scene)
+
+    jobs.append({
+        "label": f"LandmarkNet LMK {lmk}, batch {face_b}", "key": "lmk",
+        "start": init_landmark_net_params(0),
+        "phases": [("", lambda on_step: FT.train_model(
+            "landmarknet", lmk_model, FT.landmark_loss_fn(lmk_model, face_b, lmk, scene),
+            ZOO_FACE_STEPS, on_step=on_step)[0])],
+        "model": lambda t, dt, d: LandmarkNet(t, device=d, dtype=dt), "batch": lmk_batch,
+        "loss": lambda m, x, gt, face: landmark_loss(m(x), gt, face)})
+    jobs.append({
+        "label": f"RecurrentMatteNet {rvm_hw[0]}x{rvm_hw[1]}, batch {rvm_b}, unroll 3",
+        "key": "rvm", "start": init_rvm_params(0),
+        "phases": [("", lambda on_step: PV.train_rvm(ZOO_STEPS, rvm_hw, rvm_b, device=dev,
+                                                     on_step=on_step)[0])],
+        "model": lambda t, dt, d: RecurrentMatteNet(t, device=d, dtype=dt),
+        "batch": lambda: (*synthetic_matting_batch(gen(), b, rvm_hw), torch.tensor(5)),
+        "loss": lambda m, fr, gt, shift: PV.rvm_loss(m, fr, gt, shift, 3)})
+    jobs.append({
+        "label": f"SaliencyNet {u2_hw[0]}x{u2_hw[1]}, batch {u2_b}", "key": "u2",
+        "start": init_u2net_params(0),
+        "phases": [("", lambda on_step: PV.train_u2(ZOO_STEPS, u2_hw, u2_b, device=dev,
+                                                    on_step=on_step)[0])],
+        "model": lambda t, dt, d: SaliencyNet(t, device=d, dtype=dt),
+        "batch": matting_batch(u2_hw), "loss": PV.u2_loss})
+    jobs.append({
+        "label": f"MatteNet K=4 {mc_hw[0]}x{mc_hw[1]}, batch {mc_b}", "key": "multiclass",
+        "start": init_mattenet_params(0, 4),
+        "phases": [("", lambda on_step: PV.train_multiclass(ZOO_STEPS, mc_hw, mc_b, device=dev,
+                                                            on_step=on_step)[0])],
+        "model": lambda t, dt, d: MatteNet(t, device=d, dtype=dt),
+        "batch": class_batch(mc_hw), "loss": class_loss})
+    mc = MatteNetHD(10, 4, "pico", device=dev, num_classes=4)
+    jobs.append({
+        "label": "MatteNetHD pico K=4", "key": "mc_pico",
+        "start": init_params("pico", 0, 10, 4),
+        "phases": [(f"{pre_hw[0]}x{pre_hw[1]} b{pre_b}", lambda on_step: PV._trainer(
+                        "multiclass_hd/pre", mc, PV.class_loss_fn(mc, pre_b, pre_hw), ZOO_STEPS,
+                        5e-4, on_step=on_step)[0]),
+                   (f"{ft_hw[0]}x{ft_hw[1]} b{ft_b}", lambda on_step: PV._trainer(
+                       "multiclass_hd/ft", mc, PV.class_loss_fn(mc, ft_b, ft_hw), ZOO_FT_STEPS,
+                       2e-4, on_step=on_step)[0])],
+        "model": lambda t, dt, d: MatteNetHD(10, 4, "pico", dtype=dt, params=t, device=d),
+        "batch": class_batch(pre_hw), "loss": class_loss})
+    for key in ("plan_a", "full", "light", "mattenet"):
+        job = FL.JOBS[key]
+        model = job.model(dev)
+        (ph, pw), (sh, sw) = job.pretrain_hw, job.serve_hw
+
+        def pre(on_step, job=job, model=model):
+            return fit(model, hw=job.pretrain_hw, batch=job.pretrain_batch, steps=ZOO_STEPS,
+                       lr=job.lr, log_every=ZOO_STEPS, on_step=on_step)[0]
+
+        def ft(on_step, job=job, model=model):
+            return fit(model, hw=job.serve_hw, batch=job.serve_batch, steps=ZOO_FT_STEPS,
+                       lr=job.lr / 3, log_every=ZOO_FT_STEPS, init_params=model.tree(), seed=1,
+                       on_step=on_step)[0]
+
+        jobs.append({
+            "label": f"flagship {job.name}", "key": key,
+            "start": seeded_tree(model, 0),
+            "phases": [(f"{ph}x{pw} b{job.pretrain_batch}", pre),
+                       (f"{sh}x{sw} b{job.serve_batch}", ft)],
+            "model": lambda t, dt, d, job=job: job.model(d, dt, t),
+            "batch": matting_batch(job.pretrain_hw),
+            "loss": lambda m, fr, gt: matting_loss(m(fr), gt, fr)})
+    return jobs
+
+
+def zoo_step_vs_cpu(job: dict, tree: dict, dev) -> dict:
+    """One step's forward and backward of ``job``'s loss on the card and on
+    the CPU, the same tree and batch (made on the CPU), in f32 then bf16:
+    the losses and each leaf's gradient (a leaf the loss does not read: 0,
+    as train/step.py takes it; ``"unread"`` names those leaves).  A leaf's
+    bf16 cosine bar is 0.99, or where the CPU's own bf16 gradient lies
+    farther from its f32 one, ``1 - 2 (1 - that cosine)`` (two bf16
+    evaluations, independent roundings), never below
+    :data:`ZOO_BF16_COS_FLOOR`; the whole gradient's cosine at least 0.99."""
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    import copy
+
+    from video_stream_segmenetation_tpu_torch import bridge
+
+    batch = job["batch"]()
+    unread = []
+
+    def grads(dt, d):
+        m = job["model"](tree, dt, d)
+        m.requires_grad_(True)
+        params = list(m.parameters())
+        with pinned():
+            loss, _ = job["loss"](m, *(x.to(d) for x in batch))
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+        if d == "cpu" and dt == torch.float32:  # the leaves the loss does not read, by name
+            g_model = copy.deepcopy(m)
+            with torch.no_grad():
+                for p, g in zip(g_model.parameters(), gs):
+                    p.copy_(g)
+            unread[:] = [k for k, v in bridge.flatten(g_model.tree()).items() if not v.any()]
+        return loss.item(), [g.double().cpu().flatten() for g in gs]
+
+    def cos(a, b):
+        na, nb = a.norm(), b.norm()
+        return 1.0 if na == 0 and nb == 0 else float(a @ b / max(na * nb, 1e-30))
+
+    (lc, gc), (lg, gg) = grads(torch.float32, "cpu"), grads(torch.float32, dev)
+    res = {"unread": unread,
+           "f32": {"loss_rel": abs(lg - lc) / abs(lc), "loss_card": lg, "loss_cpu": lc,
+                   "max_rel_l2": max(float((a - b).norm() / max(b.norm(), 1e-30))
+                                     for a, b in zip(gg, gc)), "leaves": len(gc)}}
+    (bc, hc), (bg, hg) = grads(torch.bfloat16, "cpu"), grads(torch.bfloat16, dev)
+    bars = [max(ZOO_BF16_COS_FLOOR, min(STEP_BF16_COS, 1.0 - 2.0 * (1.0 - cos(h, g))))
+            for h, g in zip(hc, gc)]
+    coss = [cos(a, b) for a, b in zip(hg, hc)]
+    res["bf16"] = {"loss_rel": abs(bg - bc) / abs(bc), "loss_card": bg, "loss_cpu": bc,
+                   "min_cos": min(coss), "least_margin": min(c - bar for c, bar in zip(coss, bars)),
+                   "min_bar": min(bars), "tree_cos": cos(torch.cat(hg), torch.cat(hc))}
+    return res
+
+
+def phase_train_zoo(dev) -> dict:
+    """Every trainer of train/ on the card at its full widths and the
+    reference's geometry and batch, a few steps each (:func:`zoo_jobs`):
+    losses finite and every leaf moved, BatchNorm statistics included; one
+    step against the CPU (:func:`zoo_step_vs_cpu`, phase 50's bars); each
+    trained tree served ``ZOO_SERVE_STEPS`` steps of the Engine of the
+    preset that serves its name at S=``ZOO_SERVE_S``, 720p, the committed
+    frames (the int8 trunk held against its plain version; each serve's
+    launch counts, as every serve phase's); then an articulated clip
+    rendered on the card against the CPU's render of the same draws."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.train import person
+    from video_stream_segmenetation_tpu_torch.utils.clips import articulated_clip
+
+    t_phase = time.perf_counter()
+    trained, out = {}, {"jobs": []}
+    for job in zoo_jobs(dev):
+        runs = [(label, trainer_timed(run)) for label, run in job["phases"]]
+        tree = runs[-1][1]["tree"]
+        for label, r in runs:
+            if not (np.isfinite(r["loss"]).all() and np.isfinite(r["grad_norm"]).all()):
+                raise AssertionError(f"train_zoo {job['label']} {label}: a loss or grad_norm "
+                                     f"is not finite: {r['loss']} {r['grad_norm']}")
+        t0 = time.perf_counter()
+        held = zoo_step_vs_cpu(job, tree, dev)
+        held["s"] = time.perf_counter() - t0
+        # every leaf the loss reads moved (an unread head's zero gradient
+        # leaves it where the weight decay's f32 rounding does)
+        start, flat = bridge.flatten(job["start"]), bridge.flatten(tree)
+        still = [k for k, v in start.items()
+                 if np.array_equal(v, flat[k]) and k not in held["unread"]]
+        if still or not all(np.isfinite(v).all() for v in flat.values()):
+            raise AssertionError(f"train_zoo {job['label']}: leaves that did not move or are "
+                                 f"not finite: {still}")
+        stats = sum(k.startswith("batch_stats") for k in flat)
+        b, f = held["bf16"], held["f32"]
+        if not (b["loss_rel"] <= STEP_BF16_LOSS_TOL and b["least_margin"] >= 0
+                and b["tree_cos"] >= STEP_BF16_COS
+                and f["loss_rel"] <= STEP_F32_LOSS_TOL and f["max_rel_l2"] <= STEP_F32_GRAD_TOL):
+            raise AssertionError(f"train_zoo {job['label']}: the card's step departs from the "
+                                 f"CPU's: {held}")
+        trained[job["key"]] = tree
+        out["jobs"].append({"label": job["label"], "runs": runs, "held": held,
+                            "leaves": len(flat), "stats": stats})
+        torch.cuda.empty_cache()
+
+    # each trained tree through the Engine of the preset that serves it
+    serves = []
+    for name, trees in ZOO_SERVES.items():
+        trees = {k: (trained[v] if isinstance(v, str) else
+                     {kk: trained[vv] for kk, vv in v.items()}) for k, v in trees.items()}
+        if name == "multiclass_fast_pico":  # the int8 preset: the port's quantizer first
+            trees["params"] = bridge.params_from_jax(trees["params"], 10, "pico")
+        t0 = time.perf_counter()
+        res = serve(torch.device(dev).type, ZOO_SERVE_S, ZOO_SERVE_STEPS, name, trained=True,
+                    trees=trees)
+        res["s"] = time.perf_counter() - t0
+        serves.append((name, res))
+        torch.cuda.empty_cache()
+    out["serves"] = serves
+
+    # an articulated clip on the card against the CPU's render of the same draws
+    g = torch.Generator().manual_seed(0)
+    draws = {"ident": person.sample_identity(g, 1), "pose": person.sample_pose(g, 1, FRAME_HW),
+             "occ": person.occluder_draws(g, 1, FRAME_HW)}
+    t0 = time.perf_counter()
+    card = articulated_clip(CLIP_FRAMES, FRAME_HW, seed=0, features=True, device=dev, draws=draws)
+    card_s = time.perf_counter() - t0
+    cpu = articulated_clip(CLIP_FRAMES, FRAME_HW, seed=0, features=True, device="cpu", draws=draws)
+    clip = {"u8_err": int(np.abs(card.frames.astype(np.int16) - cpu.frames).max()),
+            "alpha_err": float(np.abs(card.alpha - cpu.alpha).max()),
+            "box_err": float(np.abs(card.head_box - cpu.head_box).max()), "card_s": card_s,
+            "alpha_mean": float(card.alpha.mean())}
+    if not (clip["u8_err"] <= CLIP_U8_TOL and clip["alpha_err"] <= CLIP_ALPHA_TOL
+            and 0.02 < clip["alpha_mean"] < 0.98):
+        raise AssertionError(f"train_zoo: the card's articulated clip departs from the CPU's: "
+                             f"{clip}")
+    out["clip"] = clip
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def hold(by_name: dict, phase: str, held: dict) -> None:
     """Print a held round's errors and fold them into the kernels'
     ``max_abs_err``."""
@@ -2944,7 +3290,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 15 + len(PHASES)
+    steps = 16 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -3228,6 +3574,55 @@ def main() -> int:
         f"{tr['qerr']:.4f}; served one step, alpha mean {tr['alpha_mean']:.4f}; launches "
         f"{tr['launches']}")
     del tr
+    torch.cuda.empty_cache()
+
+    say(f"[{k + 12}/{steps} train_zoo] every trainer of train/ on the card at its full widths "
+        f"and the reference's geometry and batch ({ZOO_FACE_STEPS} steps for the face models, "
+        f"{ZOO_STEPS} for the others, then {ZOO_FT_STEPS} of fine-tuning where the reference "
+        f"fine-tunes); one step against the CPU (batch {ZOO_CPU_BATCH}); each trained tree "
+        f"served {ZOO_SERVE_STEPS} steps of Engine({ZOO_SERVE_S}, its preset) on the committed "
+        f"frames; an articulated clip of {CLIP_FRAMES} frames at 720p on the card vs the CPU")
+    zoo = phase_train_zoo(dev)
+    for job in zoo["jobs"]:
+        for label, r in job["runs"]:
+            say(f"  train_zoo {job['label']}{' ' + label if label else ''}: median step "
+                f"{statistics.median(r['ms'][1:]):.2f} ms (CUDA events between steps' ends, "
+                f"median of {len(r['ms']) - 1}), {r['wall_s']:.1f} s, peak device memory "
+                f"{r['peak_mib']:.0f} MiB; losses {[round(float(v), 4) for v in r['loss']]}; "
+                f"{smi}")
+        h = job["held"]
+        say(f"  train_zoo {job['label']}: {job['leaves']} leaves, every one the loss reads "
+            f"moved ({job['stats']} BatchNorm statistics; unread {h['unread']}); card vs CPU "
+            f"step: f32 loss relative {h['f32']['loss_rel']:.2e} "
+            f"(tolerance {STEP_F32_LOSS_TOL:g}), largest gradient relative L2 "
+            f"{h['f32']['max_rel_l2']:.2e} (tolerance {STEP_F32_GRAD_TOL:g}); bf16 loss relative "
+            f"{h['bf16']['loss_rel']:.2e} (tolerance {STEP_BF16_LOSS_TOL:g}), least gradient "
+            f"cosine {h['bf16']['min_cos']:.5f} (least bar {h['bf16']['min_bar']:.5f}, margin "
+            f"{h['bf16']['least_margin']:.5f}), the whole gradient's {h['bf16']['tree_cos']:.5f} "
+            f"(at least {STEP_BF16_COS}); {h['s']:.1f} s")
+    for preset_name, res in zoo["serves"]:
+        say(f"  train_zoo serve {preset_name}, this run's trees: median step "
+            f"{statistics.median(res['times_ms']):.2f} ms, launches {res['launches']}, IoU vs "
+            f"ground truth {res['iou']:.4f}"
+            + (f", class_alpha sums to 1 within {res['simplex_err']:.2e}"
+               if "simplex_err" in res else "")
+            + (f", trunk vs plain on 2 streams {res['trunk_err']:.3e} (tolerance {TRUNK_TOL:g})"
+               if "trunk_err" in res else "")
+            + f", face applied on {res['applied']} streams, mean det_score "
+            f"{res['det_score']:.4f}, passthrough steps {res['passthrough']}; {res['s']:.1f} s")
+        trunk = "trunk_int8_k4_pico" if preset_name == "multiclass_fast_pico" else "trunk_int8"
+        for counter, got in res["launches"].items():
+            entry = trunk if counter == "trunk_int8" else counter
+            if entry in by_name:
+                by_name[entry]["launches"] += got
+        if "trunk_err" in res:
+            by_name[trunk]["max_abs_err"] = max(by_name[trunk]["max_abs_err"], res["trunk_err"])
+    c = zoo["clip"]
+    say(f"  train_zoo articulated_clip({CLIP_FRAMES}, 720p, features=True): card vs CPU from "
+        f"the same draws, u8 frames within {c['u8_err']} (tolerance {CLIP_U8_TOL}), alpha "
+        f"{c['alpha_err']:.2e} (tolerance {CLIP_ALPHA_TOL:g}), head_box {c['box_err']:.2e} px; "
+        f"{c['card_s']:.2f} s on the card; the phase {zoo['wall_s']:.1f} s")
+    del zoo
     torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

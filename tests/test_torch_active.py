@@ -190,7 +190,7 @@ def test_mattenet_matches(trees, which):
                                            method="asymmetric"))
     jm = models.MatteNet()
     want = np.asarray(jm.apply(trees[which], jnp.asarray(small))["alpha"])
-    got = MatteNet(trees[which])(T(small))["alpha"]
+    got = MatteNet(trees[which], device="cpu")(T(small))["alpha"]
     assert got.dtype == torch.float32 and got.shape == (2, 32, 64)
     diff = np.abs(got.numpy() - want)
     if which == "seeded":
@@ -212,7 +212,7 @@ def test_mattenet_refuses_k_classes(trees):
     tree["params"]["Conv_2"] = {"kernel": np.zeros((1, 1, 16, 4), np.float32),
                                 "bias": np.zeros(4, np.float32)}
     with pytest.raises(ValueError, match="must agree"):
-        MatteNet(tree)
+        MatteNet(tree, device="cpu")
 
 
 # ---- the natural layout's ops ----------------------------------------------

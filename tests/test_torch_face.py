@@ -189,7 +189,7 @@ def test_face_finder_matches(face_trees, rng, ckpt, size):
     x = np.concatenate([_guide_faces(2, size), rng.random((1, size, size, 3), np.float32)])
     tree = face_trees[ckpt]
     want = models.FaceFinder(input_size=size).apply(tree, jnp.asarray(x))
-    got = FaceFinder(tree, size)(T(x))
+    got = FaceFinder(tree, size, device="cpu")(T(x))
     _close(got["box_coords"], want["box_coords"], atol=2e-3, rtol=0)
     _close(got["box_scores"], want["box_scores"], atol=1e-2, rtol=0)
     assert float(np.asarray(want["box_scores"])[:2].max(axis=-1).min()) > 0.9  # faces found
@@ -200,7 +200,7 @@ def test_landmark_net_matches(face_trees, rng, ckpt, size):
     x = np.concatenate([_guide_faces(2, size), rng.random((1, size, size, 3), np.float32)])
     tree = face_trees[ckpt]
     want = models.LandmarkNet().apply(tree, jnp.asarray(x))
-    got = LandmarkNet(tree)(T(x))
+    got = LandmarkNet(tree, device="cpu")(T(x))
     assert got["landmarks"].shape == (3, 468, 3)
     _close(got["landmarks"][..., :2], np.asarray(want["landmarks"])[..., :2],
            atol=4e-3, rtol=0)
@@ -254,7 +254,8 @@ def test_face_subpath_compact_matches(face_trees, name, ckpts, frame_hw, mask_hw
     want = [np.asarray(w) for w in want]
 
     tst = preset(name, **geom)
-    tm = TPL.FaceModels(FaceFinder(fd, tst.fd_size), LandmarkNet(lm))
+    tm = TPL.FaceModels(FaceFinder(fd, tst.fd_size, device="cpu"),
+                        LandmarkNet(lm, device="cpu"))
     got = TPL.face_subpath_compact(tm, T(guide), T(frame_idx), T(gate), tst)
     got = [g.numpy() for g in got]
     prior, has_prior, affine, has_update, score = range(5)

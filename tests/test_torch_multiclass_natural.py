@@ -73,7 +73,7 @@ def test_k_class_mattenet_matches(trees, which):
     jm = models.MatteNet(num_classes=K)
     jt = _jt(trees[which])
     jit = np.asarray(jax.jit(lambda p, x: jm.apply(p, x)["alpha"])(jt, jnp.asarray(small)))
-    model = MatteNet(trees[which])
+    model = MatteNet(trees[which], device="cpu")
     got = model(T(small))["alpha"].numpy()
     assert model.num_classes == K and got.shape == (2, 32, 64, K) and got.dtype == np.float32
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-5)

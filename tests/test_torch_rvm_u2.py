@@ -93,7 +93,7 @@ def _rvm_both(tree, x, state):
     want = jax.jit(jm.RecurrentMatteNet().apply)(
         jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(x),
         RecurrentState(*[jnp.asarray(a) for a in state]))
-    got = TR.RecurrentMatteNet(tree)(T(x), tuple(T(a) for a in state))
+    got = TR.RecurrentMatteNet(tree, device="cpu")(T(x), tuple(T(a) for a in state))
     return got, want
 
 
@@ -122,7 +122,7 @@ def test_saliencynet_forward_matches_flax(rng):
     for hw in ((32, 64), (36, 44)):
         x = rng.random((2, *hw, 3), dtype=np.float32)
         want = apply(jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(x))
-        got = TU.SaliencyNet(tree)(T(x))
+        got = TU.SaliencyNet(tree, device="cpu")(T(x))
         np.testing.assert_allclose(got["alpha"].numpy(), np.asarray(want["alpha"]), rtol=0,
                                    atol=U2_ALPHA_TOL)
         for g, w in zip(got["side"], want["side"]):
@@ -159,7 +159,7 @@ def test_rvm_export_round_trips_and_matches_the_reference():
     ref = _restored("rvm")
     assert _shapes(tree) == _shapes(bridge.float_tree(ref))
     x = _frames((72, 128))
-    model = TR.RecurrentMatteNet(tree)
+    model = TR.RecurrentMatteNet(tree, device="cpu")
     apply = jax.jit(jm.RecurrentMatteNet().apply)
     state = jax_rvm_state(2, (72, 128))
     for t in range(2):
@@ -179,7 +179,7 @@ def test_u2net_export_round_trips_and_matches_the_reference():
     assert _shapes(tree) == _shapes(bridge.float_tree(ref))
     x = _frames((160, 160))
     want = jax.jit(jm.SaliencyNet().apply)(ref, jnp.asarray(x))
-    got = TU.SaliencyNet(tree)(T(x))
+    got = TU.SaliencyNet(tree, device="cpu")(T(x))
     err = np.abs(got["alpha"].numpy() - np.asarray(want["alpha"])).max()
     assert err <= TRAINED_U2_TOL, err
     assert got["alpha"].numpy().std() > 0.1  # the person is found

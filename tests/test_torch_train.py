@@ -22,6 +22,7 @@ the pico widths, seeded trees, inputs made with numpy.
 """
 
 import copy
+import dataclasses
 import json
 
 import jax
@@ -359,10 +360,9 @@ def test_flagship_writes_exports(tmp_path, monkeypatch):
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.train import flagship
 
-    monkeypatch.setattr(flagship, "PRETRAIN_HW", HW)
-    monkeypatch.setattr(flagship, "PRETRAIN_BATCH", B)
-    monkeypatch.setattr(flagship, "SERVE_HW", HW)
-    monkeypatch.setattr(flagship, "SERVE_BATCH", B)
+    monkeypatch.setattr(flagship, "JOBS", {
+        k: dataclasses.replace(j, pretrain_hw=HW, pretrain_batch=B, serve_hw=HW, serve_batch=B)
+        for k, j in flagship.JOBS.items()})
     monkeypatch.setattr(flagship, "FT_MIN_STEPS", 1)
     qpath = tmp_path / "q.json"
     qpath.write_text('{"other": {}}')

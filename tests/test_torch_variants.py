@@ -462,7 +462,8 @@ def test_translation_subpath_with_the_trained_detector():
                jnp.ones((S,), bool))
     tstate = dataclasses.replace(init_state(S, (MH, MW)), face_center=T(centre),
                                  has_center=T([True, True]))
-    got = TPL.face_translation_subpath(FaceFinder(bridge.float_tree(tree), 64), T(frames),
+    got = TPL.face_translation_subpath(FaceFinder(bridge.float_tree(tree), 64, device="cpu"),
+                                       T(frames),
                                        tstate, st, T([True, True]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))

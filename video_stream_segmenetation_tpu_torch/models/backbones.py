@@ -11,9 +11,8 @@ the compute dtype.  The BatchNorm keeps flax's frozen form
 (``use_running_average=True`` in training too, reference
 ``backbones.py:57-110``); its ``mean`` and ``var`` are parameters, since the
 reference's trainer differentiates and updates its ``batch_stats``
-(``train/step.py:37-47``).  Parameters are made frozen (the serving
-models never train); a model that trains turns them on
-(models/mattenet_hd.py::MatteNetHD).  The compute-dtype tensors are
+(``train/step.py:37-47``).  Parameters are made frozen; MatteNetHD turns
+its on, and a trainer its model's (train/).  The compute-dtype tensors are
 derived from the parameters at each call, except in a model that
 :func:`freeze` froze for serving: there once, when it is frozen.
 The relu6 is ``F.relu6`` where autograd records (its gradient is 0 at
@@ -44,6 +43,14 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     pt, pb = same_pads(x.shape[2], kh, stride, dilation)
     pl, pr = same_pads(x.shape[3], kw, stride, dilation)
     x = F.pad(x, (pl, pr, pt, pb))
+    if (w.requires_grad and x.device.type == "cpu" and x.dtype == torch.bfloat16
+            and groups > 1 and dilation > 1):
+        # PyTorch's CPU bf16 depthwise conv gives a wrong kernel gradient
+        # at dilation > 1 (uninitialized values, up to inf); the f32 conv of
+        # the same bf16 values, rounded, is what a bf16 conv with f32
+        # accumulation computes, and its gradients are right
+        return F.conv2d(x.float(), w.float(), stride=stride, dilation=dilation,
+                        groups=groups).to(x.dtype)
     return F.conv2d(x, w, stride=stride, dilation=dilation, groups=groups)
 
 
@@ -257,20 +264,21 @@ class InvertedResidual(torch.nn.Module):
     activation, plus the input where stride is 1 and the width kept."""
 
     def __init__(self, params: dict, stats: dict, stride: int = 1, expand: int = 6,
-                 use_se: bool = False, device="cpu"):
+                 use_se: bool = False, device="cpu", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         names = iter(f"ConvBN_{i}" for i in range(3))
         layers = []
         if expand != 1:
             n = next(names)
-            layers.append(ConvBN(params[n], stats[n], device=device))
+            layers.append(ConvBN(params[n], stats[n], device=device, dtype=dtype))
         n = next(names)
         mid = params[n]["Conv_0"]["kernel"].shape[-1]
-        layers.append(ConvBN(params[n], stats[n], stride=stride, groups=mid, device=device))
+        layers.append(ConvBN(params[n], stats[n], stride=stride, groups=mid, device=device,
+                             dtype=dtype))
         self.expand_dw = torch.nn.ModuleList(layers)
-        self.se = SEBlock(params["SEBlock_0"], device) if use_se else None
+        self.se = SEBlock(params["SEBlock_0"], device, dtype) if use_se else None
         n = next(names)
-        self.project = ConvBN(params[n], stats[n], act=False, device=device)
+        self.project = ConvBN(params[n], stats[n], act=False, device=device, dtype=dtype)
         # input width: the 1x1 expand's input, or the depthwise conv's width
         k0 = params["ConvBN_0"]["Conv_0"]["kernel"].shape
         inp = k0[-2] if expand != 1 else k0[-1]
@@ -284,6 +292,13 @@ class InvertedResidual(torch.nn.Module):
             h = self.se(h)
         h = self.project(h)
         return h + x if self.residual else h
+
+    def export(self) -> tuple[dict, dict]:
+        layers = [*self.expand_dw, self.project]
+        parts = {f"ConvBN_{i}": layer for i, layer in enumerate(layers)}
+        if self.se is not None:
+            parts["SEBlock_0"] = self.se
+        return export_layers(parts)
 
 
 # (features, stride, expand, use_se) of the encoder's inverted residuals at
@@ -300,12 +315,14 @@ class MobileEncoder(torch.nn.Module):
     """MobileNetV2-class encoder: a stride-2 3x3 ConvBN, then the inverted
     residuals of :data:`ENCODER_BLOCKS`; returns (f2, f4, f8, f16)."""
 
-    def __init__(self, params: dict, stats: dict, device="cpu"):
+    def __init__(self, params: dict, stats: dict, device="cpu",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.stem = ConvBN(params["ConvBN_0"], stats["ConvBN_0"], stride=2, device=device)
+        self.stem = ConvBN(params["ConvBN_0"], stats["ConvBN_0"], stride=2, device=device,
+                           dtype=dtype)
         self.blocks = torch.nn.ModuleList(
             InvertedResidual(params[f"InvertedResidual_{i}"], stats[f"InvertedResidual_{i}"],
-                             stride=st, expand=ex, use_se=se, device=device)
+                             stride=st, expand=ex, use_se=se, device=device, dtype=dtype)
             for i, (_, st, ex, se) in enumerate(ENCODER_BLOCKS))
 
     def forward(self, x: torch.Tensor):
@@ -317,24 +334,47 @@ class MobileEncoder(torch.nn.Module):
                 feats.append(x)
         return tuple(feats)
 
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({"ConvBN_0": self.stem, **{
+            f"InvertedResidual_{i}": b for i, b in enumerate(self.blocks)}})
+
 
 class EASPP(torch.nn.Module):
     """Efficient ASPP: a depthwise 3x3 ConvBN (no activation) at each of
     :data:`EASPP_RATES`, concatenated, a 1x1 ConvBN, then SE."""
 
-    def __init__(self, params: dict, stats: dict, device="cpu"):
+    def __init__(self, params: dict, stats: dict, device="cpu",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         n = len(EASPP_RATES)
         c = params["ConvBN_0"]["Conv_0"]["kernel"].shape[-1]
         self.branches = torch.nn.ModuleList(
             ConvBN(params[f"ConvBN_{i}"], stats[f"ConvBN_{i}"], act=False, groups=c,
-                   dilation=r, device=device) for i, r in enumerate(EASPP_RATES))
-        self.fuse = ConvBN(params[f"ConvBN_{n}"], stats[f"ConvBN_{n}"], device=device)
-        self.se = SEBlock(params["SEBlock_0"], device)
+                   dilation=r, device=device, dtype=dtype) for i, r in enumerate(EASPP_RATES))
+        self.fuse = ConvBN(params[f"ConvBN_{n}"], stats[f"ConvBN_{n}"], device=device,
+                           dtype=dtype)
+        self.se = SEBlock(params["SEBlock_0"], device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.cat([b(x) for b in self.branches], dim=1)
         return self.se(self.fuse(h))
+
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({**{f"ConvBN_{i}": b for i, b in enumerate(self.branches)},
+                              f"ConvBN_{len(self.branches)}": self.fuse, "SEBlock_0": self.se})
+
+
+def copy_parameters(model: torch.nn.Module, fresh: torch.nn.Module) -> None:
+    """Copy ``fresh``'s parameters into ``model``'s in place (``load_tree``
+    of the models: ``fresh`` is the same model built from the tree on the
+    CPU); their names and shapes must agree."""
+    with torch.no_grad():
+        for (name, p), (fname, q) in zip(model.named_parameters(), fresh.named_parameters(),
+                                          strict=True):
+            if name != fname or p.shape != q.shape:
+                raise ValueError(f"tree does not fit: {fname} {tuple(q.shape)} for "
+                                 f"{name} {tuple(p.shape)}")
+            p.copy_(q)
 
 
 def nearest_x2(x: torch.Tensor, times: int = 1) -> torch.Tensor:

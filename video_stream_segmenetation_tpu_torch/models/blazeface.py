@@ -10,6 +10,8 @@ import torch
 from video_stream_segmenetation_tpu_torch.models.backbones import (
     Conv,
     ConvBN,
+    copy_parameters,
+    export_layers,
     seeded_tree,
 )
 from video_stream_segmenetation_tpu_torch.ops.detect import (
@@ -43,21 +45,32 @@ def init_face_finder_params(seed: int) -> dict:
 
 class FaceFinder(torch.nn.Module):
     """``[S, n, n, 3]`` f32 (n = input_size) -> ``{"box_coords": [S, A, 16]``
-    normalized, ``"box_scores": [S, A]}`` f32."""
+    normalized, ``"box_scores": [S, A]}`` f32.  Layers compute in ``dtype``
+    (bf16, the reference's default, or f32).  :meth:`tree` gives the
+    flax-named numpy tree, :meth:`load_tree` loads one in place."""
 
-    def __init__(self, tree: dict, input_size: int = 256, device="cpu"):
+    def __init__(self, tree: dict, input_size: int = 256, device="cuda",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.input_size = input_size
+        self.input_size, self.dtype = input_size, dtype
         p, st = tree["params"], tree["batch_stats"]
         self.trunk = torch.nn.ModuleList(
-            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], stride=s, device=device)
+            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], stride=s, device=device, dtype=dtype)
             for i, (_, s) in enumerate(_TRUNK))
-        self.heads = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device) for i in range(4))
+        self.heads = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device, dtype) for i in range(4))
         self.register_buffer("anchors", torch.as_tensor(
             np.array(blazeface_anchors(input_size)), device=device))
 
+    def tree(self) -> dict:
+        params, stats = export_layers({**{f"ConvBN_{i}": m for i, m in enumerate(self.trunk)},
+                                       **{f"Conv_{i}": m for i, m in enumerate(self.heads)}})
+        return {"params": params, "batch_stats": stats}
+
+    def load_tree(self, tree: dict) -> None:
+        copy_parameters(self, FaceFinder(tree, self.input_size, "cpu", self.dtype))
+
     def forward(self, x: torch.Tensor) -> dict:
-        x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         feats = []
         for i, layer in enumerate(self.trunk):
             x = layer(x)

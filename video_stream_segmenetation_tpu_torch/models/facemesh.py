@@ -8,7 +8,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video_stream_segmenetation_tpu_torch.models.backbones import ConvBN, seeded_tree
+from video_stream_segmenetation_tpu_torch.models.backbones import (
+    ConvBN,
+    Dense,
+    copy_parameters,
+    export_layers,
+    mean_hw,
+    seeded_tree,
+)
 
 NUM_LANDMARKS = 468
 
@@ -33,27 +40,32 @@ def init_landmark_net_params(seed: int) -> dict:
 
 class LandmarkNet(torch.nn.Module):
     """``[S, n, n, 3]`` f32 -> ``{"landmarks": [S, 468, 3], "scores": [S]}``
-    f32."""
+    f32.  Layers compute in ``dtype`` (bf16, the reference's default, or
+    f32); :meth:`tree` and :meth:`load_tree` as FaceFinder's."""
 
-    def __init__(self, tree: dict, device="cpu"):
+    def __init__(self, tree: dict, device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
         p, st = tree["params"], tree["batch_stats"]
         self.trunk = torch.nn.ModuleList(
-            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], stride=s, device=device)
+            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], stride=s, device=device, dtype=dtype)
             for i, (_, s, _) in enumerate(_TRUNK))
-        d = p["Dense_0"]
-        self.register_buffer("dense_w", torch.as_tensor(
-            np.asarray(d["kernel"], np.float32), device=device).to(torch.bfloat16))
-        self.register_buffer("dense_b", torch.as_tensor(
-            np.asarray(d["bias"], np.float32), device=device).to(torch.bfloat16))
+        self.dense = Dense(p["Dense_0"], device, dtype)
+
+    def tree(self) -> dict:
+        params, stats = export_layers({**{f"ConvBN_{i}": m for i, m in enumerate(self.trunk)},
+                                       "Dense_0": self.dense})
+        return {"params": params, "batch_stats": stats}
+
+    def load_tree(self, tree: dict) -> None:
+        copy_parameters(self, LandmarkNet(tree, "cpu", self.dtype))
 
     def forward(self, x: torch.Tensor) -> dict:
-        x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         for layer in self.trunk:
             x = layer(x)
-        # jnp.mean of bf16 sums in f32 and rounds the mean to bf16
-        pooled = x.to(torch.float32).mean(dim=(2, 3)).to(torch.bfloat16)
-        out = (torch.matmul(pooled, self.dense_w) + self.dense_b).to(torch.float32)
+        # jnp.mean sums in f32 and rounds the mean to the compute dtype
+        out = self.dense(mean_hw(x)).to(torch.float32)
         lm = out[:, : NUM_LANDMARKS * 3].reshape(-1, NUM_LANDMARKS, 3)
         xy = torch.sigmoid(lm[..., :2])
         return {"landmarks": torch.cat([xy, lm[..., 2:3]], dim=-1),

@@ -8,9 +8,9 @@ detail branch at /4 and three decoder blocks (nearest x2, crop to the
 skip, concat, two 3x3 ConvBNs) back to /2, then a nearest x2 to full
 resolution, the input concatenated, a 3x3 ConvBN and a 1x1 alpha head, f32
 sigmoid (one class) or f32 softmax over the K class channels (class 0 the
-background).  The reference's two auxiliary heads (the semantic and detail
-logits, used in training) feed nothing the alpha needs, so the port
-computes only the alpha.
+background); beside it the reference's two auxiliary heads, the semantic
+map at /16 (sigmoid or softmax) and the detail logits at /4, which the
+training loss reads.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from video_stream_segmenetation_tpu_torch.models.backbones import (
     Conv,
     ConvBN,
     MobileEncoder,
+    copy_parameters,
+    export_layers,
     nearest_x2,
     seeded_tree,
 )
@@ -91,55 +93,82 @@ def init_mattenet_params(seed: int, num_classes: int = 1) -> dict:
 
 
 class _DecoderBlock(torch.nn.Module):
-    def __init__(self, params: dict, stats: dict, device="cpu"):
+    def __init__(self, params: dict, stats: dict, device="cpu",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.c0 = ConvBN(params["ConvBN_0"], stats["ConvBN_0"], device=device)
-        self.c1 = ConvBN(params["ConvBN_1"], stats["ConvBN_1"], device=device)
+        self.c0 = ConvBN(params["ConvBN_0"], stats["ConvBN_0"], device=device, dtype=dtype)
+        self.c1 = ConvBN(params["ConvBN_1"], stats["ConvBN_1"], device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = nearest_x2(x)[:, :, : skip.shape[2], : skip.shape[3]]
         return self.c1(self.c0(torch.cat([x, skip], dim=1)))
 
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({"ConvBN_0": self.c0, "ConvBN_1": self.c1})
+
 
 class MatteNet(torch.nn.Module):
     """``[S, H, W, 3]`` f32 0..1 (H, W divisible by 16) -> ``{"alpha":
-    [S, H, W]}`` f32 in [0, 1], or with K class heads ``[S, H, W, K]``
-    softmax maps.  K is the tree's: its three heads must agree on it."""
+    [S, H, W], "semantic": [S, H/16, W/16], "detail": [S, H/4, W/4]}`` f32
+    (alpha and semantic sigmoids, detail logits), or with K class heads
+    each with a K axis last (alpha and semantic softmax maps).  K is the
+    tree's: its three heads must agree on it.  Layers compute in ``dtype``
+    (bf16, the reference's default, or f32); :meth:`tree` gives the
+    flax-named numpy tree, :meth:`load_tree` loads one in place."""
 
-    def __init__(self, tree: dict, device="cpu"):
+    def __init__(self, tree: dict, device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         p, st = tree["params"], tree["batch_stats"]
         heads = [p[n]["kernel"].shape[-1] for n in ("Conv_0", "Conv_1", "Conv_2")]
         if len(set(heads)) != 1:
             raise ValueError(f"MatteNet: the tree's semantic, detail and alpha heads have "
                              f"{heads} classes; they must agree")
-        self.num_classes = heads[0]
-        self.encoder = MobileEncoder(p["MobileEncoder_0"], st["MobileEncoder_0"], device)
-        self.easpp = EASPP(p["EASPP_0"], st["EASPP_0"], device)
+        self.num_classes, self.dtype = heads[0], dtype
+        self.encoder = MobileEncoder(p["MobileEncoder_0"], st["MobileEncoder_0"], device, dtype)
+        self.easpp = EASPP(p["EASPP_0"], st["EASPP_0"], device, dtype)
+        self.sem_head = Conv(p["Conv_0"], device, dtype)
         self.detail = torch.nn.ModuleList(
-            ConvBN(p[n], st[n], device=device) for n in ("ConvBN_0", "ConvBN_1"))
+            ConvBN(p[n], st[n], device=device, dtype=dtype) for n in ("ConvBN_0", "ConvBN_1"))
+        self.det_head = Conv(p["Conv_1"], device, dtype)
         self.decoder = torch.nn.ModuleList(
-            _DecoderBlock(p[f"_DecoderBlock_{i}"], st[f"_DecoderBlock_{i}"], device)
+            _DecoderBlock(p[f"_DecoderBlock_{i}"], st[f"_DecoderBlock_{i}"], device, dtype)
             for i in range(len(DECODER)))
-        self.fusion = ConvBN(p["ConvBN_2"], st["ConvBN_2"], device=device)
-        self.head = Conv(p["Conv_2"], device)
+        self.fusion = ConvBN(p["ConvBN_2"], st["ConvBN_2"], device=device, dtype=dtype)
+        self.head = Conv(p["Conv_2"], device, dtype)
+
+    def tree(self) -> dict:
+        params, stats = export_layers({
+            "MobileEncoder_0": self.encoder, "EASPP_0": self.easpp, "Conv_0": self.sem_head,
+            "ConvBN_0": self.detail[0], "ConvBN_1": self.detail[1], "Conv_1": self.det_head,
+            **{f"_DecoderBlock_{i}": b for i, b in enumerate(self.decoder)},
+            "ConvBN_2": self.fusion, "Conv_2": self.head})
+        return {"params": params, "batch_stats": stats}
+
+    def load_tree(self, tree: dict) -> None:
+        copy_parameters(self, MatteNet(tree, "cpu", self.dtype))
 
     def forward(self, x: torch.Tensor) -> dict:
         h, w = x.shape[1:3]
-        x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         f2, f4, f8, f16 = self.encoder(x)
         sem = self.easpp(f16)
+        sem_logit = self.sem_head(sem).to(torch.float32)
         d = torch.cat([f4, nearest_x2(sem, 2)[:, :, : f4.shape[2], : f4.shape[3]]], dim=1)
         for layer in self.detail:
             d = layer(d)
+        det = self.det_head(d).to(torch.float32)
         u = self.decoder[0](sem, f8)
         u = self.decoder[1](u, torch.cat([f4, d], dim=1))
         u = self.decoder[2](u, f2)
         u = torch.cat([nearest_x2(u)[:, :, :h, :w], x], dim=1)
         logit = self.head(self.fusion(u)).to(torch.float32)
         if self.num_classes == 1:
-            return {"alpha": torch.sigmoid(logit)[:, 0]}
-        return {"alpha": torch.softmax(logit, dim=1).permute(0, 2, 3, 1)}
+            return {"alpha": torch.sigmoid(logit)[:, 0], "semantic": torch.sigmoid(sem_logit)[:, 0],
+                    "detail": det[:, 0]}
+        last = (0, 2, 3, 1)
+        return {"alpha": torch.softmax(logit, dim=1).permute(*last),
+                "semantic": torch.softmax(sem_logit, dim=1).permute(*last),
+                "detail": det.permute(*last)}
 
 
 def matting_alpha(model: MatteNet, frames: torch.Tensor) -> torch.Tensor:

@@ -9,14 +9,14 @@ the skip, concat, a 3x3 ConvBN, a ConvGRU) back to /2; nearest x2, the
 downsampled input concatenated, a 3x3 ConvBN and a 1x1 head give the
 low-resolution alpha (f32 sigmoid); it is upsampled half-pixel bilinear
 to the input and refined by two 3x3 convs over the input and itself,
-clipped to [0, 1].  Everything computes in bf16, as flax's
-``dtype=bfloat16`` with f32 parameters does.
+clipped to [0, 1].  Everything computes in the compute dtype (bf16, as
+flax's ``dtype=bfloat16`` with f32 parameters does, or f32).
 
 The recurrent state is four NHWC f32 tensors r1..r4 at /2, /4, /8, /16 of
 the downsampled input with :data:`REC_CHANNELS` channels (the reference's
 ``RecurrentState``, here a plain tuple so that it rides
-``StreamState.rec``); each GRU casts its state to bf16 and the new state
-goes back to f32.
+``StreamState.rec``); each GRU casts its state to the compute dtype and
+the new state goes back to f32.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from video_stream_segmenetation_tpu_torch.models.backbones import (
     Conv,
     ConvBN,
     MobileEncoder,
+    copy_parameters,
+    export_layers,
     nearest_x2,
     seeded_tree,
 )
@@ -93,16 +95,20 @@ def init_rvm_params(seed: int) -> dict:
 
 
 class ConvGRU(torch.nn.Module):
-    """Convolutional GRU in bf16: ``z, r = sigmoid(conv([x, h]))``,
+    """Convolutional GRU in ``dtype``: ``z, r = sigmoid(conv([x, h]))``,
     ``cand = tanh(conv([x, r h]))``, ``h' = (1 - z) h + z cand``.  NCHW."""
 
-    def __init__(self, params: dict, device="cpu"):
+    def __init__(self, params: dict, device="cpu", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.zr = Conv(params["Conv_0"], device)
-        self.cand = Conv(params["Conv_1"], device)
+        self.dtype = dtype
+        self.zr = Conv(params["Conv_0"], device, dtype)
+        self.cand = Conv(params["Conv_1"], device, dtype)
+
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({"Conv_0": self.zr, "Conv_1": self.cand})
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        h = h.to(torch.bfloat16)
+        h = h.to(self.dtype)
         z, r = torch.sigmoid(self.zr(torch.cat([x, h], dim=1))).chunk(2, dim=1)
         cand = torch.tanh(self.cand(torch.cat([x, r * h], dim=1)))
         return (1 - z) * h + z * cand
@@ -111,24 +117,40 @@ class ConvGRU(torch.nn.Module):
 class RecurrentMatteNet(torch.nn.Module):
     """``(x [S, H, W, 3] f32 0..1, state (r1, r2, r3, r4)) -> {"alpha":
     [S, H, W] f32 in [0, 1], "alpha_small": [S, dH, dW] f32, "state": the
-    new (r1..r4) f32}``."""
+    new (r1..r4) f32}``.  Layers compute in ``dtype`` (bf16, the
+    reference's default, or f32); :meth:`tree` gives the flax-named numpy
+    tree, :meth:`load_tree` loads one in place."""
 
-    def __init__(self, tree: dict, device="cpu", downsample_ratio: float = DOWNSAMPLE_RATIO):
+    def __init__(self, tree: dict, device="cuda", downsample_ratio: float = DOWNSAMPLE_RATIO,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         p, st = tree["params"], tree["batch_stats"]
-        self.downsample_ratio = downsample_ratio
-        self.encoder = MobileEncoder(p["MobileEncoder_0"], st["MobileEncoder_0"], device)
+        self.downsample_ratio, self.dtype = downsample_ratio, dtype
+        self.encoder = MobileEncoder(p["MobileEncoder_0"], st["MobileEncoder_0"], device, dtype)
         self.convbn = torch.nn.ModuleList(
-            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], device=device) for i in range(5))
-        self.gru = torch.nn.ModuleList(ConvGRU(p[f"ConvGRU_{i}"], device) for i in range(4))
-        self.head = Conv(p["Conv_0"], device)
-        self.refine = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device) for i in (1, 2))
+            ConvBN(p[f"ConvBN_{i}"], st[f"ConvBN_{i}"], device=device, dtype=dtype)
+            for i in range(5))
+        self.gru = torch.nn.ModuleList(ConvGRU(p[f"ConvGRU_{i}"], device, dtype)
+                                       for i in range(4))
+        self.head = Conv(p["Conv_0"], device, dtype)
+        self.refine = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device, dtype) for i in (1, 2))
+
+    def tree(self) -> dict:
+        params, stats = export_layers({
+            "MobileEncoder_0": self.encoder,
+            **{f"ConvBN_{i}": m for i, m in enumerate(self.convbn)},
+            **{f"ConvGRU_{i}": m for i, m in enumerate(self.gru)},
+            "Conv_0": self.head, "Conv_1": self.refine[0], "Conv_2": self.refine[1]})
+        return {"params": params, "batch_stats": stats}
+
+    def load_tree(self, tree: dict) -> None:
+        copy_parameters(self, RecurrentMatteNet(tree, "cpu", self.downsample_ratio, self.dtype))
 
     def forward(self, x: torch.Tensor, state) -> dict:
         s, h, w, _ = x.shape
         dh, dw = _down_hw((h, w), self.downsample_ratio)
         x32 = x.to(torch.float32)
-        small = resize_bilinear(x32, (dh, dw), method="half_pixel").to(torch.bfloat16)
+        small = resize_bilinear(x32, (dh, dw), method="half_pixel").to(self.dtype)
         small = small.permute(0, 3, 1, 2)
         f2, f4, f8, f16 = self.encoder(small)
         rec = [r.permute(0, 3, 1, 2) for r in state]
@@ -146,7 +168,7 @@ class RecurrentMatteNet(torch.nn.Module):
         # full resolution: bilinear upsample + a guided refinement conv
         alpha_up = resize_bilinear(alpha_small, (h, w), method="half_pixel",
                                    channel_last=False)
-        guide = torch.cat([x32, alpha_up[..., None]], dim=-1).to(torch.bfloat16)
+        guide = torch.cat([x32, alpha_up[..., None]], dim=-1).to(self.dtype)
         res = self.refine[1](torch.relu(self.refine[0](guide.permute(0, 3, 1, 2))))
         alpha = torch.clamp(alpha_up + res.to(torch.float32)[:, 0], 0.0, 1.0)
         r4, r3, r2, r1 = (t.permute(0, 2, 3, 1).to(torch.float32) for t in new)

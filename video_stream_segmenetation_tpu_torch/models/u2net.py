@@ -7,7 +7,8 @@ between them (SAME padding: an odd size pads its high edge), three RSU
 decoder blocks over ``concat(nearest_x2(below) cropped, skip)``, a 3x3
 side logit at each decoder level and at the bottom, nearest-upsampled to
 the input and cropped, and a 1x1 conv over the four side logits in f32,
-then sigmoid.  bf16 compute elsewhere, as flax's ``dtype=bfloat16``.
+then sigmoid.  The compute dtype elsewhere (bf16, as flax's
+``dtype=bfloat16``, or f32).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch.nn.functional as F
 from video_stream_segmenetation_tpu_torch.models.backbones import (
     Conv,
     ConvBN,
+    copy_parameters,
+    export_layers,
     nearest_x2,
     seeded_tree,
 )
@@ -80,13 +83,17 @@ class RSU(torch.nn.Module):
     """Residual U-block: an inner encoder-decoder at the block's scale,
     plus the input conv's output."""
 
-    def __init__(self, params: dict, stats: dict, depth: int, device="cpu"):
+    def __init__(self, params: dict, stats: dict, depth: int, device="cpu",
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.depth = depth
         self.convs = torch.nn.ModuleList(
             ConvBN(params[f"ConvBN_{i}"], stats[f"ConvBN_{i}"], device=device,
-                   dilation=2 if i == depth + 1 else 1)
+                   dilation=2 if i == depth + 1 else 1, dtype=dtype)
             for i in range(2 * depth + 3))
+
+    def export(self) -> tuple[dict, dict]:
+        return export_layers({f"ConvBN_{i}": m for i, m in enumerate(self.convs)})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.depth
@@ -104,20 +111,33 @@ class RSU(torch.nn.Module):
 
 class SaliencyNet(torch.nn.Module):
     """``[S, H, W, 3]`` f32 0..1 (320x320 canonical) -> ``{"alpha": [S, H,
-    W] f32 (sigmoid), "side": the four side outputs (sigmoid)}``."""
+    W] f32 (sigmoid), "side": the four side outputs (sigmoid)}``.  Layers
+    compute in ``dtype`` (bf16, the reference's default, or f32), the fused
+    1x1 in f32; :meth:`tree` gives the flax-named numpy tree,
+    :meth:`load_tree` loads one in place."""
 
-    def __init__(self, tree: dict, device="cpu"):
+    def __init__(self, tree: dict, device="cuda", dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         p, st = tree["params"], tree["batch_stats"]
+        self.dtype = dtype
         self.rsu = torch.nn.ModuleList(
-            RSU(p[f"RSU_{i}"], st[f"RSU_{i}"], plan[0], device)
+            RSU(p[f"RSU_{i}"], st[f"RSU_{i}"], plan[0], device, dtype)
             for i, plan in enumerate(RSU_PLAN))
-        self.side = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device) for i in range(4))
+        self.side = torch.nn.ModuleList(Conv(p[f"Conv_{i}"], device, dtype) for i in range(4))
         self.fuse = Conv(p["Conv_4"], device, dtype=torch.float32)
+
+    def tree(self) -> dict:
+        params, stats = export_layers({**{f"RSU_{i}": m for i, m in enumerate(self.rsu)},
+                                       **{f"Conv_{i}": m for i, m in enumerate(self.side)},
+                                       "Conv_4": self.fuse})
+        return {"params": params, "batch_stats": stats}
+
+    def load_tree(self, tree: dict) -> None:
+        copy_parameters(self, SaliencyNet(tree, "cpu", self.dtype))
 
     def forward(self, x: torch.Tensor) -> dict:
         h, w = x.shape[1:3]
-        x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         e1 = self.rsu[0](x)
         e2 = self.rsu[1](max_pool_same(e1))
         e3 = self.rsu[2](max_pool_same(e2))

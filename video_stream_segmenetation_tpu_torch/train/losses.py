@@ -19,7 +19,7 @@ from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear
 from video_stream_segmenetation_tpu_torch.runtime import config as cfg
 
 
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: the maximum with ``lo``, then the minimum with ``hi``."""
     lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
     hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
@@ -111,7 +111,7 @@ def make_pipeline_loss(model, base_weight: float = 0.3, w_l1: float = 1.0,
             r, guide, torch.full((s,), cfg.DEFAULT_BILATERAL_SIGMA_SPATIAL, device=a.device),
             torch.full((s,), cfg.DEFAULT_BILATERAL_SIGMA_RANGE, device=a.device))
         low, high = cfg.DEFAULT_NOISE_CUTOFF, cfg.DEFAULT_HIGH_THRESHOLD
-        norm = _clip((r - low) / (high - low), 0.0, 1.0)
+        norm = clip((r - low) / (high - low), 0.0, 1.0)
         floor = torch.full((), 1e-6, device=a.device)
         r = torch.pow(torch.maximum(norm, floor), cfg.DEFAULT_GAMMA)
         l1 = torch.abs(r - gt).mean()

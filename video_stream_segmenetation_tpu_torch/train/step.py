@@ -19,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
 
 
@@ -113,23 +114,66 @@ def make_train_step(model: torch.nn.Module, tx: ClipAdamW,
     """``train_step(state, frames [B, H, W, 3], alpha_gt [B, H, W]) ->
     (state, metrics)``.  ``loss_fn(frames, alpha_gt) -> (loss, metrics)``
     overrides the default matting loss of ``model``'s outputs (e.g.
-    losses.make_pipeline_loss: backprop through the serving refine chain).
-    The metrics carry ``grad_norm``, the gradients' global norm before
+    losses.make_pipeline_loss: backprop through the serving refine chain);
+    ``train_step(state, *args)`` passes its arguments after the state to
+    ``loss_fn`` as they are (the other trainers: a generator).  The
+    metrics carry ``grad_norm``, the gradients' global norm before
     clipping."""
     if loss_fn is None:
         def loss_fn(frames, alpha_gt):
             return matting_loss(model(frames), alpha_gt, frames)
 
-    def train_step(state: TrainState, frames: torch.Tensor, alpha_gt: torch.Tensor):
+    def train_step(state: TrainState, *args):
         names = list(state.params)
         with torch.enable_grad():
-            loss, metrics = loss_fn(frames, alpha_gt)
-            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-        grads = dict(zip(names, grads))
+            loss, metrics = loss_fn(*args)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names],
+                                        allow_unused=True)
+        # a leaf the loss does not read (a head it ignores) has a zero
+        # gradient, as jax.grad gives it, and still decays
+        grads = {k: torch.zeros_like(state.params[k]) if g is None else g
+                 for k, g in zip(names, grads)}
         updates, opt_state = tx.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
         metrics["grad_norm"] = global_norm(grads)
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def train_steps(model: torch.nn.Module, loss_fn: Callable, steps: int, lr: float,
+                seed: int = 1):
+    """Train every parameter of ``model`` in place (made trainable, its
+    BatchNorm statistics included) with :class:`ClipAdamW` at ``lr`` for
+    ``steps`` steps; ``loss_fn(generator) -> (loss, metrics)`` draws each
+    step's batch on a ``torch.Generator`` on the model's device seeded
+    with ``seed`` (the loop of the reference's face and variant trainers,
+    ``tools/train_face.py:111-151``, ``tools/train_variants.py:43-63``).
+    Yields ``(i, metrics)`` after each step (device tensors: the loss
+    metrics, ``loss`` and ``grad_norm``); the steps run under
+    runtime/precision.py::pinned."""
+    model.requires_grad_(True)
+    tx = make_optimizer(lr)
+    state, _ = init_train_state(model, tx)
+    step = make_train_step(model, tx, loss_fn)
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    with pinned():
+        for i in range(steps):
+            state, metrics = step(state, gen)
+            yield i, metrics
+
+
+def reset_peak(device) -> None:
+    """Reset the card's peak-memory counter (no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_mib(device) -> float | None:
+    """The card's peak allocated memory since :func:`reset_peak`, MiB (None
+    on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**20

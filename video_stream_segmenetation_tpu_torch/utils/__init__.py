@@ -15,6 +15,7 @@ from video_stream_segmenetation_tpu_torch.utils.profiling import (  # noqa: F401
 )
 from video_stream_segmenetation_tpu_torch.utils.clips import (  # noqa: F401
     SyntheticClip,
+    articulated_clip,
     load_reference_masks,
     mask_iou,
     parity_report,
