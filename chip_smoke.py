@@ -183,7 +183,23 @@ Phases, each announced by one line on stdout:
      detector (256) and landmark graph (192), the int8 and the bf16
      FaceFinder and LandmarkNet (128), and the MediaPipe graphs on the card
      against the CPU on two of those streams;
-  48. rollout (runtime/rollout.py): on Engine(64, fast_int8_pico), trained
+  48. mesh (parallel/mesh.py): Engine(64, fast_int8_pico, mesh=
+     make_mesh(4, devices=[cuda:0] * 4)) against Engine(64) on the trained
+     weights and committed frames, face_min_interval_s=0, 8 steps (process,
+     then dispatch/collect): face_applied equal, frames within one u8 step
+     on all but 0.1 % of the pixels, alpha and prev_alpha within 2e-2 (the
+     reference's mesh bars), the trunk and the refine kernel 4 times the
+     one-device engine's launches; the fused rotation in groups [24, 24,
+     16] over both engines, 3 rounds held group by group (5 pieces a round
+     on the mesh), then one more mesh round under
+     set_sync_debug_mode('error'); fit(mesh=...) of the pico at its widths
+     in f32, 240x320 batch 32, against one device (one step's loss within
+     1e-4 relative and summed gradients' least leaf cosine MESH_GRAD_COS,
+     5 steps' losses within 1e-4 relative); graft_entry.
+     dryrun_multichip(4); with several cards the engine and fit again with
+     one shard a card (with one, the phase says that form was not run);
+     the step and round medians (host clock) beside one device's;
+  49. rollout (runtime/rollout.py): on Engine(64, fast_int8_pico), trained
      weights and the committed frames, a step rollout of 4 steps against 4
      sequential make_step calls on the same tagged frames (state and both
      buffers bit for bit; the trunk and the refine kernel 4 times), then
@@ -194,11 +210,11 @@ Phases, each announced by one line on stdout:
      rollout of 3 rounds under set_sync_debug_mode('error') against 3
      sequential round steps (bit for bit; the trunk and the fast refine
      once a group a round), then its slope between 1 and 3 rounds (3 reps);
-  49. snapshot: Engine(64, fast_int8_pico) saved after 3 steps
+  50. snapshot: Engine(64, fast_int8_pico) saved after 3 steps
      (utils/checkpoint.py), restored into a fresh engine of another seed,
      both stepped 4 times on the same frames (the last a face cadence
      step): state and outputs bit for bit;
-  50. train: the plan-D pico MatteNetHD at its full widths, fit on the
+  51. train: the plan-D pico MatteNetHD at its full widths, fit on the
      card with tools/train_flagship.py's schedule at fewer steps (20 at
      240x320 batch 32, then 5 at 720x1280 batch 8), every loss and
      grad_norm finite and every leaf moved; one step's forward and
@@ -207,7 +223,7 @@ Phases, each announced by one line on stdout:
      leaf, quantized by the port's quantizer and served one step of
      Engine(8, fast_int8_pico, face_path=False) through the CUDA trunk;
      it prints ms a step (CUDA events) and the peak memory;
-  51. train_zoo: every trainer of train/ at its full widths and the
+  52. train_zoo: every trainer of train/ at its full widths and the
      reference's geometry and batch, a few steps: the FaceFinder (FD 128)
      and the LandmarkNet (LMK 128) on 288x512 scenes, batch 32, 20 steps
      each (train/face_trainer.py); the RecurrentMatteNet (288x512, batch
@@ -218,7 +234,7 @@ Phases, each announced by one line on stdout:
      5 steps of pretraining and 3 of fine-tuning (train/flagship.py's
      rows through train/loop.py::fit).  Each: losses finite, every leaf
      moved (BatchNorm statistics included), one step's loss and gradients
-     on the card against the CPU at phase 50's bars, ms a step (CUDA
+     on the card against the CPU at phase 51's bars, ms a step (CUDA
      events) and the peak memory; then each trained tree serves 2 steps of
      Engine(8) at 720p on the committed frames with no passthrough: the
      face pair in fast_int8_pico (its face models run), the MatteNet in
@@ -1785,7 +1801,7 @@ def rotation(device, sizes, overrides, rounds: int, fused: bool = True,
         t0 = time.perf_counter()
         host = [sched._group_frames(offs[g], offs[g + 1])[0] for g in range(len(sizes))]
         t1 = time.perf_counter()
-        step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g])[1]
+        step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g], i0=offs[g])[1]
                        for g, f in enumerate(host)]
         sync()
         t2 = time.perf_counter()
@@ -2069,6 +2085,345 @@ def phase_refface_round(device, sizes=(24, 24, 16), rounds=2) -> dict:
     return out
 
 
+# the mesh phase: MESH_N virtual shards of the card (and, with several
+# cards, one shard a card); the reference's mesh bars (tests/
+# test_parallel_train.py:90-91, tests/test_mesh_rotation.py:65)
+MESH_N = 4
+MESH_STEPS = 8
+MESH_SIZES = (24, 24, 16)
+MESH_ROUNDS = 3
+MESH_FRAME_STEP, MESH_FRAME_SHARE, MESH_STATE_TOL = 1, 1e-3, 2e-2
+MESH_FIT = {"hw": (240, 320), "batch": 32, "steps": 5, "lr": 5e-4, "log_every": 1}
+MESH_LOSS_RTOL = 1e-4
+# (c)'s one-step check: the data-parallel step's loss and summed gradients
+# against the one-device step's, same tree and batch (f32, TF32 off).  On
+# the H100 the least leaf cosine read 1 - 1.8e-12 over 2, 4 and 8 virtual
+# shards (PERF.md section 6, PR 20); the bar leaves five orders of margin
+# and still catches another loss (a mean of per-shard losses).  The trees
+# after MESH_FIT's five Adam steps are printed only: leaves that start at
+# zero take Adam's sign-like first steps from gradients near zero, so
+# their cosine reads the summation order's noise
+MESH_GRAD_COS = 1 - 1e-7
+MESH_SERVED = ("trunk_int8", "refine_fused")
+
+
+def dp_grad_gap(mesh, card, hw, batch: int, seed: int = 0) -> dict:
+    """One training step's gradients over ``mesh``
+    (train/step.py::make_dp_train_step's ``grads``: the whole batch's loss,
+    the replicas' gradients summed in shard order) against the one-device
+    step's, for the plan-D pico at its widths in f32 on the seeded tree of
+    ``seed`` and one synthetic batch: ``{"loss_rel", "min_cos", "leaf"}``,
+    the least leaf cosine and its leaf (a leaf zero on both sides counts
+    as equal)."""
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+    from video_stream_segmenetation_tpu_torch.train.loop import (
+        seeded_tree,
+        synthetic_matting_batch,
+    )
+    from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
+    from video_stream_segmenetation_tpu_torch.train.step import (
+        make_dp_train_step,
+        make_optimizer,
+    )
+
+    models = []
+    for _ in range(2):
+        m = MatteNetHD(10, 4, "pico", dtype=torch.float32, device=card)
+        m.load_tree(seeded_tree(m, seed))
+        m.requires_grad_(True)
+        models.append(m)
+    frames, gt = synthetic_matting_batch(torch.Generator(device=card).manual_seed(seed),
+                                         batch, hw)
+    named = list(models[0].named_parameters())
+    with pinned():
+        with torch.enable_grad():
+            loss1, _ = matting_loss(models[0](frames), gt, frames)
+            g1 = torch.autograd.grad(loss1, [p for _, p in named], allow_unused=True)
+        lossm, _, gm = make_dp_train_step(models[1], make_optimizer(), mesh, batch).grads(
+            frames, gt)
+    coss = {}
+    for (k, p), a in zip(named, g1):
+        a = (torch.zeros_like(p) if a is None else a).double().flatten()
+        b = gm[k].double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        coss[k] = 1.0 if na == nb == 0 else float(a @ b) / max(na * nb, 1e-300)
+    leaf = min(coss, key=coss.get)
+    lossm, loss1 = float(lossm.detach()), float(loss1.detach())
+    return {"loss_rel": abs(lossm - loss1) / abs(loss1),
+            "min_cos": coss[leaf], "leaf": leaf}
+
+
+def _mesh_gap(got: dict, want: dict, what: str) -> dict:
+    """One result against another within the mesh bars: face_applied equal,
+    frames within one u8 step on all but 0.1 % of the pixels, alpha within
+    MESH_STATE_TOL."""
+    if not torch.equal(got["face_applied"].cpu(), want["face_applied"].cpu()):
+        raise AssertionError(f"mesh {what}: face_applied differs")
+    d = (got["frame"].to(torch.int32) - want["frame"].to(torch.int32)).abs()
+    gap = {"frame_max": int(d.max().item()), "frame_share": float((d > 0).float().mean()),
+           "alpha": float((got["alpha"].float() - want["alpha"].float()).abs().max())}
+    if (gap["frame_max"] > MESH_FRAME_STEP or gap["frame_share"] >= MESH_FRAME_SHARE
+            or gap["alpha"] > MESH_STATE_TOL):
+        raise AssertionError(f"mesh {what}: {gap}")
+    return gap
+
+
+def _tree_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v for k, sub in tree.items()
+                for k2, v in _tree_leaves(sub, f"{prefix}/{k}").items()}
+    return {prefix: np.asarray(tree, np.float64)}
+
+
+def phase_mesh(device) -> dict:
+    """Engine(mesh=...) and fit(mesh=...) (parallel/mesh.py) on the card:
+    (a) Engine(S, fast_int8_pico, mesh of MESH_N virtual shards) against
+    Engine(S) on the committed frames and trained weights, face_min_interval
+    0, MESH_STEPS steps (process, then dispatch/collect): face_applied equal,
+    frames and alpha within the mesh bars, the trunk and the refine kernel
+    exactly MESH_N times the one-device engine's launches; (b) the fused
+    rotation StreamScheduler(group_sizes=MESH_SIZES) over the same two
+    engines (the native pool), MESH_ROUNDS rounds, held group by group, the
+    kernels once a piece (a group's part of a shard), then one more mesh
+    round under set_sync_debug_mode('error'); (c) the plan-D pico at its
+    widths in f32 over the mesh against one device from the same seed: one
+    step's loss within MESH_LOSS_RTOL and summed gradients' least leaf
+    cosine MESH_GRAD_COS (:func:`dp_grad_gap`), then fit's MESH_FIT losses
+    within MESH_LOSS_RTOL (the trees' least leaf cosine printed); (d)
+    graft_entry.dryrun_multichip(MESH_N).  With several
+    cards (a) and (c) run again with one shard a card."""
+    from video_stream_segmenetation_tpu_torch import bridge, graft_entry
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
+    from video_stream_segmenetation_tpu_torch.parallel import make_mesh
+    from video_stream_segmenetation_tpu_torch.runtime.scheduler import StreamScheduler
+    from video_stream_segmenetation_tpu_torch.train.loop import fit
+
+    counters = _counters()
+    card = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    meshes = {"virtual": make_mesh(MESH_N, devices=[card] * MESH_N)}
+    count_cards = torch.cuda.device_count() if device == "cuda" else 1
+    if count_cards >= 2:
+        meshes["cards"] = make_mesh(devices=[torch.device("cuda", i)
+                                             for i in range(count_cards)])
+    clip, _ = bridge.load_frames()
+    batches = [np.ascontiguousarray(clip[(np.arange(S) + t) % 2]) for t in range(2)]
+    out = {"launches": {k: 0 for k in counters}, "meshes": list(meshes)}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def count(fn):
+        for c in counters.values():
+            c.launches = 0
+        r = fn()
+        got = {k: c.launches for k, c in counters.items()}
+        for k, v in got.items():
+            out["launches"][k] += v
+        return r, got
+
+    def serve(eng):
+        res, ms = [], []
+        for t in range(MESH_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            if t < MESH_STEPS // 2:
+                r = eng.process(batches[t % 2])
+            else:
+                r = eng.collect(eng.dispatch(batches[t % 2]))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if r["passthrough"]:
+                raise AssertionError(f"mesh: a passthrough step: {eng.stats()['health']}")
+            res.append({k: r[k] for k in ("frame", "alpha", "face_applied")})
+        return res, ms
+
+    # ---- (a) Engine(mesh) against one device
+    engines, served = {}, {}
+    for name, mesh in (("one", None), *meshes.items()):
+        eng = _pico_engine(device, S, mesh=mesh)
+        eng.face_min_interval_s = 0.0
+        engines[name] = eng
+        served[name] = count(lambda eng=eng: serve(eng))
+    (one_res, one_ms), one_launch = served["one"]
+    # a CPU rehearsal runs the plain versions: no launches there
+    on_card = device != "cpu"
+    a = {}
+    for name in meshes:
+        (res, ms), launch = served[name]
+        n = len(meshes[name].data_devices)
+        for counter, got in launch.items():
+            want = n * one_launch[counter]
+            steps = MESH_STEPS if on_card and counter in MESH_SERVED else 0
+            if got != want or one_launch[counter] != steps:
+                raise AssertionError(f"mesh ({name}): {counter} launched {got} times, the "
+                                     f"one-device engine {one_launch[counter]}")
+        gaps = [_mesh_gap(g, w, f"({name}) step {t}")
+                for t, (g, w) in enumerate(zip(res, one_res))]
+        st, st1 = engines[name].state, engines["one"].state
+        if not torch.equal(st.frame_idx, st1.frame_idx):
+            raise AssertionError(f"mesh ({name}): frame_idx differs")
+        prev = float((st.prev_alpha - st1.prev_alpha).abs().max())
+        if prev > MESH_STATE_TOL:
+            raise AssertionError(f"mesh ({name}): prev_alpha {prev}")
+        a[name] = {"launches": launch, "frame_max": max(g["frame_max"] for g in gaps),
+                   "frame_share": max(g["frame_share"] for g in gaps),
+                   "alpha": max(g["alpha"] for g in gaps), "prev_alpha": prev,
+                   "applied": int(sum(int(g["face_applied"].sum()) for g in res)),
+                   "process_ms": statistics.median(ms[:MESH_STEPS // 2]),
+                   "dispatch_ms": statistics.median(ms[MESH_STEPS // 2:])}
+    out["a"] = a
+    out["one"] = {"launches": one_launch, "process_ms": statistics.median(
+        one_ms[:MESH_STEPS // 2]), "dispatch_ms": statistics.median(one_ms[MESH_STEPS // 2:])}
+
+    # ---- (b) the fused rotation over the same engines
+    sizes = list(MESH_SIZES)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    rounds, rms = {}, {}
+    for name in ("one", "virtual"):
+        eng = engines[name]
+        sched = StreamScheduler(eng, group_sizes=sizes, fused_rounds=True)
+        if sched.pool is None:
+            raise AssertionError(f"mesh: the native FramePool did not build "
+                                 f"({sched.pool_error!r})")
+
+        def drive(sched=sched):
+            got, ms = [], []
+            for r in range(MESH_ROUNDS):
+                for s in range(S):
+                    sched.push_frame(s, clip[(s + r) % 2])
+                sync()
+                t0 = time.perf_counter()
+                res = sched.step_round()
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got.extend(res or [])
+            got.extend(sched.drain())
+            return got, ms
+
+        (got, ms), launch = count(drive)
+        rounds[name], rms[name] = (got, launch, sched), ms
+    pieces = sum(len(engines["virtual"]._pieces(offs[g], offs[g + 1]))
+                 for g in range(len(sizes)))
+    for counter in counters:
+        want = {"one": len(sizes), "virtual": pieces}
+        for name in ("one", "virtual"):
+            got = rounds[name][1][counter]
+            expect = want[name] * MESH_ROUNDS if on_card and counter in MESH_SERVED else 0
+            if got != expect:
+                raise AssertionError(f"mesh rotation ({name}): {counter} launched {got} "
+                                     f"times, expected {expect}")
+    gaps = []
+    for i, (g, w) in enumerate(zip(rounds["virtual"][0], rounds["one"][0])):
+        if g["slots"] != w["slots"] or g["passthrough"] or w["passthrough"]:
+            raise AssertionError(f"mesh rotation: result {i} slots {g['slots']} vs "
+                                 f"{w['slots']}, passthrough {g['passthrough']}")
+        gaps.append(_mesh_gap(g, w, f"rotation result {i}"))
+    st, st1 = engines["virtual"].state, engines["one"].state
+    prev = float((st.prev_alpha - st1.prev_alpha).abs().max())
+    if not torch.equal(st.frame_idx, st1.frame_idx) or prev > MESH_STATE_TOL:
+        raise AssertionError(f"mesh rotation: state departs (prev_alpha {prev})")
+    # one more mesh round, its step under set_sync_debug_mode('error')
+    eng, sched = engines["virtual"], rounds["virtual"][2]
+    for s in range(S):
+        sched.push_frame(s, clip[s % 2])
+    host = [sched._group_frames(offs[g], offs[g + 1])[0] for g in range(len(sizes))]
+    step_frames = [eng._ingest(f, rows=offs[g + 1] - offs[g], i0=offs[g])[1]
+                   for g, f in enumerate(host)]
+    sync()
+    eng._dispatches = 0
+    if device != "cpu":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.round_step(sizes, step_frames, time.monotonic())
+    finally:
+        if device != "cpu":
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    for name in ("one", "virtual"):
+        rounds[name][2].stop()
+    out["b"] = {"pieces": pieces, "launches": {n: rounds[n][1] for n in rounds},
+                "frame_max": max(g["frame_max"] for g in gaps),
+                "frame_share": max(g["frame_share"] for g in gaps),
+                "alpha": max(g["alpha"] for g in gaps), "prev_alpha": prev,
+                "round_ms": {n: statistics.median(rms[n]) for n in rms}}
+    del engines, rounds, sched, eng
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    # ---- (c) fit over the mesh against one device
+    fits = {}
+    for name, mesh in (("one", None), *meshes.items()):
+        model = MatteNetHD(10, 4, "pico", dtype=torch.float32, device=card)
+        sync()
+        t0 = time.perf_counter()
+        tree, hist = fit(model, mesh=mesh, seed=0, **MESH_FIT)
+        sync()
+        fits[name] = (tree, hist, time.perf_counter() - t0)
+    c = {}
+    for name, mesh in meshes.items():
+        grad = dp_grad_gap(mesh, card, MESH_FIT["hw"], MESH_FIT["batch"])
+        if grad["loss_rel"] > MESH_LOSS_RTOL or grad["min_cos"] < MESH_GRAD_COS:
+            raise AssertionError(f"mesh step ({name}) against one device: {grad}")
+        tree, hist, wall = fits[name]
+        tree1, hist1, _ = fits["one"]
+        rel = max(abs(h["loss"] - h1["loss"]) / abs(h1["loss"]) for h, h1 in zip(hist, hist1))
+        l1 = _tree_leaves(tree1)
+        cos = min(float(np.dot(v.ravel(), l1[k].ravel())
+                        / max(np.linalg.norm(v) * np.linalg.norm(l1[k]), 1e-30))
+                  for k, v in _tree_leaves(tree).items())
+        if len(hist) != MESH_FIT["steps"] or rel > MESH_LOSS_RTOL:
+            raise AssertionError(f"mesh fit ({name}): loss relative {rel}")
+        c[name] = {"grad": grad, "loss_rel": rel, "min_cos": cos, "wall_s": wall,
+                   "losses": [h["loss"] for h in hist], "iou": hist[-1]["iou"]}
+    out["c"] = c
+    out["c_one"] = {"wall_s": fits["one"][2], "losses": [h["loss"] for h in fits["one"][1]]}
+
+    # ---- (d) the dry run of the reference's entry point
+    out["d"] = graft_entry.dryrun_multichip(MESH_N, None if device == "cuda"
+                                            else [card] * MESH_N)
+    return out
+
+
+def say_mesh(ms: dict, smi: str, count: int) -> None:
+    """Print the mesh phase's result lines."""
+    for name, r in ms["a"].items():
+        say(f"  mesh (a, {name}): face_applied equal on every step ({r['applied']} "
+            f"applications), frames within {r['frame_max']} u8 step on all but "
+            f"{r['frame_share']:.2e} of the pixels (bars {MESH_FRAME_STEP}, "
+            f"{MESH_FRAME_SHARE:g}), alpha {r['alpha']:.3e}, prev_alpha {r['prev_alpha']:.3e} "
+            f"(tolerance {MESH_STATE_TOL:g}); launches "
+            + ", ".join(f"{c} {r['launches'][c]} vs {ms['one']['launches'][c]}"
+                        for c in MESH_SERVED)
+            + f" (one device); median step (host clock, synchronized) process "
+            f"{r['process_ms']:.2f} ms vs {ms['one']['process_ms']:.2f} ms one device, "
+            f"dispatch/collect {r['dispatch_ms']:.2f} ms vs {ms['one']['dispatch_ms']:.2f} ms; "
+            f"{smi}")
+    if "cards" not in ms["meshes"]:
+        say(f"  mesh: the distinct-card form of (a) and (c) was not run: device_count={count}")
+    b = ms["b"]
+    say(f"  mesh (b): {b['pieces']} pieces a round on the mesh (3 groups on one device), "
+        f"every group's result within the bars (frames {b['frame_max']} u8 step, share "
+        f"{b['frame_share']:.2e}, alpha {b['alpha']:.3e}), prev_alpha {b['prev_alpha']:.3e}; "
+        f"launches " + ", ".join(f"{n}: " + ", ".join(f"{c} {b['launches'][n][c]}"
+                                                      for c in MESH_SERVED)
+                                 for n in b["launches"])
+        + f"; the checked round made no host synchronisation; median step_round call "
+        f"{b['round_ms']['virtual']:.2f} ms mesh vs {b['round_ms']['one']:.2f} ms one device "
+        f"(host clock, synchronized); {smi}")
+    for name, r in ms["c"].items():
+        g = r["grad"]
+        say(f"  mesh (c, {name}): one step's loss relative {g['loss_rel']:.2e} (tolerance "
+            f"{MESH_LOSS_RTOL:g}), summed gradients' least leaf cosine {g['min_cos']:.9f} "
+            f"({g['leaf']}; at least {MESH_GRAD_COS}); fit losses "
+            f"{[round(v, 5) for v in r['losses']]} vs one device "
+            f"{[round(v, 5) for v in ms['c_one']['losses']]}, largest relative "
+            f"{r['loss_rel']:.2e} (tolerance {MESH_LOSS_RTOL:g}), the trees' least leaf cosine "
+            f"{r['min_cos']:.6f} (a reading, no bar), IoU {r['iou']:.4f}; "
+            f"{r['wall_s']:.1f} s vs {ms['c_one']['wall_s']:.1f} s")
+    say(f"  mesh (d): dryrun_multichip({MESH_N}) {ms['d']}")
+
 # the step rollout: fast_int8_pico at S streams, a parity chain of
 # ROLL_PARITY_N steps, slopes at (ROLL_N1, ROLL_N2) over ROLL_REPS paired
 # reps; the round rollout: the production rotation (ROTATION, FAST_ROUTE),
@@ -2144,7 +2499,7 @@ def phase_rollout(device) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     out["process_ms"] = times
-    fj = eng._ingest(frames)[1]
+    fj = eng._ingest(frames)[1][0]
     gate = torch.ones((S,), dtype=torch.bool, device=eng.device)
     args = (eng.state, fj, eng.backgrounds, eng.knobs, gate)
     n = ROLL_PARITY_N
@@ -2185,7 +2540,7 @@ def phase_rollout(device) -> dict:
     eng.admit_all()
     offs = np.cumsum([0, *sizes])
     groups = [eng._ingest(np.ascontiguousarray(clip[np.arange(offs[g], offs[g + 1]) % 2]),
-                          rows=sizes[g])[1] for g in range(len(sizes))]
+                          rows=sizes[g])[1][0] for g in range(len(sizes))]
     now0 = torch.full((), 5.0, dtype=torch.float32, device=eng.device)
     mi = eng._min_interval_device()
 
@@ -2285,15 +2640,15 @@ def phase_snapshot(device) -> dict:
 
 
 def _pico_engine(device, num_streams: int | None = None, **kw):
-    """Engine(fast_int8_pico) at 720p (statics overrides and Engine options
-    in ``kw``), the committed trained weights loaded through its numpy
+    """Engine(fast_int8_pico) at 720p (statics overrides and Engine options,
+    ``mesh`` among them, in ``kw``), the committed trained weights loaded through its numpy
     loaders, every slot admitted, gradient backgrounds."""
     from video_stream_segmenetation_tpu_torch.bridge import WEIGHTS_DIR
     from video_stream_segmenetation_tpu_torch.runtime.presets import preset
     from video_stream_segmenetation_tpu_torch.service.engine import Engine
 
     num_streams = num_streams or S
-    opts = {k: kw.pop(k) for k in ("output_layout", "collect_sync") if k in kw}
+    opts = {k: kw.pop(k) for k in ("output_layout", "collect_sync", "mesh") if k in kw}
     eng = Engine(num_streams, preset("fast_int8_pico", **kw), device=device, **opts)
     eng.load_matting_params(WEIGHTS_DIR / "mattenet_hd10_pico.npz")
     eng.load_face_params(WEIGHTS_DIR / "facefinder_128.npz", WEIGHTS_DIR / "landmarknet_128.npz")
@@ -2657,10 +3012,9 @@ def phase_rotation_failure(res: dict) -> dict:
     kept = {}
 
     def failing_for(group_sizes):
-        def round_fails(full_state, frames_list, bgs, knobs, face_last, now, mi):
+        def round_fails(step_frames, now):
             for g in range(2):
-                eng._range_step(full_state, offs[g], frames_list[g], bgs, knobs, face_last,
-                                now, mi, sizes[g])
+                eng._run_range(offs[g], offs[g + 1], step_frames[g], now)
             raise RuntimeError("injected failure in the round's third group")
         return round_fails
 
@@ -2685,7 +3039,7 @@ def phase_rotation_failure(res: dict) -> dict:
     snap = kept.get("snap")
     if snap is None or snap["kind"] != "cheap_packed":
         raise AssertionError(f"rotation failure: no cheap snapshot was restored ({snap})")
-    from_snap = eng._cheap_unpack(snap["host"]["packed"])
+    from_snap = eng._cheap_unpack(snap["host"][0]["packed"])
     st = eng.state
     for k in cheap:
         got = getattr(st, k)
@@ -2789,7 +3143,7 @@ STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-3
 # it departs only where a gradient near 0 changes sign, and by the rounding
 # of p + u in f32 (an ulp of p, ~1e-5 of u)
 STEP_F32_UPDATE_TOL = 1e-3
-# phase 51's bf16 leaf bar never falls below this, however far the CPU's own
+# phase 52's bf16 leaf bar never falls below this, however far the CPU's own
 # bf16 gradient of a leaf lies from its f32 one (a gradient the CPU gets
 # wrong, not a rounding gap, would otherwise lower its own bar)
 ZOO_BF16_COS_FLOOR = 0.9
@@ -3189,7 +3543,7 @@ def phase_train_zoo(dev) -> dict:
     """Every trainer of train/ on the card at its full widths and the
     reference's geometry and batch, a few steps each (:func:`zoo_jobs`):
     losses finite and every leaf moved, BatchNorm statistics included; one
-    step against the CPU (:func:`zoo_step_vs_cpu`, phase 50's bars); each
+    step against the CPU (:func:`zoo_step_vs_cpu`, phase 51's bars); each
     trained tree served ``ZOO_SERVE_STEPS`` steps of the Engine of the
     preset that serves its name at S=``ZOO_SERVE_S``, 720p, the committed
     frames (the int8 trunk held against its plain version; each serve's
@@ -3290,7 +3644,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 16 + len(PHASES)
+    steps = 17 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -3487,7 +3841,24 @@ def main() -> int:
     del rr
     torch.cuda.empty_cache()
 
-    say(f"[{k + 9}/{steps} rollout] the step rollout on Engine({S}, fast_int8_pico) and the "
+    say(f"[{k + 9}/{steps} mesh] Engine({S}, fast_int8_pico, mesh=make_mesh({MESH_N}, "
+        f"devices=[cuda:0] * {MESH_N})) against Engine({S}), trained weights, committed "
+        f"frames, face_min_interval_s=0: {MESH_STEPS} steps (process, then "
+        f"dispatch/collect); StreamScheduler(group_sizes={list(MESH_SIZES)}, fused_rounds="
+        f"True) over both, {MESH_ROUNDS} rounds and one more mesh round under "
+        f"set_sync_debug_mode('error'); fit(mesh=...) of the pico at "
+        f"{MESH_FIT['hw'][0]}x{MESH_FIT['hw'][1]} batch {MESH_FIT['batch']} f32, "
+        f"{MESH_FIT['steps']} steps, against one device; graft_entry.dryrun_multichip("
+        f"{MESH_N})")
+    ms = phase_mesh("cuda")
+    for counter, got in ms["launches"].items():
+        if counter in by_name:
+            by_name[counter]["launches"] += got
+    say_mesh(ms, smi, count)
+    del ms
+    torch.cuda.empty_cache()
+
+    say(f"[{k + 10}/{steps} rollout] the step rollout on Engine({S}, fast_int8_pico) and the "
         f"round rollout on the production rotation ({list(ROTATION)}, {FAST_ROUTE}), trained "
         "weights, committed frames")
     ro = phase_rollout("cuda")
@@ -3523,7 +3894,7 @@ def main() -> int:
     del ro
     torch.cuda.empty_cache()
 
-    say(f"[{k + 10}/{steps} snapshot] Engine({S}, fast_int8_pico) saved after 3 steps "
+    say(f"[{k + 11}/{steps} snapshot] Engine({S}, fast_int8_pico) saved after 3 steps "
         f"(utils/checkpoint.py::save_engine), restored into a fresh engine, both stepped "
         f"{SNAPSHOT_STEPS} times")
     sn = phase_snapshot("cuda")
@@ -3537,7 +3908,7 @@ def main() -> int:
         f"launches {sn['launches']}")
     torch.cuda.empty_cache()
 
-    say(f"[{k + 11}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
+    say(f"[{k + 12}/{steps} train] the pico MatteNetHD (c0 128, c2 128, c3 192) on "
         f"the card: fit {TRAIN_STEPS} steps at 240x320 batch 32 lr 5e-4, then {FT_STEPS} at "
         "720x1280 batch 8 lr 5e-4/3 seed 1; one step against the CPU; the trained tree "
         "stochastically rounded, quantized and served one step of Engine(8, fast_int8_pico, "
@@ -3576,7 +3947,7 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
 
-    say(f"[{k + 12}/{steps} train_zoo] every trainer of train/ on the card at its full widths "
+    say(f"[{k + 13}/{steps} train_zoo] every trainer of train/ on the card at its full widths "
         f"and the reference's geometry and batch ({ZOO_FACE_STEPS} steps for the face models, "
         f"{ZOO_STEPS} for the others, then {ZOO_FT_STEPS} of fine-tuning where the reference "
         f"fine-tunes); one step against the CPU (batch {ZOO_CPU_BATCH}); each trained tree "

@@ -39,7 +39,7 @@ def test_checkpoint_roundtrip(tmp_path, rng):
     utils.save_engine(str(tmp_path / "ck"), eng)
 
     before = eng.state.prev_alpha.numpy().copy()
-    eng.state = init_state(2, MASK_HW)
+    eng.state = init_state(2, MASK_HW, device="cpu")
     eng.knobs = default_knobs(2)
     utils.restore_engine(str(tmp_path / "ck"), eng)
     np.testing.assert_array_equal(eng.state.prev_alpha.numpy(), before)

@@ -991,7 +991,7 @@ def test_pool_lanes_on_card_equal_device_gathered(card):
                 fl.append((packed, pool.lanes()))
             else:
                 fl.append(frames[i0:i1])
-        step_in = [eng._ingest(f, rows=len(f[0]) if isinstance(f, tuple) else len(f))[1]
+        step_in = [eng._ingest(f, rows=len(f[0]) if isinstance(f, tuple) else len(f))[1][0]
                    for f in fl]
         outs.append((step_in, eng.collect_round(eng.dispatch_round([4, 2], fl))))
     (pin, pout), (nin, nout) = outs
@@ -1080,8 +1080,8 @@ def test_passthrough_on_the_card(card):
     eng._dispatches = 0
 
     def fails(group_sizes):
-        def rs(full_state, frames_list, bgs, knobs, face_last, now, mi):
-            eng._range_step(full_state, 0, frames_list[0], bgs, knobs, face_last, now, mi, 4)
+        def rs(step_frames, now):
+            eng._run_range(0, 4, step_frames[0], now)
             raise RuntimeError("injected failure in the second group")
         return rs
 

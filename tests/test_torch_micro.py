@@ -109,7 +109,7 @@ def test_micro_model_alpha_matches_reference(trees, rng):
     jm = JQ.QuantizedMatteNetHD(SS, 4, decoder="micro", decoder_impl="xla", head_impl="int8")
     want = np.asarray(jm.apply(q, jnp.asarray(xp))["alpha"])
     tm = TQ.QuantizedMatteNetHD(bridge.load_quantized(jax.tree_util.tree_map(np.asarray, q)),
-                                SS, 4)
+                                SS, 4, device="cpu")
     assert tm.decoder == "micro"
     got = tm(torch.tensor(xp))["alpha"].numpy()
     assert got.shape == want.shape == (2, 32, 64)

@@ -248,7 +248,7 @@ def test_reference_face_finder_matches():
     x = _faces(256)
     ref = jrf.ReferenceFaceFinder()
     want = ref.apply(ref.init_params(), jnp.asarray(x))
-    got = trf.ReferenceFaceFinder()(torch.tensor(x))
+    got = trf.ReferenceFaceFinder("cpu")(torch.tensor(x))
     for k in ("box_coords", "box_scores"):
         assert tuple(got[k].shape) == want[k].shape
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-5)
@@ -260,7 +260,7 @@ def test_reference_landmark_net_matches():
     x = _faces(192)
     ref = jrf.ReferenceLandmarkNet()
     want = ref.apply(ref.init_params(), jnp.asarray(x))
-    got = trf.ReferenceLandmarkNet()(torch.tensor(x))
+    got = trf.ReferenceLandmarkNet("cpu")(torch.tensor(x))
     assert tuple(got["landmarks"].shape) == (2, 468, 3) and tuple(got["scores"].shape) == (2,)
     for k in ("landmarks", "scores"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-5)

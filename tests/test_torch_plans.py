@@ -176,7 +176,7 @@ def test_plain_trunk_matches_reference(rng, decoder, which, k, conv_impl, head_i
     out = jm.apply(q, jnp.asarray(xp))
     want = np.asarray(out["alpha_logit_lr"] if k == 1 else out["alpha"], np.float32)
     tm = TQ.QuantizedMatteNetHD(bridge.load_quantized(_np(q)), SS, uf, conv_impl=conv_impl,
-                                head_impl=head_impl)
+                                head_impl=head_impl, device="cpu")
     logits = tm.trunk_logits(torch.tensor(_x0(q, xp)))
     got = (logits if k == 1 else tm.upsample(logits)).numpy()
     assert got.shape == want.shape == ((2, 8, 16) if k == 1 else (2, 8, 16, k))

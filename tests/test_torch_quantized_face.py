@@ -112,7 +112,7 @@ def test_face_finder_int8_matches(trees, fd, lm, fd_size, lmk_size):
     x = _images(fd_size)
     jq = JQF.quantize_face_finder(None, trees[fd])
     tm = TQF.QuantizedFaceFinder(TQF.quantize_face_finder(bridge.float_tree(trees[fd])),
-                                 fd_size)
+                                 fd_size, device="cpu")
     for k, (g, w) in enumerate(zip(_torch_trunk(tm, TQF._FF_TRUNK, x),
                                    _jax_trunk(jq, JQF._FF_TRUNK, x))):
         assert g.dtype == w.dtype == np.int8
@@ -134,7 +134,8 @@ def test_face_finder_int8_matches(trees, fd, lm, fd_size, lmk_size):
 def test_landmark_net_int8_matches(trees, fd, lm, fd_size, lmk_size):
     x = _images(lmk_size)
     jq = JQF.quantize_landmark_net(None, trees[lm])
-    tm = TQF.QuantizedLandmarkNet(TQF.quantize_landmark_net(bridge.float_tree(trees[lm])))
+    tm = TQF.QuantizedLandmarkNet(TQF.quantize_landmark_net(bridge.float_tree(trees[lm])),
+                                  device="cpu")
     for k, (g, w) in enumerate(zip(_torch_trunk(tm, TQF._LMK_TRUNK, x),
                                    _jax_trunk(jq, JQF._LMK_TRUNK, x))):
         np.testing.assert_array_equal(g, w, err_msg=f"activation {k}")
@@ -157,8 +158,8 @@ def test_bridge_carries_the_reference_quantized_dicts(trees, fd, lm, fd_size, lm
     _assert_same_dict(bridge.load_quantized_face(jl),
                       TQF.quantize_landmark_net(bridge.float_tree(trees[lm])))
     x = T(_images(fd_size))
-    a = TQF.QuantizedFaceFinder(bridge.load_quantized_face(jq), fd_size)(x)
+    a = TQF.QuantizedFaceFinder(bridge.load_quantized_face(jq), fd_size, device="cpu")(x)
     b = TQF.QuantizedFaceFinder(TQF.quantize_face_finder(bridge.float_tree(trees[fd])),
-                                fd_size)(x)
+                                fd_size, device="cpu")(x)
     for k in a:
         assert torch.equal(a[k], b[k])

@@ -54,7 +54,7 @@ def test_step_rollout_equals_sequential_steps(pairs):
     make_step calls on the tagged frames, bit for bit, in the state and
     both buffers."""
     _, te = RE.pair(pairs, "natural")
-    frames = te._ingest(RE.frames_for("natural", 2))[1]
+    frames = te._ingest(RE.frames_for("natural", 2))[1][0]
     RE.assert_rollout_equals_sequential_steps(te, frames)
 
 

@@ -32,6 +32,6 @@ def test_step_rollout_equals_sequential_steps(pairs):
     """The fast route's rollout (frames a (packed, lanes) tuple, both
     tagged) is the port's own n sequential make_step calls, bit for bit."""
     _, te = RE.pair(pairs, "pico_fast")
-    frames = te._ingest(RE.frames_for("pico_fast", 2))[1]
+    frames = te._ingest(RE.frames_for("pico_fast", 2))[1][0]
     assert isinstance(frames, tuple)
     RE.assert_rollout_equals_sequential_steps(te, frames)

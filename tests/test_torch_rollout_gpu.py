@@ -108,7 +108,7 @@ def _engine(card, over):
     g = np.random.default_rng(0)
     frames = g.integers(0, 256, (4, 80, 160, 3), dtype=np.uint8)
     e.process(frames)
-    return e, e._ingest(frames[::-1].copy())[1]
+    return e, e._ingest(frames[::-1].copy())[1][0]
 
 
 @pytest.mark.gpu

@@ -264,8 +264,8 @@ def test_ingest_forms_agree(trained, round_frames):
         inputs = [f.numpy(), packed] + ([(packed.numpy(), lanes)] if host else [])
         ingested = [e._ingest(x) for x in inputs]
         for x, (frames_in, _) in zip((f, packed, packed), ingested):
-            assert torch.equal(frames_in, x)
-        forms = [step_input for _, step_input in ingested]
+            assert torch.equal(frames_in[0], x)
+        forms = [step_input[0] for _, step_input in ingested]
         if not host:
             with pytest.raises(ValueError, match="host_lanes"):
                 e._ingest((packed.numpy(), lanes))
@@ -356,6 +356,39 @@ def test_device_face_gate_matches_jax(trained, min_interval):
     later = now + 0.1
     np.testing.assert_array_equal(te._face_gate_async(0, S, later).numpy(),
                                   np.asarray(ref._face_gate_async(0, S, later)))
+    te.admit_all()
+    assert (te._face_last_dev.numpy() == -1e9).all()
+
+
+@pytest.mark.parametrize("min_interval", [0.0, 0.18, 10.0])
+def test_device_face_gate_on_shards_matches_jax(trained, min_interval):
+    """The same gate and update on a mesh of three CPU shards of two rows
+    (the methods dispatch and the mesh's range steps call, a shard at a
+    time): each shard's rows against the reference's, a range across two
+    shards refused."""
+    from video_stream_segmenetation_tpu_torch.parallel import make_mesh
+
+    te = Engine(S, preset("fast_int8_pico", face_path=False, **GEOM), device="cpu",
+                mesh=make_mesh(3, devices=[torch.device("cpu")] * 3))
+    epoch = time.monotonic() - 100.0
+    host = np.asarray([0.0, epoch + 99.95, epoch + 99.5, epoch + 90.0, 0.0, epoch + 99.99])
+    te._face_epoch = epoch
+    te._last_face_at = host.copy()
+    te.face_min_interval_s = min_interval
+    ref = _ref_clock(epoch, host, min_interval)
+    now = epoch + 100.0
+    for i0, gs in ((0, 2), (2, 2), (4, 2), (3, 1)):
+        np.testing.assert_array_equal(te._face_gate_async(i0, gs, now).numpy(),
+                                      np.asarray(ref._face_gate_async(i0, gs, now)))
+    with pytest.raises(ValueError, match="shard"):
+        te._face_gate_async(0, 4, now)
+    applied = np.asarray([True, False])
+    te._face_applied_async(4, torch.as_tensor(applied), now)
+    ref._face_applied_async(4, jax.numpy.asarray(applied), now)
+    np.testing.assert_array_equal(te._face_last_dev.numpy(), np.asarray(ref._face_last_dev))
+    later = now + 0.1
+    got = torch.cat([te._face_gate_async(i0, 2, later) for i0 in (0, 2, 4)])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref._face_gate_async(0, S, later)))
     te.admit_all()
     assert (te._face_last_dev.numpy() == -1e9).all()
 

@@ -196,7 +196,7 @@ def test_trunk_export_round_trips_and_matches_the_reference(rng, plan):
 
     name = bridge.EXPORTS[plan]
     q = bridge.load_export(bridge.WEIGHTS_DIR / f"{name}.npz")
-    model = QuantizedMatteNetHD(q, 10, 4)
+    model = QuantizedMatteNetHD(q, 10, 4, device="cpu")
     assert model.decoder == plan and model.num_classes == 1
     hd = jm.MatteNetHD(stem_stride=10, head_upsample=4, decoder=plan)
     jq = quantize_mattenet_hd(hd, restore_params(str(ROOT / "checkpoints" / name)))

@@ -120,7 +120,7 @@ def _inject(je, te, family):
 
         je._range_step, te._range_step = jax_range, _raise
     else:
-        jfor, trs = je._round_step_for, te._range_step
+        jfor, trs = je._round_step_for, te._run_range
 
         def jax_for(sizes):
             rs = jfor(sizes)
@@ -131,9 +131,9 @@ def _inject(je, te, family):
             return poisoned
 
         def port_for(sizes):
-            def fails(full_state, frames_list, bgs, knobs, face_last, now, mi):
+            def fails(step_frames, now):
                 # the first group writes its rows back, then the round fails
-                trs(full_state, 0, frames_list[0], bgs, knobs, face_last, now, mi, SIZES[0])
+                trs(0, SIZES[0], step_frames[0], now)
                 raise RuntimeError("injected failure in the round's second group")
             return fails
 

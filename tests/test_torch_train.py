@@ -375,8 +375,16 @@ def test_flagship_writes_exports(tmp_path, monkeypatch):
 
 
 def test_fit_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        fit(MatteNetHD(device="cpu"), hw=HW, batch=B, steps=1, mesh=object())
+    """fit(mesh=...) trains data-parallel (tests/test_torch_parallel.py); it
+    refuses a mesh the batch does not divide over, and a loss_fn there."""
+    from video_stream_segmenetation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="divide"):
+        fit(MatteNetHD(device="cpu"), hw=HW, batch=3, steps=1, mesh=mesh)
+    with pytest.raises(ValueError, match="loss_fn"):
+        fit(MatteNetHD(device="cpu"), hw=HW, batch=B, steps=1, mesh=mesh,
+            loss_fn=lambda frames, alpha_gt: None)
 
 
 # ---- serving untouched ----------------------------------------------------

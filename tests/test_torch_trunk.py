@@ -81,7 +81,7 @@ def test_model_alpha_matches_jax_xla_path(rng, decoder, k, uf):
                                 head_impl="int8")
     want = np.asarray(jm.apply(q, jnp.asarray(xp))["alpha"])
     tm = TQ.QuantizedMatteNetHD(bridge.load_quantized(jax.tree_util.tree_map(np.asarray, q)),
-                                SS, uf)
+                                SS, uf, device="cpu")
     got = tm(torch.tensor(xp))["alpha"].numpy()
     hw = (8 * uf, 16 * uf)
     assert got.shape == want.shape == ((2, *hw) if k == 1 else (2, *hw, k))

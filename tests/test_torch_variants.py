@@ -333,8 +333,9 @@ def test_refine_route_matches_reference_step(case, monkeypatch):
                       frame_idx=jnp.zeros((S,), jnp.int32), rec=(),
                       face_center=jnp.zeros((S, 2), jnp.float32),
                       has_center=jnp.zeros((S,), bool))
-    tstate = dataclasses.replace(init_state(S, (MH, MW)), prev_alpha=T(prev), affine=T(AFFINE0),
-                                 has_affine=T([True, True]), initialized=T([True, False]))
+    tstate = dataclasses.replace(init_state(S, (MH, MW), device="cpu"), prev_alpha=T(prev),
+                                 affine=T(AFFINE0), has_affine=T([True, True]),
+                                 initialized=T([True, False]))
     jk = jax_knobs(S, ema_adapt=0.0)
     jk = dataclasses.replace(jk, ema_adapt=jnp.asarray([1.0, 0.0], jnp.float32),
                              use_bilateral=jnp.asarray([True, False]))
@@ -421,7 +422,7 @@ def test_translation_subpath_matches_with_a_stand_in_detector(rng):
     want = JPL._face_translation_subpath(bundle, bundle.params,
                                          jnp.asarray(frames, jnp.float32) / 255.0, jstate,
                                          jst, jnp.asarray(gate))
-    tstate = dataclasses.replace(init_state(s, (MH, MW)), frame_idx=T(idx),
+    tstate = dataclasses.replace(init_state(s, (MH, MW), device="cpu"), frame_idx=T(idx),
                                  face_center=T(centre), has_center=T(has_c))
     got = TPL.face_translation_subpath(_TorchDet(boxes, scores), T(frames), tstate, st, T(gate))
     for g, w, name in zip(got, want, ("affine_update", "has_update", "det_score", "centre",
@@ -460,7 +461,8 @@ def test_translation_subpath_with_the_trained_detector():
                                                                       jst, g))
     want = sub(bundle.params, jnp.asarray(frames, jnp.float32) / 255.0, jstate,
                jnp.ones((S,), bool))
-    tstate = dataclasses.replace(init_state(S, (MH, MW)), face_center=T(centre),
+    tstate = dataclasses.replace(init_state(S, (MH, MW), device="cpu"),
+                                 face_center=T(centre),
                                  has_center=T([True, True]))
     got = TPL.face_translation_subpath(FaceFinder(bridge.float_tree(tree), 64, device="cpu"),
                                        T(frames),

@@ -357,9 +357,9 @@ def test_full_snapshot_restores_rec(frames, face_trees):
 
 
 def _raise_after_first_group(te):
-    rs = te._range_step
+    run = te._run_range
 
-    def step(full_state, frames_list, bgs, knobs, face_last, now, mi):
-        rs(full_state, 0, frames_list[0], bgs, knobs, face_last, now, mi, 1)
+    def step(step_frames, now):
+        run(0, 1, step_frames[0], now)
         raise RuntimeError("injected failure in the round's second group")
     return step

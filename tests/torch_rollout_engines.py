@@ -177,7 +177,7 @@ def assert_step_rollout_matches(engine_pair, kind, acc, perturb, seed=2):
                         je.knobs, jnp.ones((S,), bool), N)
     perturbed = TR.perturbed_models(te) if perturb == "weights" else None
     troll = TR.make_step_rollout(te.model, te.statics, te.face_models, acc, perturb, perturbed)
-    tst, tf, ta = troll(te.state, te._ingest(frames)[1], te.backgrounds, te.knobs,
+    tst, tf, ta = troll(te.state, te._ingest(frames)[1][0], te.backgrounds, te.knobs,
                         torch.ones((S,), dtype=torch.bool), N)
     alpha_bar, prev_bar = BARS[kind]
     np.testing.assert_allclose(tst.prev_alpha.numpy(), np.asarray(jst.prev_alpha), rtol=0,
@@ -201,10 +201,11 @@ def assert_step_rollout_matches(engine_pair, kind, acc, perturb, seed=2):
 
 
 def groups(e, frames):
-    """Each group's rows of ``frames``, as engine ``e`` steps them."""
+    """Each group's rows of ``frames``, as engine ``e`` steps them (the
+    port's ingest gives a list a shard: one here)."""
     offs = np.cumsum([0, *SIZES])
-    return [e._ingest(frames[offs[g]:offs[g + 1]], rows=SIZES[g])[1]
-            for g in range(len(SIZES))]
+    ins = [e._ingest(frames[offs[g]:offs[g + 1]], rows=SIZES[g])[1] for g in range(len(SIZES))]
+    return [x[0] if isinstance(x, list) else x for x in ins]
 
 
 def clock():
@@ -281,7 +282,7 @@ def step_both(engine_pair, kind: str, debug_stage: str, seed: int = 2):
     jres = jstep(je.bundle.params, je.state, je._ingest(frames)[1], je.backgrounds, je.knobs,
                  jnp.ones((S,), bool))
     tst = dataclasses.replace(te.statics, debug_stage=debug_stage)
-    fj = te._ingest(frames)[1]
+    fj = te._ingest(frames)[1][0]
     rec = te.state.rec
     if kind == "mc_natural" or kind == "mc_pico":
         rec = (torch.tensor(np.asarray(je.state.rec)),)

@@ -343,6 +343,7 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 // One launch of the tile over S x Ho x Wo output pixels and, with ROUTED,
 // ceil(Cout / N) tiles of N channels; 0 or the CUDA error.
+constexpr int CONV_MAX_DEVICES = 64;
 template <int NT, bool ROUTED>
 static int launch_conv(const void* x, const void* w, const void* mult,
                        const void* bias, const void* res, const void* up,
@@ -354,13 +355,18 @@ static int launch_conv(const void* x, const void* w, const void* mult,
   const int nk = (KH * KW * Cin + CONV_BK - 1) / CONV_BK;
   const int stages = nk < C::stages ? nk : C::stages;  // the ring's stages in use
   const int smem = stages * C::stage_bytes + 1024;
-  static bool sized = false;  // the opt-in above 48 KB, once a kernel
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(conv_i8_kernel<NT, ROUTED>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           C::max_smem);
+  // the opt-in above 48 KB, once a kernel on each device (an attribute of
+  // the function in that device's context)
+  static bool sized[CONV_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= CONV_MAX_DEVICES) return (int)cudaErrorInvalidValue;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(conv_i8_kernel<NT, ROUTED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::max_smem);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized[dev] = true;
   }
   const long long M = (long long)S * Ho * Wo;
   const int n_tiles = ROUTED ? (Cout + 64 * NT - 1) / (64 * NT) : 1;

@@ -42,13 +42,18 @@ def _se(c: int) -> dict:
     return {"Dense_0": ("dense", (c, r)), "Dense_1": ("dense", (r, c))}
 
 
-def mattenet_spec(num_classes: int = 1) -> dict:
-    """The flax MatteNet's names and kernel shapes (width 1.0, K =
-    ``num_classes`` channels a head), in the reference's module creation
-    order."""
-    enc = {"ConvBN_0": ("convbn", (3, 3, 3, 16))}
-    cin = 16
+def mattenet_spec(num_classes: int = 1, width: float = 1.0) -> dict:
+    """The flax MatteNet's names and kernel shapes (K = ``num_classes``
+    channels a head; the encoder's channels at ``width``, each
+    ``max(8, int(n * width) // 8 * 8)`` as the reference's), in the
+    reference's module creation order."""
+    def wc(n):
+        return max(8, int(n * width) // 8 * 8)
+
+    enc = {"ConvBN_0": ("convbn", (3, 3, 3, wc(16)))}
+    cin = wc(16)
     for i, (c, _, ex, se) in enumerate(ENCODER_BLOCKS):
+        c = wc(c)
         mid = cin * ex
         blk, j = {}, 0
         if ex != 1:
@@ -60,7 +65,7 @@ def mattenet_spec(num_classes: int = 1) -> dict:
         blk[f"ConvBN_{j + 1}"] = ("convbn", (1, 1, mid, c))
         enc[f"InvertedResidual_{i}"] = blk
         cin = c
-    f2, f4, f8 = ENCODER_BLOCKS[0][0], ENCODER_BLOCKS[2][0], ENCODER_BLOCKS[4][0]
+    f2, f4, f8 = (wc(ENCODER_BLOCKS[i][0]) for i in (0, 2, 4))
     easpp = {f"ConvBN_{i}": ("convbn", (3, 3, 1, cin)) for i in range(len(EASPP_RATES))}
     easpp[f"ConvBN_{len(EASPP_RATES)}"] = ("convbn", (1, 1, cin * len(EASPP_RATES),
                                                       SEM_FEATURES))
@@ -87,9 +92,10 @@ def mattenet_spec(num_classes: int = 1) -> dict:
     }
 
 
-def init_mattenet_params(seed: int, num_classes: int = 1) -> dict:
-    """Seeded float tree with the flax MatteNet's names and shapes."""
-    return seeded_tree(np.random.default_rng(seed), mattenet_spec(num_classes))
+def init_mattenet_params(seed: int, num_classes: int = 1, width: float = 1.0) -> dict:
+    """Seeded float tree with the flax MatteNet's names and shapes (the
+    encoder at ``width``)."""
+    return seeded_tree(np.random.default_rng(seed), mattenet_spec(num_classes, width))
 
 
 class _DecoderBlock(torch.nn.Module):

@@ -42,6 +42,7 @@ from video_stream_segmenetation_tpu_torch.models.backbones import (
     same_pads,
 )
 from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear_mxu
+from video_stream_segmenetation_tpu_torch.parallel.mesh import resolve_device
 
 ACT_SCALE = 6.0 / 127.0  # relu6 output lattice
 RELU6_SCALE = 127.0 / 6.0
@@ -462,9 +463,10 @@ class QuantizedMatteNetHD(torch.nn.Module):
     # 'lowres': the refine kernel upsamples them itself)
     supports_lowres_alpha = True
 
-    def __init__(self, q: dict, stem_stride: int, head_upsample: int, device="cpu",
+    def __init__(self, q: dict, stem_stride: int, head_upsample: int, device="cuda",
                  conv_impl: str = "xla", head_impl: str = "int8"):
         super().__init__()
+        device = resolve_device(device)
         if conv_impl not in ("xla", "pallas") or head_impl not in ("int8", "bf16"):
             raise ValueError(f"conv_impl {conv_impl!r} / head_impl {head_impl!r}: "
                              "'xla' or 'pallas' / 'int8' or 'bf16'")

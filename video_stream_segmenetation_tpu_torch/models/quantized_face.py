@@ -35,6 +35,7 @@ from video_stream_segmenetation_tpu_torch.ops.detect import (
     blazeface_anchors,
     decode_anchor_boxes,
 )
+from video_stream_segmenetation_tpu_torch.parallel.mesh import resolve_device
 
 IN_SCALE = 1.0 / 127.0  # the [0, 1] input lattice
 
@@ -94,8 +95,9 @@ class QuantizedFaceFinder(torch.nn.Module):
     normalized, ``"box_scores": [S, A]}``, as models/blazeface.py::
     FaceFinder, with the convolutions in int8."""
 
-    def __init__(self, q: dict, input_size: int = 256, device="cpu"):
+    def __init__(self, q: dict, input_size: int = 256, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.input_size = input_size
         self.trunk = _layers(q, [nm for nm, _ in _FF_TRUNK], device)
         self.heads = _layers(q, _FF_HEADS, device)
@@ -124,8 +126,9 @@ class QuantizedLandmarkNet(torch.nn.Module):
     [S]}``, as models/facemesh.py::LandmarkNet, with the trunk in int8
     and the pooled relu6-lattice features through the float Dense head."""
 
-    def __init__(self, q: dict, device="cpu"):
+    def __init__(self, q: dict, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.trunk = _layers(q, [nm for nm, _ in _LMK_TRUNK], device)
         d = q["Dense_0"]
         self.register_buffer("dense_w", torch.as_tensor(

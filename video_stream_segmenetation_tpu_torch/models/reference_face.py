@@ -34,6 +34,7 @@ from video_stream_segmenetation_tpu_torch.ops.detect import (
     blazeface_anchors,
     decode_anchor_boxes,
 )
+from video_stream_segmenetation_tpu_torch.parallel.mesh import resolve_device
 from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.utils import onnx_exec, onnx_lite
 
@@ -53,8 +54,9 @@ class _Graph(torch.nn.Module):
 
     input_size = 0
 
-    def __init__(self, name: str, device="cpu"):
+    def __init__(self, name: str, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self._fn, self._params = onnx_exec.build_torch_fn(load_graph(name), device=device)
 
     def run(self, x: torch.Tensor) -> dict:
@@ -67,7 +69,7 @@ class ReferenceFaceFinder(_Graph):
 
     input_size = 256
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         super().__init__(DETECTOR_ONNX, device)
         self.register_buffer("anchors", torch.as_tensor(
             np.array(blazeface_anchors(self.input_size)), device=device))
@@ -84,7 +86,7 @@ class ReferenceLandmarkNet(_Graph):
 
     input_size = 192
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         super().__init__(LANDMARK_ONNX, device)
 
     def forward(self, x: torch.Tensor) -> dict:

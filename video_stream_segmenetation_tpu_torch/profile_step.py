@@ -651,7 +651,7 @@ def ablate(name: str, s: int, n1: int, n2: int, reps: int, smi: str,
         eng.admit_all()
         eng.process(frames)
         gate = torch.ones((s,), dtype=torch.bool, device=eng.device)
-        args[label] = (eng.state, eng._ingest(frames)[1], eng.backgrounds, eng.knobs, gate)
+        args[label] = (eng.state, eng._ingest(frames)[1][0], eng.backgrounds, eng.knobs, gate)
         if label == "full":
             for h_label, acc, perturb in HARNESS:
                 pm = perturbed_models(eng) if perturb == "weights" else None

@@ -50,9 +50,10 @@ s2d layout), face path on or off, and the multi-class step of
     -> affine low-pass with the face path's updates (translation: the
        update applied once, then identity)
 
-make_range_step and make_round_step serve the scheduler's rotation: a
-group of rows stepped out of the full state and written back in place,
-the face min-interval gate on the card.
+make_range_step serves the scheduler's rotation (the Engine's rounds, a
+range step a group), make_round_step the rollouts' rounds: a group of
+rows stepped out of the full state and written back in place, the face
+min-interval gate on the card.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ from video_stream_segmenetation_tpu_torch.ops.warp import (
     warp_affine_nearest,
     warp_affine_separable,
 )
+from video_stream_segmenetation_tpu_torch.parallel.mesh import exclusive_prefix
 from video_stream_segmenetation_tpu_torch.runtime.config import (
     DEBUG_TOKENS,
     EMA_ADAPT_T0,
@@ -360,10 +362,61 @@ def face_statics(statics: PipelineStatics) -> PipelineStatics:
     return statics
 
 
+@dataclasses.dataclass
+class FaceSel:
+    """A shard's part in a cadence selection made over more rows than its
+    own: ``k`` (the batch's or group's K), ``rows`` (that batch's or group's
+    row count) and ``rank0`` (a scalar tensor on the shard's device: how
+    many rows fired in the shards before it)."""
+
+    k: int
+    rows: int
+    rank0: torch.Tensor
+
+
+def face_fire(frame_idx: torch.Tensor, face_gate: torch.Tensor,
+              statics: PipelineStatics) -> torch.Tensor:
+    """The streams whose face cadence fires: ``frame_idx % lmk_interval ==
+    0`` where the engine's min-interval gate is open."""
+    return ((frame_idx % statics.lmk_interval) == 0) & face_gate
+
+
+def face_k(statics: PipelineStatics, rows: int) -> int:
+    """K, the most streams the compacted face path takes from ``rows``:
+    ``face_batch``, or ceil(rows / lmk_interval)."""
+    return statics.face_batch or max(1, -(-rows // statics.lmk_interval))
+
+
+def compacts_faces(statics: PipelineStatics) -> bool:
+    """Whether the step's face path is the cadence-compacted one (the one
+    whose selection spans the batch)."""
+    return bool(statics.num_classes == 1 and statics.face_path and statics.face_compact
+                and statics.face_tracking != "translation")
+
+
+def face_selections(statics: PipelineStatics, frame_idxs: list, gates: list,
+                    rows: int) -> list:
+    """Each shard's :class:`FaceSel` of a batch or group of ``rows`` rows
+    split over shards (``frame_idxs`` and ``gates``: each shard's rows, on
+    its device, in slot order), so that the shards together take the
+    streams one step over all the rows takes: the first K fired in slot
+    order.  The only cross-device traffic is one int64 scalar a shard
+    (parallel/mesh.py::exclusive_prefix).  None where the step does not
+    compact its face path, or for one shard (its own rows are the batch's,
+    so its own selection is the batch's)."""
+    if len(gates) == 1 or not compacts_faces(statics):
+        return [None] * len(gates)
+    counts = [face_fire(fi, g, statics).sum() for fi, g in zip(frame_idxs, gates)]
+    k = face_k(statics, rows)
+    return [FaceSel(k, rows, r) for r in
+            exclusive_prefix(counts, [g.device for g in gates])]
+
+
 def face_subpath_compact(models: FaceModels, src: torch.Tensor,
                          frame_idx: torch.Tensor, face_gate: torch.Tensor,
                          statics: PipelineStatics, prior_form: str = "params",
-                         src_lanes_geom=None, src_planar=None, s2d_block=None):
+                         src_lanes_geom=None, src_planar=None, s2d_block=None,
+                         sel: FaceSel | None = None):
     """Cadence-compacted stage 6 (the reference's ``_face_subpath_compact``)
     on a face source: the planar u8 guide ``[S, 3, mh, mw]``
     (``src_planar``, by default ``face_input='guide'``), its tap lanes
@@ -377,19 +430,30 @@ def face_subpath_compact(models: FaceModels, src: torch.Tensor,
     engine's ``face_gate``) are gathered, at most K = ``face_batch`` or
     ceil(S / lmk_interval) of them (overflow streams skip this round, as in
     the reference), converted to f32 0..1 and scattered back after.
-    Returns what :func:`face_subpath` returns, for all S streams."""
+    Returns what :func:`face_subpath` returns, for all S streams.
+
+    ``sel``: these S rows are one shard's part of a batch or group the
+    selection spans (:func:`face_selections`): K and the choice between
+    compaction and all rows are the whole batch's, and the shard takes its
+    fired rows whose rank in the batch (``sel.rank0`` plus the rank here)
+    is under K, at most min(K, S) of them (a static size: no host
+    synchronisation)."""
     axis = 1 if src_lanes_geom else 0
     s = src.shape[axis]
     planar = statics.face_input == "guide" if src_planar is None else src_planar
     fstat = face_statics(statics)
-    fire = ((frame_idx % statics.lmk_interval) == 0) & face_gate
+    fire = face_fire(frame_idx, face_gate, statics)
 
     def to_f32(g):
         return face_f32(g, planar, s2d_block, src_lanes_geom)
 
-    k = statics.face_batch or max(1, -(-s // statics.lmk_interval))
-    if k >= s:
+    k = face_k(statics, s) if sel is None else sel.k
+    if k >= (s if sel is None else sel.rows):
         return face_subpath(models, to_f32(src), fire, fstat, prior_form)
+    if sel is not None:
+        rank = sel.rank0 + torch.cumsum(fire.to(torch.int64), 0) - 1
+        fire = fire & (rank < k)
+        k = min(k, s)
     idxs = first_k(fire, k)
     sel_valid = idxs < s
     f_sel = to_f32(torch.index_select(src, axis, torch.clamp(idxs, max=s - 1)))
@@ -488,7 +552,8 @@ def make_multiclass_step(model, statics: PipelineStatics):
     s2d = statics.frame_layout == "s2d"
     debug = debug_tokens(statics)
 
-    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
+    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate,
+             face_sel=None):
         s = frames.shape[0]
         dev = frames.device
         if s2d:
@@ -638,7 +703,9 @@ def refine_chain(a: torch.Tensor, guide: torch.Tensor, prior: torch.Tensor,
 def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = None):
     """step(state, frames, backgrounds, knobs, face_gate) -> (new_state,
     outputs); with ``statics.num_classes > 1`` the step of
-    :func:`make_multiclass_step`.
+    :func:`make_multiclass_step`.  ``face_sel`` (a keyword, :class:`FaceSel`):
+    the batch is one shard's part of a larger one, whose cadence selection
+    the face path follows (:func:`face_subpath_compact`).
 
     frames: natural ``[S, H, W, 3]`` u8 (the float models) or packed
     ``[S, H/b, W/b, b*b*3]`` u8 (the int8 MatteNetHD), by
@@ -764,7 +831,8 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
             return new_prev, fused_refine(a.contiguous(), guide, prior, has_prior, knobs)
         return new_prev, refine_chain(a, guide, prior, has_prior, knobs, statics)
 
-    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate):
+    def step(state: StreamState, frames, backgrounds, knobs: PipelineKnobs, face_gate,
+             face_sel: FaceSel | None = None):
         lanes = None
         if host_lanes:
             frames, lanes = frames
@@ -836,10 +904,10 @@ def make_step(model, statics: PipelineStatics, face_models: FaceModels | None = 
         elif statics.face_path and statics.face_compact:
             prior, has_prior, affine_update, has_update, det_score = face_subpath_compact(
                 face_models, src, state.frame_idx, face_gate, statics, prior_form,
-                src_lanes_geom=geom, src_planar=planar, s2d_block=src_blk)
+                src_lanes_geom=geom, src_planar=planar, s2d_block=src_blk, sel=face_sel)
             prior = prior.contiguous()
         elif statics.face_path:
-            fire = ((state.frame_idx % statics.lmk_interval) == 0) & face_gate
+            fire = face_fire(state.frame_idx, face_gate, statics)
             prior, has_prior, affine_update, has_update, det_score = face_subpath(
                 face_models, face_f32(src, planar, src_blk, geom), fire, fstat, prior_form)
             prior = prior.contiguous()
@@ -943,17 +1011,19 @@ def make_range_step(model, statics: PipelineStatics, face_models: FaceModels | N
     round) and the scalars ``now`` and ``min_interval`` are tensors on the
     step's device: the gate compare and the applied-scatter run there, and
     the step reads nothing back to the host.  ``frames`` as the step takes
-    them (a ``(packed, lanes)`` tuple with host lanes)."""
+    them (a ``(packed, lanes)`` tuple with host lanes); ``face_sel`` as
+    :func:`make_step`'s."""
     step = make_step(model, statics, face_models)
 
     def range_step(full_state: StreamState, i0: int, frames, full_bgs, full_knobs,
-                   face_last, now, min_interval, gs: int):
+                   face_last, now, min_interval, gs: int, face_sel=None):
         rows = slice(i0, i0 + gs)
         gstate = rows_of(full_state, rows)
         gbgs = full_bgs if full_bgs.shape[0] == 1 else full_bgs[rows]
         last_g = face_last[rows]
         face_gate = (now - last_g) >= min_interval
-        new_g, out = step(gstate, frames, gbgs, rows_of(full_knobs, rows), face_gate)
+        kw = {} if face_sel is None else {"face_sel": face_sel}
+        new_g, out = step(gstate, frames, gbgs, rows_of(full_knobs, rows), face_gate, **kw)
         write_rows(gstate, new_g)
         last_g.copy_(torch.where(out["face_applied"], now, last_g))
         return full_state, face_last, out

@@ -96,10 +96,22 @@ def _perturb_params(tree, i: int, served_bf16=SERVED_BF16):
     return {k: one(v, k in served_bf16) for k, v in tree.items()}
 
 
+def engine_models(engine):
+    """``(model, statics, face_models)`` of a one-device Engine, what the
+    rollouts chain.  The rollouts run on one device: an ``Engine(mesh=...)``
+    is refused."""
+    if getattr(engine, "mesh", None) is not None:
+        raise NotImplementedError("the rollouts chain one device's step; an Engine(mesh=...) "
+                                  "steps a shard a device: time it through its own calls")
+    return engine.model, engine.statics, engine.face_models
+
+
 def perturbed_models(engine):
     """``(model, face_models)``: the engine's models rebuilt by its own
     builders from its trees perturbed at an odd iteration (the 'weights'
-    set of the odd iterations)."""
+    set of the odd iterations); a one-device engine only
+    (:func:`engine_models`)."""
+    engine_models(engine)
     faces = engine.params
     face_trees = None
     if faces["face"] is not None:

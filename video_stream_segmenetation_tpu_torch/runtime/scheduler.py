@@ -23,7 +23,6 @@ import time
 from typing import Callable
 
 import numpy as np
-import torch
 
 from video_stream_segmenetation_tpu_torch.ops.layout import guide_s2d_sel
 from video_stream_segmenetation_tpu_torch.runtime.native import FramePool
@@ -91,20 +90,15 @@ class StreamScheduler:
     def admit(self) -> int:
         """Admit one stream; its cadence phase is ``slot % lmk_interval``."""
         slot = self.engine.admit()
-        self.engine.state.frame_idx[slot] = slot % self.engine.statics.lmk_interval
+        self.engine.set_cadence_phases([slot], [slot % self.engine.statics.lmk_interval])
         return slot
 
     def admit_all(self) -> list[int]:
         """Admit every free slot, each at phase ``slot % lmk_interval``."""
         slots = self.engine.admit_all()
         if slots:
-            n = self.engine.num_streams
-            mask = np.zeros((n,), bool)
-            mask[slots] = True
-            phases = (np.arange(n) % self.engine.statics.lmk_interval).astype(np.int32)
-            fi = self.engine.state.frame_idx
-            fi.copy_(torch.where(torch.as_tensor(mask, device=fi.device),
-                                 torch.as_tensor(phases, device=fi.device), fi))
+            self.engine.set_cadence_phases(
+                slots, np.asarray(slots) % self.engine.statics.lmk_interval)
         return slots
 
     def evict(self, slot: int) -> None:

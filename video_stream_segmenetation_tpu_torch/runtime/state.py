@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from video_stream_segmenetation_tpu_torch.parallel.mesh import resolve_device
+
 IDENTITY_AFFINE = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
 
@@ -31,9 +33,10 @@ class StreamState:
         return self.prev_alpha.shape[0]
 
 
-def init_state(num_streams: int, mask_hw: tuple[int, int], device="cpu",
+def init_state(num_streams: int, mask_hw: tuple[int, int], device="cuda",
                rec: tuple = ()) -> StreamState:
     """Cold state; ``rec`` the model's zero state (moved to ``device``)."""
+    device = resolve_device(device)
     h, w = mask_hw
     s = num_streams
     return StreamState(

@@ -23,6 +23,7 @@ from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.train.losses import iou_metric
 from video_stream_segmenetation_tpu_torch.train.step import (
     init_train_state,
+    make_dp_train_step,
     make_optimizer,
     make_train_step,
 )
@@ -146,10 +147,19 @@ def fit(model: torch.nn.Module, hw: tuple[int, int] = (96, 160), batch: int = 16
     chunked loop does.  Runs under runtime/precision.py::pinned (TF32
     off: the f32 products of the alpha upsample and the losses in f32).
     ``on_step(i, metrics)``, where given, sees every step's metrics (device
-    tensors: the losses and ``grad_norm``) right after the step.  ``mesh``
-    (data-parallel training) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=...): multi-device training is not ported yet")
+    tensors: the losses and ``grad_norm``) right after the step.
+
+    ``mesh`` (parallel/mesh.py): data-parallel training, the reference's
+    ``mesh=``: the model (on the mesh's first device) is replicated to the
+    other shards, each batch (made on the first device, as without a mesh)
+    is split on its leading axis over the data axis (``batch`` must divide
+    over it, or ValueError), and each step computes the one-device loss of
+    the whole batch (train/step.py::make_dp_train_step).
+    ``steps_per_call`` is ignored under a mesh, as the reference ignores
+    it; ``loss_fn`` (a closure over one model) is refused there."""
+    if mesh is not None and loss_fn is not None:
+        raise ValueError("fit(mesh=...) trains the matting loss of the whole batch; a "
+                         "loss_fn closes over one model")
     data_fn = data_fn or synthetic_matting_batch
     dev = next(model.parameters()).device
     if init_params is None:
@@ -158,7 +168,8 @@ def fit(model: torch.nn.Module, hw: tuple[int, int] = (96, 160), batch: int = 16
     model.requires_grad_(True)
     tx = make_optimizer(lr)
     state, _ = init_train_state(model, tx)
-    step_fn = make_train_step(model, tx, loss_fn=loss_fn)
+    step_fn = (make_train_step(model, tx, loss_fn=loss_fn) if mesh is None
+               else make_dp_train_step(model, tx, mesh, batch))
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     history = []
@@ -177,7 +188,7 @@ def fit(model: torch.nn.Module, hw: tuple[int, int] = (96, 160), batch: int = 16
                         "elapsed_s": round(time.perf_counter() - t0, 1)})
 
     with pinned():
-        if steps_per_call > 1:
+        if steps_per_call > 1 and mesh is None:
             i = 0
             while i < steps:
                 k = min(steps_per_call, steps - i)

@@ -19,6 +19,13 @@ from typing import Callable
 
 import torch
 
+from video_stream_segmenetation_tpu_torch.parallel.mesh import (
+    gather_rows,
+    reduce_sum,
+    shard_replicas,
+    shard_stream_tree,
+    stream_sharding,
+)
 from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.train.losses import matting_loss
 
@@ -140,6 +147,67 @@ def make_train_step(model: torch.nn.Module, tx: ClipAdamW,
         metrics["grad_norm"] = global_norm(grads)
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
+    return train_step
+
+
+def make_dp_train_step(model: torch.nn.Module, tx: ClipAdamW, mesh, batch: int):
+    """The data-parallel :func:`make_train_step` over ``mesh`` (the
+    reference's train step jitted over replicated parameters and a batch
+    sharded on ``DATA_AXIS``), for batches of ``batch`` (it must divide over
+    the data axis, or ValueError).  ``model`` lives on the mesh's first
+    device; each other shard gets a replica of it on its device.  A step:
+    each shard's forward on its rows of the batch and its replica, the
+    outputs gathered on the first device, the unchanged matting loss of the
+    whole batch there (its sums normalise over the whole batch, so a mean
+    of per-shard losses would be another loss), one backward, the
+    replicas' gradients summed in shard order on the first device
+    (parallel/mesh.py::reduce_sum), one ClipAdamW update with the global
+    norm of that sum, and the parameters copied back to the replicas.
+    ``train_step(state, frames, alpha_gt) -> (state, metrics)`` as
+    :func:`make_train_step`'s; ``train_step.grads(frames, alpha_gt) ->
+    (loss, metrics, summed gradients)`` is its first half,
+    ``train_step.replicas`` the models a shard."""
+    stream_sharding(mesh, batch)  # the batch must divide over the data axis
+    first = mesh.first
+    replicas = shard_replicas(mesh, model)
+    for r in replicas:
+        r.requires_grad_(True)
+    names = [k for k, _ in model.named_parameters()]
+    params = [dict(r.named_parameters()) for r in replicas]
+
+    def grads(frames, alpha_gt):
+        """``(loss, metrics, the gradients summed over the replicas)``."""
+        if frames.shape[0] != batch:
+            raise ValueError(f"a batch of {frames.shape[0]} for a step made for {batch}")
+        with torch.enable_grad():
+            outs = [r(x) for r, x in zip(replicas, shard_stream_tree(mesh, frames))]
+            out = {k: gather_rows([o[k] for o in outs], first) for k in outs[0]}
+            loss, metrics = matting_loss(out, alpha_gt, frames)
+            leaves = [p[k] for p in params for k in names]
+            per_leaf = torch.autograd.grad(loss, leaves, allow_unused=True)
+        n = len(names)
+        summed = {}
+        for i, k in enumerate(names):
+            per = [per_leaf[r * n + i] for r in range(len(replicas))]
+            summed[k] = reduce_sum([torch.zeros_like(params[r][k]) if g is None else g
+                                    for r, g in enumerate(per)], first)
+        return loss, metrics, summed
+
+    def train_step(state: TrainState, frames, alpha_gt):
+        loss, metrics, summed = grads(frames, alpha_gt)
+        updates, opt_state = tx.update(summed, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        with torch.no_grad():
+            for p in params[1:]:
+                for k in names:
+                    p[k].copy_(state.params[k], non_blocking=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = global_norm(summed)
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    train_step.grads = grads
+    train_step.replicas = replicas
     return train_step
 
 

@@ -151,9 +151,9 @@ def face_checkpoint_paths(ckpt_dir: str, fd_size: int, lmk_size: int):
 def save_engine(path: str, engine) -> None:
     """Snapshot an Engine: the trees its models are built from
     (``engine.params``), the stream state and the knobs."""
-    state = {f.name: getattr(engine.state, f.name)
-             for f in dataclasses.fields(engine.state)}
-    knobs = {f.name: getattr(engine.knobs, f.name) for f in dataclasses.fields(engine.knobs)}
+    whole, whole_knobs = engine.state, engine.knobs  # on a mesh each a gathered copy
+    state = {f.name: getattr(whole, f.name) for f in dataclasses.fields(whole)}
+    knobs = {f.name: getattr(whole_knobs, f.name) for f in dataclasses.fields(whole_knobs)}
     save_params(path, {"params": engine.params, "stream_state": state, "knobs": knobs})
 
 
@@ -179,8 +179,9 @@ def restore_engine(path: str, engine) -> None:
 
     ss = restored["stream_state"]
     fields = {}
-    for f in dataclasses.fields(engine.state):
-        cur = getattr(engine.state, f.name)
+    whole = engine.state  # on a mesh a gathered copy: read once
+    for f in dataclasses.fields(whole):
+        cur = getattr(whole, f.name)
         saved = ss.get(f.name)
         if f.name == "rec":
             # the model's state in the engine's own structure
