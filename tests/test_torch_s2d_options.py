@@ -96,9 +96,10 @@ def test_float_model_over_packed_frames_is_built(plan):
 
 
 def test_trained_weights_of_the_float_forms():
-    """Plan A over packed frames serves the committed mattenet_hd tree; the
-    other float forms have no committed export, and the KeyError names the
-    reference's checkpoint; params_from_jax passes a float tree through
+    """Plan A over packed frames serves the committed mattenet_hd tree, the
+    float K=4 pico its committed float export (mattenet_hd10_mc_pico_f32);
+    the other float forms have no committed export, and the KeyError names
+    the reference's checkpoint; params_from_jax passes a float tree through
     for them."""
     st = preset("fast", frame_layout="s2d")
     w = bridge.trained_weights(st)
@@ -106,8 +107,10 @@ def test_trained_weights_of_the_float_forms():
     Engine(1, st, **w, device="cpu")
     with pytest.raises(KeyError, match="checkpoints/mattenet_hd10_lite"):
         bridge.trained_weights(preset("fast_int8_lite", matting_precision="bf16"))
-    with pytest.raises(KeyError, match="checkpoints/mattenet_hd10_mc_pico"):
-        bridge.trained_weights(preset("multiclass_fast_pico", matting_precision="bf16"))
+    st = preset("multiclass_fast_pico", matting_precision="bf16")
+    w = bridge.trained_weights(st)
+    assert set(w["params"]) == {"params", "batch_stats"}
+    assert Engine(1, st, **w, device="cpu").model.num_classes == 4
     with pytest.raises(KeyError, match="checkpoints/mattenet_hd10"):
         bridge.trained_weights(preset("fast", s2d_block=10))
     tree = init_params("full", 0, 10)

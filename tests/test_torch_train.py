@@ -375,16 +375,20 @@ def test_flagship_writes_exports(tmp_path, monkeypatch):
 
 
 def test_fit_refuses_a_mesh():
-    """fit(mesh=...) trains data-parallel (tests/test_torch_parallel.py); it
-    refuses a mesh the batch does not divide over, and a loss_fn there."""
+    """fit(mesh=...) trains data-parallel (tests/test_torch_parallel.py,
+    with a loss_fn tests/test_torch_realbg_mesh.py); it refuses a mesh the
+    batch does not divide over, and a loss_fn that calls the model on part
+    of the batch."""
     from video_stream_segmenetation_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
     with pytest.raises(ValueError, match="divide"):
         fit(MatteNetHD(device="cpu"), hw=HW, batch=3, steps=1, mesh=mesh)
-    with pytest.raises(ValueError, match="loss_fn"):
-        fit(MatteNetHD(device="cpu"), hw=HW, batch=B, steps=1, mesh=mesh,
-            loss_fn=lambda frames, alpha_gt: None)
+    model = MatteNetHD(device="cpu")
+    with pytest.raises(ValueError, match="rows of a step made for a batch of"):
+        fit(model, hw=HW, batch=B, steps=1, mesh=mesh,
+            loss_fn=lambda frames, alpha_gt: TL.matting_loss(model(frames[:1]), alpha_gt[:1],
+                                                             frames[:1]))
 
 
 # ---- serving untouched ----------------------------------------------------

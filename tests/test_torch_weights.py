@@ -39,7 +39,10 @@ TRUNKS = (("mattenet_hd10_micro", "micro", 1), ("mattenet_hd10_pico", "pico", 1)
 # SaliencyNet, plan-A MatteNetHD (fast) and K=4 MatteNet (multiclass), and
 # the face models
 FLOAT = ("mattenet", "facefinder", "facefinder_128", "landmarknet", "landmarknet_128",
-         "rvm", "u2net", "mattenet_hd", "mattenet_multiclass")
+         "rvm", "u2net", "mattenet_hd", "mattenet_multiclass", *bridge.FLOAT_HD_EXPORTS.values())
+# the float trees of int8-served checkpoints, exported under other names
+# (bridge.FLOAT_HD_EXPORTS): the photo-background trainers' warm starts
+FLOAT_FROM = {name: name.removesuffix("_f32") for name in bridge.FLOAT_HD_EXPORTS.values()}
 # the committed frames: frames 0 and 7 of this clip (720p, procedural
 # background, face features painted; the head lies inside the frame)
 FRAMES_CLIP = dict(n_frames=8, hw=(720, 1280), seed=2, features=True)
@@ -67,7 +70,7 @@ def export(out_dir=bridge.WEIGHTS_DIR, frames: bool = True, only=None) -> list[P
     for name in FLOAT:
         if only is not None and name not in only:
             continue
-        tree = bridge.float_tree(_numpy(restore_params(str(CKPT / name))))
+        tree = bridge.float_tree(_numpy(restore_params(str(CKPT / FLOAT_FROM.get(name, name)))))
         bridge.save_export(out / f"{name}.npz", tree)
         written.append(out / f"{name}.npz")
     if frames:
@@ -119,3 +122,21 @@ def test_loaded_exports_are_served_trees():
     frames, alpha = bridge.load_frames()
     assert frames.shape == (2, 720, 1280, 3) and frames.dtype == np.uint8
     assert alpha.shape == (2, 288, 512) and 0 < alpha.mean() < 255
+
+
+def test_float_pico_exports_serve():
+    """The float pico trees (one class and K=4) load with numpy alone,
+    through bridge.trained_weights for the float presets at stem stride 10,
+    into the MatteNetHD they warm-start; other plans still name the
+    checkpoint."""
+    import pytest
+
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
+    from video_stream_segmenetation_tpu_torch.runtime.presets import preset
+
+    for name, k in (("fast_int8_pico", 1), ("multiclass_fast_pico", 4)):
+        tree = bridge.trained_weights(preset(name, matting_precision="bf16"))["params"]
+        assert set(tree) == {"params", "batch_stats"}
+        assert MatteNetHD(10, 4, "pico", params=tree, device="cpu").num_classes == k
+    with pytest.raises(KeyError, match="checkpoints/mattenet_hd10_nano"):
+        bridge.trained_weights(preset("fast_int8_nano", matting_precision="bf16"))

@@ -153,19 +153,32 @@ EXPORTS = {"full": "mattenet_hd10", "light": "mattenet_hd10_lite",
            "micro": "mattenet_hd10_micro", "pico": "mattenet_hd10_pico",
            "nano": "mattenet_hd10_nano", "femto": "mattenet_hd10_femto"}
 MULTICLASS_EXPORTS = {"pico": "mattenet_hd10_mc_pico", "nano": "mattenet_hd10_mc"}
+# the float trees of stem-stride-10 checkpoints, by (plan, classes): what the
+# photo-background trainers warm-start from (train/realbg.py) and the float
+# presets serve; the checkpoint's name with "_f32"
+FLOAT_HD_EXPORTS = {("pico", 1): "mattenet_hd10_pico_f32",
+                    ("pico", 4): "mattenet_hd10_mc_pico_f32"}
+FLOAT_HD_STRIDE = 10
 
 
 def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
-    """The committed trained weights of a preset: ``{"params": the float
-    tree of the natural layout's model (K classes: the K-class MatteNet,
+    """The committed trained weights of a preset: ``{"params":
+    :func:`matting_weights`, "face_params": :func:`face_weights`}``."""
+    return {"params": matting_weights(statics, weights_dir),
+            "face_params": face_weights(statics, weights_dir)}
+
+
+def matting_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
+    """The committed trained matting tree of a preset: the float tree of the
+    natural layout's model (K classes: the K-class MatteNet,
     ``mattenet_multiclass``; ``matting_input='resized'``: by
     ``matting_arch``, ``FLOAT_EXPORTS``: MatteNet, RVM, U2Net), or of the
     float MatteNetHD (``matting_precision='bf16'``: plan A, one class, on
-    either layout, ``mattenet_hd``; its other plans and K have no committed
+    either layout, ``mattenet_hd``; at stem stride 10 the pico of one class
+    and of K=4, ``FLOAT_HD_EXPORTS``; the other plans have no committed
     float export, and a KeyError names the checkpoint), else the int8
     serving dict of statics.matting_decoder (``EXPORTS[plan]`` for one
-    class, ``MULTICLASS_EXPORTS[plan]`` for K), "face_params":
-    :func:`face_weights`}``."""
+    class, ``MULTICLASS_EXPORTS[plan]`` for K)."""
     d = Path(weights_dir)
     plan = statics.matting_decoder
     if statics.frame_layout == "natural" and statics.num_classes > 1:
@@ -173,6 +186,9 @@ def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
     elif statics.matting_input == "native" and statics.matting_precision == "bf16":
         if statics.s2d_block < 8 and statics.num_classes == 1:
             matting = NATIVE_EXPORT  # plan A: the same tree over either layout
+        elif (statics.s2d_block == FLOAT_HD_STRIDE
+              and (plan, statics.num_classes) in FLOAT_HD_EXPORTS):
+            matting = FLOAT_HD_EXPORTS[plan, statics.num_classes]
         else:
             ckpt = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS).get(plan)
             where = (f"its trained float tree is the reference's orbax checkpoint "
@@ -187,8 +203,7 @@ def trained_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:
         matting = FLOAT_EXPORTS[statics.matting_arch]
     else:
         matting = (EXPORTS if statics.num_classes == 1 else MULTICLASS_EXPORTS)[plan]
-    return {"params": load_export(d / f"{matting}.npz"),
-            "face_params": face_weights(statics, weights_dir)}
+    return load_export(d / f"{matting}.npz")
 
 
 def face_weights(statics, weights_dir=WEIGHTS_DIR) -> dict:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -193,6 +194,40 @@ def gather_rows(parts: list, device) -> torch.Tensor:
     if len(parts) == 1 and parts[0].device == device:
         return parts[0]
     return torch.cat([p.to(device, non_blocking=True) for p in parts])
+
+
+def data_parallel_forward(mesh: Mesh, replicas: list, batch: int):
+    """A model's forward over the mesh's data shards, for calls whose
+    leading axis is ``batch`` (any other raises ValueError: a loss that
+    calls the model on part of the batch would train another function):
+    the call's tensors split on that axis (:func:`shard_stream_tree`), each
+    shard's rows through its replica (:func:`shard_replicas`), and every
+    output gathered in shard order on the first device
+    (:func:`gather_stream_tree`).  Each replica runs its class's own
+    forward, so the result may be installed on ``replicas[0]``
+    (:func:`installed_forward`) without calling itself."""
+    forwards = [functools.partial(type(r).forward, r) for r in replicas]
+
+    def forward(x, *args, **kwargs):
+        if x.shape[0] != batch:
+            raise ValueError(f"the model was called on {x.shape[0]} rows of a step made "
+                             f"for a batch of {batch}")
+        parts = shard_stream_tree(mesh, (x, args, kwargs))
+        outs = [f(px, *pa, **pk) for f, (px, pa, pk) in zip(forwards, parts)]
+        return gather_stream_tree(outs, mesh.first)
+
+    return forward
+
+
+@contextlib.contextmanager
+def installed_forward(module: torch.nn.Module, forward):
+    """``module(...)`` calls ``forward`` inside the context (an attribute of
+    the instance over its class's method), and its own forward after."""
+    module.forward = forward
+    try:
+        yield module
+    finally:
+        del module.forward
 
 
 def reduce_sum(tensors: list, device) -> torch.Tensor:

@@ -5,4 +5,5 @@ face scenes and losses (``face.py``), the articulated people
 trainers, each run as ``python -m video_stream_segmenetation_tpu_torch.
 train.<name>``: ``flagship`` (the MatteNetHD plans and the MatteNet),
 ``face_trainer`` (the FaceFinder and the LandmarkNet), ``variants`` (the
-recurrent, saliency and K-class nets)."""
+recurrent, saliency and K-class nets), ``realbg`` (the photo-background
+fine-tunes; their quality gates are the package's ``evaluate``)."""

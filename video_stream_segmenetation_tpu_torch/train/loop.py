@@ -18,6 +18,7 @@ import torch
 from video_stream_segmenetation_tpu_torch.models.mattenet_hd import MatteNetHD
 from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_params as init_hd
 from video_stream_segmenetation_tpu_torch.models.modnet import MatteNet, init_mattenet_params
+from video_stream_segmenetation_tpu_torch.models.u2net import SaliencyNet, init_u2net_params
 from video_stream_segmenetation_tpu_torch.ops.resize import resize_bilinear
 from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 from video_stream_segmenetation_tpu_torch.train.losses import iou_metric
@@ -112,7 +113,10 @@ def seeded_tree(model: torch.nn.Module, seed: int) -> dict:
         return init_hd(model.decoder, seed, model.stem_stride, model.num_classes)
     if isinstance(model, MatteNet):
         return init_mattenet_params(seed, model.num_classes)
-    raise TypeError(f"fit trains a MatteNetHD or a MatteNet, not {type(model).__name__}")
+    if isinstance(model, SaliencyNet):
+        return init_u2net_params(seed)
+    raise TypeError(f"fit trains a MatteNetHD, a MatteNet or a SaliencyNet, not "
+                    f"{type(model).__name__}")
 
 
 def _eval_iou(model, frames, gt) -> float:
@@ -155,11 +159,10 @@ def fit(model: torch.nn.Module, hw: tuple[int, int] = (96, 160), batch: int = 16
     is split on its leading axis over the data axis (``batch`` must divide
     over it, or ValueError), and each step computes the one-device loss of
     the whole batch (train/step.py::make_dp_train_step).
-    ``steps_per_call`` is ignored under a mesh, as the reference ignores
-    it; ``loss_fn`` (a closure over one model) is refused there."""
-    if mesh is not None and loss_fn is not None:
-        raise ValueError("fit(mesh=...) trains the matting loss of the whole batch; a "
-                         "loss_fn closes over one model")
+    ``loss_fn`` runs there as on one device, ``model``'s forward being the
+    mesh's for the length of each step's loss (it must call the model on
+    the whole batch, or ValueError).  ``steps_per_call`` is ignored under a
+    mesh, as the reference ignores it."""
     data_fn = data_fn or synthetic_matting_batch
     dev = next(model.parameters()).device
     if init_params is None:
@@ -169,7 +172,7 @@ def fit(model: torch.nn.Module, hw: tuple[int, int] = (96, 160), batch: int = 16
     tx = make_optimizer(lr)
     state, _ = init_train_state(model, tx)
     step_fn = (make_train_step(model, tx, loss_fn=loss_fn) if mesh is None
-               else make_dp_train_step(model, tx, mesh, batch))
+               else make_dp_train_step(model, tx, mesh, batch, loss_fn=loss_fn))
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     history = []

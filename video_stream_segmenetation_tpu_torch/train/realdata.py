@@ -124,6 +124,25 @@ def render_ellipse_batch(bank: torch.Tensor, d: dict, hw):
     return frame, alpha
 
 
+def articulated_draws(gen: torch.Generator, batch: int, n: int, bank_hw, hw) -> dict:
+    """The draws of the articulated batch over photos: the ``crop``
+    (:func:`crop_draws`), then the ``scene`` (train/person.py::
+    scene_draws)."""
+    return {"crop": crop_draws(gen, batch, n, bank_hw, hw),
+            "scene": P.scene_draws(gen, batch, hw)}
+
+
+def render_articulated(bank: torch.Tensor, d: dict, hw, return_parts: bool = False):
+    """``(frames [B, H, W, 3], alpha [B, H, W])`` of
+    :func:`articulated_draws`: the articulated person with face features
+    and an occluder at probability 0.3 over the augmented photo crop; with
+    ``return_parts`` the occluder-cut parts third."""
+    bg = crop_backgrounds(bank, d["crop"], hw)
+    out = P.render_scene(d["scene"], hw, bg, features=True, occluder_p=0.3,
+                         return_parts=return_parts)
+    return (out[0], out[1], out[3]) if return_parts else out[:2]
+
+
 def make_real_bg_data_fn(bank: np.ndarray, device_bank: torch.Tensor | None = None,
                          person: str = "ellipse", return_parts: bool = False, device="cuda"):
     """``data_fn(generator, batch, hw)`` compositing procedural people over
@@ -141,10 +160,8 @@ def make_real_bg_data_fn(bank: np.ndarray, device_bank: torch.Tensor | None = No
 
     if person == "articulated":
         def articulated_fn(gen, batch: int, hw):
-            bg = crop_backgrounds(bank_t, crop_draws(gen, batch, n, (bh, bw), hw), hw)
-            out = P.person_scene(gen, batch, hw, bg, features=True, occluder_p=0.3,
-                                 return_parts=return_parts)
-            return (out[0], out[1], out[3]) if return_parts else out[:2]
+            return render_articulated(bank_t, articulated_draws(gen, batch, n, (bh, bw), hw),
+                                      hw, return_parts)
 
         return articulated_fn
 

@@ -20,10 +20,10 @@ from typing import Callable
 import torch
 
 from video_stream_segmenetation_tpu_torch.parallel.mesh import (
-    gather_rows,
+    data_parallel_forward,
+    installed_forward,
     reduce_sum,
     shard_replicas,
-    shard_stream_tree,
     stream_sharding,
 )
 from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
@@ -150,19 +150,26 @@ def make_train_step(model: torch.nn.Module, tx: ClipAdamW,
     return train_step
 
 
-def make_dp_train_step(model: torch.nn.Module, tx: ClipAdamW, mesh, batch: int):
+def make_dp_train_step(model: torch.nn.Module, tx: ClipAdamW, mesh, batch: int,
+                       loss_fn: Callable | None = None):
     """The data-parallel :func:`make_train_step` over ``mesh`` (the
     reference's train step jitted over replicated parameters and a batch
     sharded on ``DATA_AXIS``), for batches of ``batch`` (it must divide over
     the data axis, or ValueError).  ``model`` lives on the mesh's first
     device; each other shard gets a replica of it on its device.  A step:
-    each shard's forward on its rows of the batch and its replica, the
-    outputs gathered on the first device, the unchanged matting loss of the
-    whole batch there (its sums normalise over the whole batch, so a mean
-    of per-shard losses would be another loss), one backward, the
-    replicas' gradients summed in shard order on the first device
-    (parallel/mesh.py::reduce_sum), one ClipAdamW update with the global
-    norm of that sum, and the parameters copied back to the replicas.
+    the loss of the whole batch on the first device, with ``model``'s
+    forward replaced for its length by the mesh's
+    (parallel/mesh.py::data_parallel_forward: each shard's rows through its
+    replica, the outputs gathered on the first device), so that the loss's
+    sums normalise over the whole batch (a mean of per-shard losses would
+    be another loss); one backward, the replicas' gradients summed in
+    shard order on the first device (parallel/mesh.py::reduce_sum), one
+    ClipAdamW update with the global norm of that sum, and the parameters
+    copied back to the replicas.  The loss is the matting loss of
+    ``model``'s outputs, or ``loss_fn(frames, alpha_gt) -> (loss,
+    metrics)``, a closure over ``model`` as :func:`make_train_step` takes
+    it (losses.make_pipeline_loss); it must call the model on the whole
+    batch (a call on other rows raises ValueError).
     ``train_step(state, frames, alpha_gt) -> (state, metrics)`` as
     :func:`make_train_step`'s; ``train_step.grads(frames, alpha_gt) ->
     (loss, metrics, summed gradients)`` is its first half,
@@ -174,15 +181,17 @@ def make_dp_train_step(model: torch.nn.Module, tx: ClipAdamW, mesh, batch: int):
         r.requires_grad_(True)
     names = [k for k, _ in model.named_parameters()]
     params = [dict(r.named_parameters()) for r in replicas]
+    forward = data_parallel_forward(mesh, replicas, batch)
+    if loss_fn is None:
+        def loss_fn(frames, alpha_gt):
+            return matting_loss(model(frames), alpha_gt, frames)
 
     def grads(frames, alpha_gt):
         """``(loss, metrics, the gradients summed over the replicas)``."""
         if frames.shape[0] != batch:
             raise ValueError(f"a batch of {frames.shape[0]} for a step made for {batch}")
-        with torch.enable_grad():
-            outs = [r(x) for r, x in zip(replicas, shard_stream_tree(mesh, frames))]
-            out = {k: gather_rows([o[k] for o in outs], first) for k in outs[0]}
-            loss, metrics = matting_loss(out, alpha_gt, frames)
+        with torch.enable_grad(), installed_forward(model, forward):
+            loss, metrics = loss_fn(frames, alpha_gt)
             leaves = [p[k] for p in params for k in names]
             per_leaf = torch.autograd.grad(loss, leaves, allow_unused=True)
         n = len(names)
