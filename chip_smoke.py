@@ -16,7 +16,9 @@ Phases, each announced by one line on stdout:
      widths (trained multi-class weights, exact), with its one-class head at
      the nano and the femto widths (the trained fast_int8_nano and _femto
      weights, exact), the fused temporal refine
-     (bf16 and f32 refined alpha), the int8 decoder level at micro's u2 and
+     (bf16 and f32 refined alpha; every form also at a moved EMA gate, bit
+     for bit with its plain version there but the forms fed head-grid
+     logits), the int8 decoder level at micro's u2 and
      u1 levels (beside it, on the same inputs, the trunk's split form of
      the same function: two conv launches, held and timed as its
      yardstick), the fused 3x3 conv in its four forms (act or not, residual
@@ -257,7 +259,20 @@ Phases, each announced by one line on stdout:
      (held to the reference's record) and on the run's flagship candidate,
      the realistic gate on the committed pico over the photos, each gate's
      trunk and refine launches counted and the trunk held against its
-     plain version.
+     plain version;
+  54. tools: the parity and tuning tools of the package on the card, each
+     with its launch counts set to 0 before it and read after:
+     parity_check on the committed frames cycled to 8 (fast_int8_pico at
+     720p) against the masks of its own CPU run, every frame at least
+     0.99, and --synthetic within 0.02 of the CPU's mean; face_parity's
+     four sections (port fidelity 1e-4 relative, the decode's anchors all
+     equal with IoU 0.9999, blaze's NMS count equal and rows within 1e-6);
+     parity_matting's int8 against float pipelines at 720p (at least 0.99)
+     and its whole report at --small's geometry with 2 oracle frames, each
+     section within 0.02 of the CPU's (the oracle sections printed against
+     their predicted 0.99); tune_adaptive_ema, two adapts at a moved gate
+     and at the default (adapt 0 the same, adapt 1 not); and
+     diag_realistic_clips, 8 frames a clip, on 4 photographs it writes.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and the result line {"ok": true, "device":
 {...}}.  Any failure raises and exits non-zero; without a card it exits
@@ -744,6 +759,106 @@ def check_refine_debug(dev) -> dict:
                 f"{PREV_TOL:g}), refined {got.dtype} max_abs_err {err:.3e} (tolerance "
                 f"{tol:g}), {ms:.3f} ms")
             errs[name] = max(errs.get(name, 0.0), err_prev, err)
+    return errs
+
+
+# the EMA's motion gate moved off runtime/config.py's (0.10, 0.40): (t0, t1)
+MOVED_GATE = (0.05, 0.25)
+
+
+def check_refine_gate(dev) -> dict:
+    """Rows 2, 2p, 2f and 3 at :data:`MOVED_GATE`, runtime/config.py's gate
+    moved (``ema_gate_at``) around each call: each form against its plain
+    version at the same gate, on the inputs of its own check; the
+    analytic, plane and lanes-fed forms and fused_refine bit for bit, the
+    forms fed head-grid logits within the tolerances of their default-gate
+    check (their upsample: two-tap sums against the plain version's
+    interpolation products).  The gate is live where the refined alpha at
+    the moved gate departs from the default gate's.  Returns ``{kernel
+    name: the largest error}`` and prints each form's."""
+    from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR
+    from video_stream_segmenetation_tpu_torch.ops.prior import prior_plane_from_params
+    from video_stream_segmenetation_tpu_torch.ops.temporal import temporal_ema
+    from video_stream_segmenetation_tpu_torch.ops.warp import separable_warp_indices
+    from video_stream_segmenetation_tpu_torch.runtime.config import ema_gate_at
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    t0, t1 = MOVED_GATE
+    f32, bf16 = torch.float32, torch.bfloat16
+    forms = []  # (label, counter, wrapper, plain, prev tol, alpha tol)
+    (alpha, prev, guide, affine, init, use_warp, has_prior, pp, knobs) = _refine_inputs(dev, 2)
+    hw = alpha.shape[-2:]
+    yi, xi = separable_warp_indices(affine, hw)
+
+    table = TR.scalar_table(knobs, use_warp, init, 0.3, pp, has_prior)
+    forms.append(("analytic bf16", "refine_fused",
+                  lambda: TR.fused_temporal_refine(alpha, prev, affine, use_warp, init, 0.3,
+                                                   guide, pp, has_prior, knobs),
+                  lambda: TR.fused_temporal_refine_plain(alpha, prev, yi, xi, guide, table),
+                  0.0, 0.0))
+    (alpha_p, prev_p, guide_p, affine_p, init_p, warp_p, hp_p, pp_p, knobs_p) = \
+        _refine_inputs(dev, 6)
+    plane = torch.where(hp_p[:, None, None], prior_plane_from_params(pp_p, hw),
+                        torch.zeros((), device=dev)).contiguous()
+    yi_p, xi_p = separable_warp_indices(affine_p, hw)
+    table_p = TR.scalar_table(knobs_p, warp_p, init_p, 0.3, torch.zeros_like(pp_p), hp_p)
+    forms.append(("plane f32", "refine_fused_plane",
+                  lambda: TR.fused_temporal_refine_plane(
+                      alpha_p, prev_p, affine_p, warp_p, init_p, 0.3, guide_p, plane, hp_p,
+                      knobs_p, out_dtype=f32),
+                  lambda: TR.fused_temporal_refine_plain(
+                      alpha_p, prev_p, yi_p, xi_p, guide_p, table_p, f32, plane),
+                  0.0, 0.0))
+    (logits, alpha_f, lanes, geom, prev_f, guide_f, affine_f, init_f, warp_f, hp_f, pp_f,
+     knobs_f) = fast_refine_inputs(dev, 9)
+    yi_f, xi_f = separable_warp_indices(affine_f, hw)
+    table_f = TR.scalar_table(knobs_f, warp_f, init_f, 0.3, pp_f, hp_f)
+    for label, lowres, use_lanes in FAST_FORMS:
+        a_src, g_src = (logits if lowres else alpha_f), (lanes if use_lanes else guide_f)
+        lr, gg = (tuple(hw) if lowres else None), (geom if use_lanes else None)
+        forms.append((
+            f"fast {label}", "refine_fused_fast",
+            lambda a_src=a_src, g_src=g_src, lr=lr, gg=gg: TR.fused_temporal_refine_fast(
+                a_src, prev_f, affine_f, warp_f, init_f, 0.3, g_src, pp_f, hp_f, knobs_f,
+                alpha_lowres_hw=lr, guide_lanes_geom=gg),
+            lambda a_src=a_src, g_src=g_src, lr=lr, gg=gg: TR.fused_temporal_refine_plain(
+                a_src, prev_f, yi_f, xi_f, g_src, table_f, bf16, None, lr, gg),
+            PREV_TOL if lowres else 0.0, REFINED_TOL if lowres else 0.0))
+    # row 3 reads no gate: the exact warp's EMA (ops/temporal.py) at the
+    # moved gate makes its input, as a step at that gate does
+    alpha_r, prev_r, guide_r, _, init_r, _, hp_r, pp_r, knobs_r = _refine_inputs(dev, 7)
+    plane_r = torch.where(hp_r[:, None, None], prior_plane_from_params(pp_r, hw),
+                          torch.zeros((), device=dev)).contiguous()
+
+    def ema_r():
+        return temporal_ema(prev_r, alpha_r, knobs_r.ema, init_r, adapt=knobs_r.ema_adapt)
+
+    forms.append(("fused_refine after the exact warp's EMA", "fused_refine",
+                  lambda: (ema_r()[0], TR.fused_refine(ema_r()[1].contiguous(), guide_r,
+                                                       plane_r, hp_r, knobs_r)),
+                  lambda: (ema_r()[0], TR.fused_refine_plain(
+                      ema_r()[1].contiguous(), guide_r, plane_r, TR.refine_table(knobs_r, hp_r))),
+                  0.0, 0.0))
+    errs = {}
+    for label, counter, kernel, plain, prev_tol, tol in forms:
+        with ema_gate_at(t0, t1):
+            got_prev, got = kernel()
+            with pinned():
+                want_prev, want = plain()
+        with pinned():
+            at_default = plain()[1]
+        torch.cuda.synchronize()
+        err_prev = (got_prev - want_prev).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        live = (want.float() - at_default.float()).abs().max().item()
+        say(f"  {counter} {label} at the gate t0={t0}, t1={t1}: new_prev max_abs_err "
+            f"{err_prev:.3e} (tolerance {prev_tol:g}), refined {got.dtype} max_abs_err "
+            f"{err:.3e} (tolerance {tol:g}); the refined alpha {live:.3e} from the default "
+            f"gate's (must not be 0)")
+        if not (err_prev <= prev_tol and err <= tol and live > 0):
+            raise AssertionError(f"{counter} {label} at a moved gate: {err_prev}, {err}, "
+                                 f"{live}")
+        errs[counter] = max(errs.get(counter, 0.0), err_prev, err)
     return errs
 
 
@@ -3948,6 +4063,227 @@ def phase_realbg(dev) -> dict:
     return out
 
 
+# the tools phase: the package's parity and tuning tools on the card, each
+# against its own run on the CPU where the bar is the card's agreement
+TOOLS_FRAMES = 8  # frames a clip (the committed frames cycled; each articulated clip)
+TOOLS_ORACLE_FRAMES = 2  # parity_matting's per-pixel oracle frames, at --small's geometry
+TOOLS_PHOTOS = 4
+TOOL_FRAME_IOU = 0.99  # parity_check, card against CPU, every frame (the watch list's bar)
+TOOL_IOU_SLACK = 0.02  # a mean IoU of the card against the CPU's (tests/test_torch_gates.py)
+FIDELITY_REL = 1e-4  # face_parity port_fidelity max_rel (the reference's record: 1e-6 - 4e-6)
+NMS_ABS = 1e-6  # face_parity blaze_nms rows (one f32 rounding)
+DECODE_IOU = 0.9999  # face_parity decode_consistency, least box IoU (the record: 0.999999)
+INT8_FLOAT_IOU = 0.99  # parity_matting int8_vs_float_pipeline at 720p (the record: 0.9991)
+# parity_matting's oracle sections at --small's geometry: predicted, printed
+# with the reading (the reference's record at 720p on its photographs:
+# 0.9982 / 0.9942; at 96x128 the served masks are not the flagship's
+# quality, and the guide's nearest taps against the oracle's bilinear
+# resize part more pixels); the card is held to the CPU's reading
+ORACLE_PREDICTION = 0.99
+
+
+def tool_launches(name: str, launches: dict, trunk: int, refine: int) -> None:
+    """A tool's card run launched the int8 trunk ``trunk`` times and the
+    temporal refine (any form) ``refine`` times."""
+    got = {"trunk": launches.get("trunk_int8", 0),
+           "refine": sum(n for k, n in launches.items() if "refine" in k)}
+    for kernel, want in (("trunk", trunk), ("refine", refine)):
+        if got[kernel] != want:
+            raise AssertionError(f"{name}: {kernel} launched {got[kernel]} times, expected "
+                                 f"{want}; {launches}")
+
+
+def phase_tools(dev) -> dict:
+    """parity_check (the committed frames cycled to TOOLS_FRAMES, against
+    the masks of its own CPU run; --synthetic on the card and on the CPU),
+    face_parity's four sections, parity_matting (int8 against float at
+    720p; the whole report at --small's geometry with TOOLS_ORACLE_FRAMES
+    oracle frames, on the card and on the CPU), tune_adaptive_ema (two
+    adapts at a moved gate and at the default) and diag_realistic_clips,
+    on TOOLS_PHOTOS written photographs.  Each tool's launch counts are set
+    to 0 before its card run and read after.  Returns ``{tool: (figures,
+    launches, seconds)}`` and ``wall_s``."""
+    import shutil
+    import tempfile
+
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch import diag_realistic_clips as DG
+    from video_stream_segmenetation_tpu_torch import face_parity as FP
+    from video_stream_segmenetation_tpu_torch import parity_check as PC
+    from video_stream_segmenetation_tpu_torch import parity_matting as PM
+    from video_stream_segmenetation_tpu_torch import tune_adaptive_ema as TA
+    from video_stream_segmenetation_tpu_torch.runtime import config as cfg
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    out = {}
+
+    def run(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        out[name] = (res, launches, time.perf_counter() - t0)
+        return res, launches
+
+    d = Path(tempfile.mkdtemp(prefix="vst_tools_"))
+    try:
+        # parity_check: the committed frames, the CPU's masks as the reference
+        frames, gt = bridge.load_frames()
+        idx = np.arange(TOOLS_FRAMES) % len(frames)
+        clip = d / "clip.npz"
+        np.savez(clip, frames=frames[idx], masks=gt[idx].astype(np.float32) / 255.0)
+        cpu = PC.run(PC.parse_args(["--clip", str(clip), "--device", "cpu", "--save-masks",
+                                    str(d / "cpu_masks.npz")]))
+        card, launches = run("parity_check", lambda: PC.run(PC.parse_args(
+            ["--clip", str(clip), "--ref", str(d / "cpu_masks.npz"), "--device", str(dev)])))
+        out["parity_check_cpu_vs_truth"] = cpu
+        if not (card["iou_min"] >= TOOL_FRAME_IOU and card["frames"] == TOOLS_FRAMES):
+            raise AssertionError(f"parity_check on the card against its CPU masks: {card}")
+        tool_launches("parity_check", launches, trunk=TOOLS_FRAMES, refine=TOOLS_FRAMES)
+        cpu_s = PC.run(PC.parse_args(["--synthetic", "--frames", str(TOOLS_FRAMES),
+                                      "--device", "cpu"]))
+        card_s, launches = run("parity_check --synthetic", lambda: PC.run(PC.parse_args(
+            ["--synthetic", "--frames", str(TOOLS_FRAMES), "--device", str(dev)])))
+        out["parity_check_synthetic_cpu"] = cpu_s
+        if not abs(card_s["iou_mean"] - cpu_s["iou_mean"]) <= TOOL_IOU_SLACK:
+            raise AssertionError(f"parity_check --synthetic: card {card_s}, CPU {cpu_s}")
+        tool_launches("parity_check --synthetic", launches, trunk=0, refine=TOOLS_FRAMES)
+
+        # face_parity: the four sections on the card
+        rep, launches = run("face_parity", lambda: FP.report(dev))
+        fid = max(v["max_rel"] for outs in rep["port_fidelity"].values() for v in outs.values())
+        dc, bn = rep["decode_consistency"], rep["blaze_nms"]
+        if not (fid <= FIDELITY_REL and dc["best_anchor_agreement"] == 1.0
+                and dc["box_iou_torch_vs_numpy_min"] >= DECODE_IOU
+                and bn["selected_count_match"] and bn["max_abs_diff"] <= NMS_ABS):
+            raise AssertionError(f"face_parity on the card: {rep}")
+        # build_torch_fn and the face models run in PyTorch: no kernel of the port
+        if launches:
+            raise AssertionError(f"face_parity launched {launches}")
+
+        # parity_matting: int8 against float at 720p; the report at --small
+        photos = d / "photos"
+        photos.mkdir()
+        write_photos(photos, TOOLS_PHOTOS)
+        i8f, launches = run("parity_matting int8_vs_float 720p", lambda: PM.int8_vs_float(
+            photos, FRAME_HW, (288, 512), TOOLS_FRAMES, device=dev))
+        if not i8f["iou_mean"] >= INT8_FLOAT_IOU:
+            raise AssertionError(f"parity_matting int8 vs float at 720p: {i8f}")
+        # the int8 engines a frame of the four clips, the float ones a frame
+        n = 4 * TOOLS_FRAMES
+        tool_launches("parity_matting int8_vs_float", launches, trunk=n, refine=2 * n)
+        small = dict(small=True, n_frames=TOOLS_FRAMES, n_oracle=TOOLS_ORACLE_FRAMES)
+        pm_cpu = PM.report(photos, device="cpu", **small)
+        pm_card, launches = run("parity_matting --small", lambda: PM.report(photos, device=dev,
+                                                                              **small))
+        out["parity_matting_cpu"] = pm_cpu
+        gaps = {k: abs(v["iou_mean"] - pm_cpu[k]["iou_mean"]) for k, v in pm_card.items()
+                if isinstance(v, dict) and "iou_mean" in v}
+        if not max(gaps.values()) <= TOOL_IOU_SLACK:
+            raise AssertionError(f"parity_matting --small, card against CPU: {gaps}")
+        # int8: the three clips and the face clip; float: the three clips, the
+        # first again at ema_adapt 0, the three at ema 0, the face clip twice
+        # (the model-only engines run no refine)
+        tool_launches("parity_matting --small", launches, trunk=4 * TOOLS_FRAMES,
+                      refine=13 * TOOLS_FRAMES)
+        out["parity_matting_gaps"] = gaps
+
+        # tune_adaptive_ema: two adapts at the moved gate and at the default
+        argv = ["--photos", str(photos), "--frames", str(TOOLS_FRAMES), "--adapts", "0,1",
+                "--device", str(dev)]
+        moved, launches = run("tune_adaptive_ema", lambda: TA.main(
+            argv + ["--t0", str(MOVED_GATE[0]), "--t1", str(MOVED_GATE[1])]))
+        if (cfg.EMA_ADAPT_T0, cfg.EMA_ADAPT_T1) != (0.10, 0.40):
+            raise AssertionError(f"tune_adaptive_ema: the gate {cfg.EMA_ADAPT_T0}, "
+                                 f"{cfg.EMA_ADAPT_T1} after the sweep")
+        # two adapts over the four clips, one int8 engine
+        n = 2 * 4 * TOOLS_FRAMES
+        tool_launches("tune_adaptive_ema", launches, trunk=n, refine=n)
+        at_default = TA.main(argv)
+        out["tune_default_gate"] = at_default
+        a0 = [abs(moved["adapt=0.0"][k] - at_default["adapt=0.0"][k]) for k in ("iou_mean",
+                                                                          "flicker")]
+        a1 = [abs(moved["adapt=1.0"][k] - at_default["adapt=1.0"][k])
+              for k in ("iou_mean", "temporal_stability", "flicker")]
+        if not (max(a0) <= 1e-3 and max(a1) > 0):
+            raise AssertionError(f"tune_adaptive_ema: adapt 0 moved by the gate {a0}, adapt 1 "
+                                 f"not {a1}")
+
+        # diag_realistic_clips
+        diag, launches = run("diag_realistic_clips", lambda: DG.main(
+            ["--photos", str(photos), "--frames", str(TOOLS_FRAMES), "--device", str(dev)]))
+        vals = [v for r in diag.values() for v in r.values() if isinstance(v, float)]
+        if not all(0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f"diag_realistic_clips: {diag}")
+        # the float pipeline a frame of the four clips (the model-only engine runs none)
+        tool_launches("diag_realistic_clips", launches, trunk=0, refine=4 * TOOLS_FRAMES)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def say_tools(tl: dict, smi: str) -> None:
+    """One line a tool: its figures against their bars, its launches."""
+    def fig(rep, keys=("iou_mean", "iou_min")):
+        return ", ".join(f"{k} {rep[k]:.4f}" for k in keys)
+
+    def tail(name):
+        _, launches, s = tl[name]
+        return f"; launches {launches}; {s:.1f} s; {smi}"
+
+    card = tl["parity_check"][0]
+    say(f"  parity_check (720p, the committed frames cycled to {TOOLS_FRAMES}, fast_int8_pico): "
+        f"card against the CPU's masks {fig(card)} (every frame at least {TOOL_FRAME_IOU}); "
+        f"the CPU against the ground truth {fig(tl['parity_check_cpu_vs_truth'])}"
+        + tail("parity_check"))
+    cs, cpu_s = tl["parity_check --synthetic"][0], tl["parity_check_synthetic_cpu"]
+    say(f"  parity_check --synthetic (240x320, {TOOLS_FRAMES} frames, seeded active): card "
+        f"{fig(cs)}, CPU {fig(cpu_s)} (the means within {TOOL_IOU_SLACK})"
+        + tail("parity_check --synthetic"))
+    rep = tl["face_parity"][0]
+    fid = {f"{g}.{k}": f"{v['max_rel']:.2e}" for g, outs in rep["port_fidelity"].items()
+           for k, v in outs.items()}
+    say(f"  face_parity: port_fidelity max_rel {fid} (at most {FIDELITY_REL:g}); "
+        f"decode_consistency {json.dumps(rep['decode_consistency'])} (anchors 1.0, least IoU "
+        f"{DECODE_IOU}); blaze_nms {json.dumps(rep['blaze_nms'])} (count match, rows within "
+        f"{NMS_ABS:g}); student_vs_reference {json.dumps(rep['student_vs_reference'])}"
+        + tail("face_parity"))
+    say(f"  parity_matting int8_vs_float_pipeline at 720p ({TOOLS_FRAMES} frames a clip, "
+        f"{TOOLS_PHOTOS} written photos): {fig(tl['parity_matting int8_vs_float 720p'][0])} "
+        f"(at least {INT8_FLOAT_IOU})" + tail("parity_matting int8_vs_float 720p"))
+    pm, pm_cpu = tl["parity_matting --small"][0], tl["parity_matting_cpu"]
+    fp = pm["engine_vs_oracle_face_path"]
+    oracle = {k: pm[k]["iou_mean"] for k in ("engine_vs_reference_semantics_oracle",
+                                             "engine_vs_oracle_face_path")}
+    say(f"  parity_matting --small (240x320 / 96x128, {TOOLS_FRAMES} frames, "
+        f"{TOOLS_ORACLE_FRAMES} oracle frames): card "
+        + ", ".join(f"{k} {pm[k]['iou_mean']:.4f} (CPU {pm_cpu[k]['iou_mean']:.4f})"
+                    for k in tl["parity_matting_gaps"])
+        + f" (each within {TOOL_IOU_SLACK} of the CPU's); the oracle sections against the "
+        f"prediction {ORACLE_PREDICTION}: "
+        + ", ".join(f"{k} {'met' if v >= ORACLE_PREDICTION else 'missed'}"
+                    for k, v in oracle.items())
+        + f"; the face clip: prior fired on {fp['prior_fired_frames']} frames, affine applied "
+        f"on {fp['affine_applied_frames']}" + tail("parity_matting --small"))
+    moved, dflt = tl["tune_adaptive_ema"][0], tl["tune_default_gate"]
+    say(f"  tune_adaptive_ema (720p, {TOOLS_FRAMES} frames a clip): at the gate {MOVED_GATE} "
+        + "; ".join(f"{k} iou {v['iou_mean']:.4f} stab {v['temporal_stability']:.4f} flicker "
+                    f"{v['flicker']:.5f}" for k, v in moved.items())
+        + "; at the default gate "
+        + "; ".join(f"{k} iou {v['iou_mean']:.4f} stab {v['temporal_stability']:.4f} flicker "
+                    f"{v['flicker']:.5f}" for k, v in dflt.items())
+        + " (adapt 0 the same at both gates, adapt 1 not)" + tail("tune_adaptive_ema"))
+    diag = tl["diag_realistic_clips"][0]
+    say(f"  diag_realistic_clips (720p, {TOOLS_FRAMES} frames a clip): "
+        + "; ".join(f"{k} {json.dumps(v)}" for k, v in diag.items())
+        + tail("diag_realistic_clips"))
+    say(f"  tools: the phase {tl['wall_s']:.1f} s")
+
+
 def hold(by_name: dict, phase: str, held: dict) -> None:
     """Print a held round's errors and fold them into the kernels'
     ``max_abs_err``."""
@@ -3971,7 +4307,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    steps = 18 + len(PHASES)
+    steps = 19 + len(PHASES)
     say(f"[1/{steps} device] {name}, device_count={count}, nvidia-smi: {smi}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -3989,8 +4325,13 @@ def main() -> int:
     say("  the refine kernel's debug variants (bench-only: 'no_morph' skips stages 5 and 7, "
         "'no_bilateral' stage 8) vs their plain versions with the same tokens:")
     debug_errs = check_refine_debug(dev)
+    say(f"  the refine kernel's forms at a moved EMA gate (runtime/config.py's "
+        f"EMA_ADAPT_T0/T1 = {MOVED_GATE}, the default (0.1, 0.4)) vs their plain versions "
+        "at the same gate:")
+    gate_errs = check_refine_gate(dev)
     for k in kernels:
-        k["max_abs_err"] = max(k["max_abs_err"], debug_errs.get(k["name"], 0.0))
+        k["max_abs_err"] = max(k["max_abs_err"], debug_errs.get(k["name"], 0.0),
+                               gate_errs.get(k["name"], 0.0))
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -4385,12 +4726,28 @@ def main() -> int:
         f"{sum(res['s'] for _, _, res in rb['gates']):.1f} s)")
     del rb
     torch.cuda.empty_cache()
+
+    say(f"[{k + 15}/{steps} tools] the parity and tuning tools on the card: parity_check, "
+        f"face_parity, parity_matting, tune_adaptive_ema, diag_realistic_clips "
+        f"({TOOLS_FRAMES} frames a clip, {TOOLS_PHOTOS} photographs written at "
+        f"{REALBG_PHOTO_HW[1]}x{REALBG_PHOTO_HW[0]}), against their CPU runs")
+    tl = phase_tools(dev)
+    for tool in ("parity_check", "parity_check --synthetic", "face_parity",
+                 "parity_matting int8_vs_float 720p", "parity_matting --small",
+                 "tune_adaptive_ema", "diag_realistic_clips"):
+        for counter, got in tl[tool][1].items():
+            if counter in by_name:
+                by_name[counter]["launches"] += got
+    say_tools(tl, smi)
+    del tl
+    torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     say(smi)
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                           "count": count}}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -15,10 +15,12 @@ extern "C" int vst_temporal_refine_debug(const void* alpha, const void* prev,
                                          const void* wts, void* new_prev, void* out,
                                          int out_f32, int lanes, int S, int H, int W,
                                          int h0, int w0, int fy, int fx, int pad,
-                                         int debug, void* stream) {
+                                         int debug, float ema_t0, float ema_inv_ramp,
+                                         void* stream) {
 #define VARIANT(D)                                                                  \
   temporal_refine<D>(alpha, prev, yi, xi, guide, knobs, prior, taps, wts, new_prev, \
-                     out, out_f32, lanes, S, H, W, h0, w0, fy, fx, pad, stream)
+                     out, out_f32, lanes, S, H, W, h0, w0, fy, fx, pad, ema_t0,     \
+                     ema_inv_ramp, stream)
   switch (debug) {
     case DEBUG_NO_MORPH:
       return VARIANT(DEBUG_NO_MORPH);

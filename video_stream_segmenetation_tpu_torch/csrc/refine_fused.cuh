@@ -31,7 +31,8 @@
 // Per stream, stages 3-9 of the reference pipeline:
 //   3  nearest warp of prev by per-row/per-column source indices yi/xi
 //      (-1 reads 0), blended wb*warped + (1-wb)*alpha where use_warp;
-//   4  motion-gated EMA, first frame copied -> new_prev;
+//   4  motion-gated EMA, first frame copied -> new_prev (the gate, t0 and
+//      1 / (t1 - t0), two arguments of the launch: the step's);
 //   5  3x3 opening, interior only, zero border;
 //   7  3x3 closing inside the face prior, where the stream has one;
 //   8  joint bilateral 3x3 on the u8 guide, self-normalising at the edges;
@@ -102,9 +103,6 @@ enum {
   K_LOW, K_HIGH, K_GAMMA, K_USE_BI, K_SS, K_SR, K_HAS_PRIOR, K_EMA,
   K_ADAPT, K_USE_WARP, K_INIT, K_WB, K_PCX, K_PCY, K_PRX, K_PRY
 };
-
-#define EMA_T0 ((float)0.10)
-#define EMA_INV_RAMP ((float)(1.0 / (0.40 - 0.10)))
 #define FACE_FLOOR 0.55f
 #define NEAR_BG_CAP 0.35f
 #define NEAR_BG_BLEND 0.15f
@@ -161,7 +159,7 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
               const int* __restrict__ taps, const float* __restrict__ wts,
               float* __restrict__ new_prev, void* __restrict__ out,
               int out_f32, int S, int H, int W, int h0, int w0, int fy, int fx,
-              int pad, int seg) {
+              int pad, int seg, float ema_t0, float ema_inv_ramp) {
   // stage k's rows, k = 0..3, row mod 2 (stage k+1 reads one of them a
   // step, the one stage k wrote the step before), and stage 4's, row mod 4
   // (stage 5 reads three)
@@ -552,7 +550,7 @@ refine_kernel(const float* __restrict__ alpha, const float* __restrict__ prev,
           float base = ar;
           if (use_warp) base = l_warp[q] * wb + ar * (1.0f - wb);
           const float dd = fabsf(base - l_pv[q]);
-          const float m = fminf(fmaxf((dd - EMA_T0) * EMA_INV_RAMP, 0.0f), 1.0f);
+          const float m = fminf(fmaxf((dd - ema_t0) * ema_inv_ramp, 0.0f), 1.0f);
           const float ke = ema * (1.0f - ad * m);
           v[q] = init ? ke * l_pv[q] + (1.0f - ke) * base : base;
           if (y0 >= ys && y0 < ye && out_col[q])
@@ -589,8 +587,8 @@ template <bool TEMPORAL, bool PLANE, bool LOWRES = false, bool LANES = false, in
 static int launch(const void* alpha, const void* prev, const void* yi,
                   const void* xi, const void* guide, const void* knobs,
                   const void* prior, void* new_prev, void* out, int out_f32,
-                  int S, int H, int W, int pad, void* stream,
-                  const void* taps = nullptr, const void* wts = nullptr,
+                  int S, int H, int W, int pad, float ema_t0, float ema_inv_ramp,
+                  void* stream, const void* taps = nullptr, const void* wts = nullptr,
                   int h0 = 0, int w0 = 0, int fy = 1, int fx = 1) {
   static int slots = 0;  // the blocks the card holds at once, by the launch bounds
   if (slots == 0) {
@@ -608,11 +606,13 @@ static int launch(const void* alpha, const void* prev, const void* yi,
           (const float*)alpha, (const float*)prev, (const int*)yi,
           (const int*)xi, (const uint8_t*)guide, (const float*)knobs,
           (const float*)prior, (const int*)taps, (const float*)wts,
-          (float*)new_prev, out, out_f32, S, H, W, h0, w0, fy, fx, pad, seg);
+          (float*)new_prev, out, out_f32, S, H, W, h0, w0, fy, fx, pad, seg, ema_t0,
+          ema_inv_ramp);
   return (int)cudaGetLastError();
 }
 
-// stages 3-9 in the variants DEBUG: the analytic prior from the scalar
+// stages 3-9 in the variants DEBUG, the EMA gated by ema_t0 and
+// ema_inv_ramp: the analytic prior from the scalar
 // table (prior == NULL) or the [S, H, W] f32 plane; the fast form (analytic
 // prior only) with taps != NULL, alpha the head-grid logits [S, h0, w0]
 // (h0 <= H, w0 <= W) and taps/wts the two taps of the interpolation
@@ -623,16 +623,17 @@ static int temporal_refine(const void* alpha, const void* prev, const void* yi,
                            const void* prior, const void* taps, const void* wts,
                            void* new_prev, void* out, int out_f32, int lanes, int S,
                            int H, int W, int h0, int w0, int fy, int fx, int pad,
-                           void* stream) {
+                           float ema_t0, float ema_inv_ramp, void* stream) {
   const bool lowres = taps != nullptr;
   if (prior != nullptr && (lowres || lanes)) return (int)cudaErrorInvalidValue;
   if (prior != nullptr)
     return launch<true, true, false, false, DEBUG>(alpha, prev, yi, xi, guide, knobs, prior,
                                                    new_prev, out, out_f32, S, H, W, pad,
-                                                   stream);
+                                                   ema_t0, ema_inv_ramp, stream);
 #define FAST(L, N)                                                              \
   launch<true, false, L, N, DEBUG>(alpha, prev, yi, xi, guide, knobs, nullptr,  \
-                                   new_prev, out, out_f32, S, H, W, pad, stream, \
+                                   new_prev, out, out_f32, S, H, W, pad, ema_t0,  \
+                                   ema_inv_ramp, stream,                          \
                                    taps, wts, h0, w0, fy, fx)
   if (lowres) return lanes ? FAST(true, true) : FAST(true, false);
   return lanes ? FAST(false, true) : FAST(false, false);

@@ -22,6 +22,11 @@ Replaces the Pallas kernels of
 
 new_prev stays f32; the temporal forms' refined alpha is bf16 or f32
 (``out_dtype``, the reference's ``refined_dtype``), fused_refine's f32.
+The EMA's motion gate, ``(t0, 1 / (t1 - t0))`` (Python floats, each
+rounded once to f32 where it is used), is read from
+runtime/config.py::ema_gate at each call, as the reference reads
+``EMA_ADAPT_T0/T1`` when it traces its kernel; the kernel takes it as two
+arguments of the launch.
 
 The temporal forms take the reference's bench-only ``debug`` tokens
 (``'no_morph'``: stages 5 and 7 skipped; ``'no_bilateral'``: stage 8
@@ -58,6 +63,7 @@ from video_stream_segmenetation_tpu_torch.ops.warp import (
     separable_warp_indices,
     warp_separable_gather,
 )
+from video_stream_segmenetation_tpu_torch.runtime.config import ema_gate
 
 # column order of the per-stream scalar table the kernel reads
 KNOB_COLUMNS = (
@@ -205,10 +211,11 @@ def _launch(alpha_src, prev_alpha, yi, xi, guide_src, table, out_dtype=torch.bfl
             guide_src.data_ptr(), table.data_ptr(), _ptr(prior_plane), _ptr(taps), _ptr(wts),
             new_prev.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32),
             int(lanes), s, h, w, h0, w0, fy, fx, prior_pad((h, w)))
+    t0, inv_ramp = ema_gate()
     if bits:
-        code = lib.vst_temporal_refine_debug(*args, bits, stream)
+        code = lib.vst_temporal_refine_debug(*args, bits, t0, inv_ramp, stream)
     else:
-        code = lib.vst_temporal_refine(*args, stream)
+        code = lib.vst_temporal_refine(*args, t0, inv_ramp, stream)
     _build.check(lib, code, "temporal_refine")
     if lowres or lanes:
         counter = fused_temporal_refine_fast

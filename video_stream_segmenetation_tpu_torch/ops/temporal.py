@@ -4,30 +4,32 @@ from __future__ import annotations
 
 import torch
 
-from video_stream_segmenetation_tpu_torch.runtime.config import (
-    EMA_ADAPT_T0,
-    EMA_ADAPT_T1,
-)
+from video_stream_segmenetation_tpu_torch.runtime.config import ema_gate
 
 
 def _per_stream(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
 
 
+def motion_gate(d):
+    """``clamp((d - t0) * inv_ramp, 0, 1)``, the gate ``(t0, inv_ramp)``
+    read from runtime/config.py::ema_gate at the call."""
+    t0, inv_ramp = ema_gate()
+    return torch.clamp((d - t0) * inv_ramp, 0.0, 1.0)
+
+
 def temporal_ema(prev, current, ema, initialized, adapt=None):
     """EMA with the reference's first-frame copy, plus the motion-adaptive
     gate: the effective EMA is ``ema * (1 - adapt * m)``, m ramping 0 -> 1
-    as ``|current - prev|`` crosses [EMA_ADAPT_T0, EMA_ADAPT_T1].
+    as ``|current - prev|`` crosses [EMA_ADAPT_T0, EMA_ADAPT_T1]
+    (:func:`motion_gate`).
     ``ema``/``adapt``/``initialized`` are ``[S]``.  Returns (new_prev, out),
     which are the same tensor."""
     k = _per_stream(ema.to(current.dtype), current)
     init = _per_stream(initialized, current)
     if adapt is not None:
         ad = _per_stream(adapt.to(current.dtype), current)
-        d = torch.abs(current - prev)
-        m = torch.clamp(
-            (d - EMA_ADAPT_T0) * (1.0 / (EMA_ADAPT_T1 - EMA_ADAPT_T0)), 0.0, 1.0
-        )
+        m = motion_gate(torch.abs(current - prev))
         k = k * (1.0 - ad * m)
     blended = k * prev + (1.0 - k) * current
     new_prev = torch.where(init, blended, current)

@@ -3,11 +3,16 @@
 Port of ``video_stream_segmenetation_tpu/runtime/config.py``: the
 ``PipelineStatics`` fields that presets set, ``PipelineKnobs`` with one
 ``[S]`` tensor per knob (a slider move is a row write, never a rebuild),
-``default_knobs`` and the motion-adaptive EMA ramp ``EMA_ADAPT_T0/T1``.
+``default_knobs`` and the motion-adaptive EMA ramp ``EMA_ADAPT_T0/T1``
+(read by :func:`ema_gate` at each call of the EMA or the refine kernel,
+as the reference reads them when it traces a step: a tool that moves
+them, for instance with :func:`ema_gate_at`, moves the gate of every
+path, the refine kernel's included).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -24,6 +29,28 @@ DEFAULT_GAMMA = 0.4
 DEFAULT_USE_BILATERAL = True
 DEFAULT_BILATERAL_SIGMA_SPATIAL = 1.0
 DEFAULT_BILATERAL_SIGMA_RANGE = 12.0
+
+
+def ema_gate() -> tuple[float, float]:
+    """The motion gate as this module holds it now: ``(t0, inv_ramp)``,
+    ``inv_ramp = 1 / (EMA_ADAPT_T1 - EMA_ADAPT_T0)`` in Python double (an
+    f32 operation rounds each once, as the reference's weak-typed
+    constants are)."""
+    return EMA_ADAPT_T0, 1.0 / (EMA_ADAPT_T1 - EMA_ADAPT_T0)
+
+
+@contextlib.contextmanager
+def ema_gate_at(t0: float | None = None, t1: float | None = None):
+    """``EMA_ADAPT_T0/T1`` moved to ``t0``/``t1`` (None: that end kept)
+    for the ``with`` block, then put back."""
+    global EMA_ADAPT_T0, EMA_ADAPT_T1
+    saved = EMA_ADAPT_T0, EMA_ADAPT_T1
+    EMA_ADAPT_T0 = saved[0] if t0 is None else t0
+    EMA_ADAPT_T1 = saved[1] if t1 is None else t1
+    try:
+        yield
+    finally:
+        EMA_ADAPT_T0, EMA_ADAPT_T1 = saved
 
 
 @dataclasses.dataclass

@@ -115,6 +115,7 @@ from video_stream_segmenetation_tpu_torch.ops.refine import refine_alpha
 from video_stream_segmenetation_tpu_torch.ops.temporal import (
     affine_lowpass,
     hole_filling_ema,
+    motion_gate,
     temporal_ema,
 )
 from video_stream_segmenetation_tpu_torch.ops.warp import (
@@ -124,8 +125,6 @@ from video_stream_segmenetation_tpu_torch.ops.warp import (
 from video_stream_segmenetation_tpu_torch.parallel.mesh import exclusive_prefix
 from video_stream_segmenetation_tpu_torch.runtime.config import (
     DEBUG_TOKENS,
-    EMA_ADAPT_T0,
-    EMA_ADAPT_T1,
     PipelineKnobs,
     PipelineStatics,
     debug_tokens,
@@ -514,8 +513,7 @@ def simplex_ema(ca: torch.Tensor, prev: torch.Tensor, knobs: PipelineKnobs,
     initialized takes ``ca``."""
     kk = knobs.ema[:, None, None, None]
     ad = knobs.ema_adapt[:, None, None, None]
-    m = torch.clamp((torch.amax(torch.abs(ca - prev), dim=-1, keepdim=True)
-                     - EMA_ADAPT_T0) * (1.0 / (EMA_ADAPT_T1 - EMA_ADAPT_T0)), 0.0, 1.0)
+    m = motion_gate(torch.amax(torch.abs(ca - prev), dim=-1, keepdim=True))
     ke = kk * (1.0 - ad * m)
     blended = torch.where(initialized[:, None, None, None], ke * prev + (1 - ke) * ca, ca)
     return blended / torch.clamp(blended.sum(-1, keepdim=True), min=1e-6)

@@ -1,5 +1,6 @@
 """Graph executor for utils/onnx_lite.py models on torch (port of
-``utils/onnx_exec.py::build_jax_fn``).
+``utils/onnx_exec.py::build_jax_fn``); :func:`run` is the numpy executor
+of utils/onnx_numpy.py (the reference's ``run``), the oracle it is held to.
 
 :func:`build_torch_fn` compiles a graph into ``fn(params, **inputs) ->
 dict`` that runs the nodes with torch ops on the inputs' device.  It covers
@@ -36,60 +37,20 @@ import torch.nn.functional as F
 from video_stream_segmenetation_tpu_torch.ops.consts import device_const
 from video_stream_segmenetation_tpu_torch.ops.detect import nms_padded
 from video_stream_segmenetation_tpu_torch.utils.onnx_lite import _DTYPES, Model, Node
+from video_stream_segmenetation_tpu_torch.utils.onnx_numpy import (  # noqa: F401 (run)
+    _conv_attrs,
+    _linear_taps,
+    _nearest_idx,
+    _pair_pads,
+    _resize_axis,
+    run,
+)
 
 _TORCH_DTYPES = {
     np.float32: torch.float32, np.uint8: torch.uint8, np.int8: torch.int8,
     np.int16: torch.int16, np.int32: torch.int32, np.int64: torch.int64,
     np.bool_: torch.bool, np.float16: torch.float16, np.float64: torch.float64,
 }
-
-
-def _conv_attrs(node: Node, default_spatial: int = 2):
-    strides = tuple(node.attr("strides", [1] * default_spatial))
-    dilations = tuple(node.attr("dilations", [1] * default_spatial))
-    group = int(node.attr("group", 1) or 1)
-    return strides, dilations, group, node.attr("pads"), node.attr("kernel_shape")
-
-
-def _pair_pads(pads, ndim_sp=2):
-    """ONNX pads [x0_begin, x1_begin, ..., x0_end, x1_end] -> per-axis."""
-    if pads is None:
-        return [(0, 0)] * ndim_sp
-    half = len(pads) // 2
-    return [(pads[i], pads[i + half]) for i in range(half)]
-
-
-def _resize_axis(n_in: int, n_out: int, coord: str) -> np.ndarray:
-    """Per-axis source coordinates of ONNX Resize (float64 positions)."""
-    xo = np.arange(n_out, dtype=np.float64)
-    scale = n_out / n_in
-    if coord == "align_corners":
-        return np.zeros(1) if n_out == 1 else xo * (n_in - 1) / (n_out - 1)
-    if coord == "asymmetric":
-        return xo / scale
-    if coord == "pytorch_half_pixel" and n_out == 1:
-        return np.zeros(1)
-    return (xo + 0.5) / scale - 0.5  # half_pixel (the default)
-
-
-def _nearest_idx(src: np.ndarray, n_in: int, nearest_mode: str) -> np.ndarray:
-    if nearest_mode == "floor":
-        idx = np.floor(src)
-    elif nearest_mode == "ceil":
-        idx = np.ceil(src)
-    elif nearest_mode == "round_prefer_ceil":
-        idx = np.floor(src + 0.5)
-    else:  # round_prefer_floor
-        idx = np.ceil(src - 0.5)
-    return np.clip(idx, 0, n_in - 1).astype(np.int64)
-
-
-def _linear_taps(src: np.ndarray, n_in: int):
-    i0 = np.clip(np.floor(src), 0, n_in - 1).astype(np.int64)
-    i1 = np.clip(i0 + 1, 0, n_in - 1)
-    w1 = np.clip(src - np.floor(src), 0.0, 1.0)
-    w1 = np.where(src < 0, 0.0, np.where(src > n_in - 1, 1.0, w1))
-    return i0, i1, w1
 
 
 def _text(node: Node, key: str, default: str) -> str:
