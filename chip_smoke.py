@@ -12,16 +12,20 @@ Phases, each announced by one line on stdout:
   3. kernels: each kernel against its plain PyTorch version at the serving
      shapes (S = 64 streams, 720p frames), with its tolerance, then CUDA-event
      times of both and the kernel's bound on this card: the pico trunk with
-     its one-class head, the trunk with its K=4 head at the pico and the nano
+     its one-class head (its 9 launches, u2red and u1red through the decoder
+     kernel, each timed beside its own bound), the int8 alpha head alone (K=1
+     and the trained K=4 head, at 72x128 and at a ragged 70x120, exact) and
+     the SE alone (exact on the trained pico's ctx plane, within one s8 step
+     on a seeded one, the elements apart counted; the head's and the SE's
+     calls on the main path are its trunk calls times TRUNK_PARTS, which
+     each served trunk form's check holds on the card), the trunk with its K=4 head at the pico and the nano
      widths (trained multi-class weights, exact), with its one-class head at
      the nano and the femto widths (the trained fast_int8_nano and _femto
      weights, exact), the fused temporal refine
      (bf16 and f32 refined alpha; every form also at a moved EMA gate, bit
      for bit with its plain version there but the forms fed head-grid
      logits), the int8 decoder level at micro's u2 and
-     u1 levels (beside it, on the same inputs, the trunk's split form of
-     the same function: two conv launches, held and timed as its
-     yardstick), the fused 3x3 conv in its four forms (act or not, residual
+     u1 levels, the fused 3x3 conv in its four forms (act or not, residual
      or not; given the OHWI weights and not) at plan B's layer shapes
      (beside it the trunk's own conv on the same inputs, held and timed as
      its yardstick), the u1-out trunk at pico widths, the
@@ -308,6 +312,11 @@ REFINED_F32_TOL = 2e-5  # f32 refined alpha: same operations, exp/pow ulps
 DECODER_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue order
 CONV_TOL = 0  # s8 out, exact s32 sums, the same f32 epilogue
 U1_TOL = 0  # u1 s8: exact s32 sums, the same epilogues, SE in float64 on both sides
+HEAD_TOL = 0  # the alpha head alone: exact s32 sums, the same f32 epilogue
+# the SE alone: s8 out equal on the trained pico's ctx plane; on seeded planes
+# the mean's float64 sums in another order than the plain version's may move
+# an element on a rounding edge by one s8 step
+SE_TRAINED_TOL, SE_SEEDED_TOL = 0, 1
 COMPOSITE_TOL = 0  # u8 out: f64 row sums, bf16 rows, exact bf16 products, same blend
 
 
@@ -408,10 +417,12 @@ def _nbytes(*tensors) -> int:
 
 
 def trunk_launches(x0, tp) -> list[dict]:
-    """The pico/nano trunk's 11 launches (kernels/trunk_int8.py::_nano_u1,
+    """The pico/nano trunk's 9 launches (kernels/trunk_int8.py::_nano_u1,
     then the head) one by one on ``x0``, each with its own multiply-adds
     and the bytes it reads and writes (inputs once, output once), and for
-    the 1x1 convs the (M, K, N) of their product."""
+    the 1x1 convs the (M, K, N) of their product.  u2red and u1red are one
+    decoder-kernel launch each (kernels/decoder_int8.py::launch_level)."""
+    from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
     lib, stream = TK._launcher(x0)
@@ -433,6 +444,17 @@ def trunk_launches(x0, tp) -> list[dict]:
                      "mkn": (m, cin, cout) if kh == kw == 1 else None, "x": x,
                      "w": layer["w"]})
 
+    def level(name, small, skip):
+        up, skip_l, a, b = tp[name + "_up"], tp[name + "_skip"], acts[small], acts[skip]
+
+        def fn():
+            return DK.launch_level(lib, stream, a, b, up, skip_l)
+        y = acts[name] = fn()
+        cout = up["w"].shape[0]
+        rows.append({"name": name, "fn": fn, "macs": (a.numel() + b.numel()) * cout,
+                     "bytes": _nbytes(a, b, y, up["w"], skip_l["w"], up["mult"], up["bias"]),
+                     "mkn": None})
+
     conv("d2dn", "x0", i8, stride=2)
     conv("d2b", "d2dn", i8)
     conv("d3dn", "d2b", i8, stride=2)
@@ -444,11 +466,9 @@ def trunk_launches(x0, tp) -> list[dict]:
     rows.append({"name": "se", "fn": lambda: TK._se_requant(lib, stream, ctx_f, se),
                  "macs": ctx_f.shape[0] * (se["k0"].numel() + se["k1"].numel()),
                  "bytes": _nbytes(ctx_f, acts["se"], *se.values()), "mkn": None})
-    conv("u2red_up", "se", f32, mode=1)
-    conv("u2red_skip", "d2b", i8, up="u2red_up")
-    conv("u1red_up", "u2red_skip", f32, mode=1)
-    conv("u1red_skip", "x0", i8, up="u1red_up")
-    u1, head = acts["u1red_skip"], tp["alpha"]
+    level("u2red", "se", "d2b")
+    level("u1red", "u2red", "x0")
+    u1, head = acts["u1red"], tp["alpha"]
     logits = TK._alpha_head(lib, stream, u1, head)
     k = head["w"].shape[0]
     rows.append({"name": "alpha head", "fn": lambda: TK._alpha_head(lib, stream, u1, head),
@@ -864,20 +884,16 @@ def check_refine_gate(dev) -> dict:
 
 def check_decoder(dev) -> dict:
     """The int8 decoder level at micro's two levels (720p, S=64), trained
-    micro weights, s8 activations on the relu6 lattice; beside it, on the
-    same inputs, the trunk's split form of the same function (an f32
-    up-path conv, then the skip conv adding it: two launches of the
-    trunk's conv), held bit for bit too and timed as the yardstick."""
+    micro weights, s8 activations on the relu6 lattice."""
     from video_stream_segmenetation_tpu_torch import bridge
     from video_stream_segmenetation_tpu_torch.kernels import decoder_int8 as DK
-    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
     from video_stream_segmenetation_tpu_torch.models import quantized as Q
 
     tp = Q.trunk_params(bridge.load_export(bridge.WEIGHTS_DIR / "mattenet_hd10_micro.npz"),
                       dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     hp, wp = FRAME_HW[0] // 10, FRAME_HW[1] // 10
-    total = {"ms": 0.0, "plain_ms": 0.0, "split_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "macs": 0, "err": 0.0}
     forms = {}
     for level, (sh, sw), (ca, cb) in (("u2", (hp // 4, wp // 4), (256, 192)),
                                       ("u1", (hp // 2, wp // 2), (192, 128))):
@@ -886,30 +902,18 @@ def check_decoder(dev) -> dict:
                               dtype=torch.int32).to(torch.int8)
         skip = torch.randint(0, 128, (S, 2 * sh, 2 * sw, cb), generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int8)
-        lib, stream = TK._launcher(small)
-
-        def split():
-            ya = TK._conv(lib, stream, small, up, torch.float32, mode=1)
-            return TK._conv(lib, stream, skip, skip_l, torch.int8, up=ya)
         got = DK.fused_decoder_level(small, skip, up, skip_l)
-        got_split = split()
         want = Q.split_conv_up(small, skip, up, skip_l)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        split_err = (got_split.float() - want.float()).abs().max().item()
         hist = torch.bincount(want.flatten().to(torch.int64), minlength=128)
         say(f"  decoder_int8 {level}: small {tuple(small.shape)} skip {tuple(skip.shape)} "
-            f"-> {tuple(got.shape)} max_abs_err {err:g} (tolerance {DECODER_TOL}); the "
-            f"trunk's split form {split_err:g}; out at 0: {hist[0].item() / want.numel():.3f}"
-            f", at 127: {hist[127].item() / want.numel():.3f}")
+            f"-> {tuple(got.shape)} max_abs_err {err:g} (tolerance {DECODER_TOL}); out at 0: "
+            f"{hist[0].item() / want.numel():.3f}, at 127: {hist[127].item() / want.numel():.3f}")
         if got.dtype != torch.int8 or err > DECODER_TOL:
             raise AssertionError(f"decoder kernel disagrees with its plain version at "
                                  f"{level}: {err}")
-        if got_split.dtype != torch.int8 or split_err > DECODER_TOL:
-            raise AssertionError(f"the trunk's split form disagrees with the plain decoder "
-                                 f"level at {level}: {split_err}")
         ms = cuda_time_ms(lambda: DK.fused_decoder_level(small, skip, up, skip_l), 20)
-        split_ms = cuda_time_ms(split, 20)
         plain_ms = cuda_time_ms(
             lambda: Q.split_conv_up(small, skip, up, skip_l), 3)
         cout = up["w"].shape[0]
@@ -918,18 +922,15 @@ def check_decoder(dev) -> dict:
         macs = (small.numel() + skip.numel()) * cout
         b_ms, b_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
         say(f"  decoder_int8 {level}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {bytes_moved / 1e6:.1f} MB, {macs / 1e9:.2f} G MAC); "
-            f"the trunk's split form (two conv launches) on the same inputs {split_ms:.4f} ms")
+            f"{b_ms:.4f} ms ({b_by}; {bytes_moved / 1e6:.1f} MB, {macs / 1e9:.2f} G MAC)")
         forms[level] = ms
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("split_ms", split_ms),
-                     ("bytes", bytes_moved), ("macs", macs)):
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", bytes_moved),
+                     ("macs", macs)):
             total[k] += v
         total["err"] = max(total["err"], err)
-    forms["trunk split"] = total["split_ms"]
     bound_ms, bound_by = bound(total["bytes"], 2 * total["macs"], INT8_OPS_PER_S)
     say(f"  decoder_int8 both levels: {total['ms']:.4f} ms, plain {total['plain_ms']:.3f} ms,"
-        f" bound {bound_ms:.4f} ms ({bound_by}); the trunk's split form "
-        f"{total['split_ms']:.4f} ms")
+        f" bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "decoder_int8", "route": "cuda",
             "source": "video_stream_segmenetation_tpu_torch/csrc/decoder_int8.cu",
             "replaces": "video_stream_segmenetation_tpu/kernels/decoder_int8.py:100",
@@ -1028,6 +1029,129 @@ def check_conv(dev) -> dict:
             "max_abs_err": total["err"], "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "forms_ms": forms}
+
+
+def check_alpha_head(dev) -> dict:
+    """The int8 alpha head alone (kernels/trunk_int8.py::_alpha_head) against
+    its plain version (models/quantized.py::alpha_head) at the pico trunk's
+    u1, S=64, 72x128x128 (random s8 on the relu6 lattice): K=1 with the
+    seeded pico's head and K=4 with the trained multi-class pico's, and at
+    a ragged grid (70x120: a last band and columns that are partial); then
+    times and the bound of the K=1 form the main path serves."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_pico_params
+
+    blk = 10
+    heads = {"K=1": Q.trunk_params(Q.quantize_mattenet_hd(init_pico_params(0, blk), blk),
+                                   dev)["alpha"],
+             "K=4": Q.trunk_params(bridge.load_export(
+                 bridge.WEIGHTS_DIR / "mattenet_hd10_mc_pico.npz"), dev)["alpha"]}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    u1 = torch.randint(0, 128, (S, FRAME_HW[0] // blk, FRAME_HW[1] // blk, 128), generator=gen,
+                       device=dev, dtype=torch.int32).to(torch.int8)
+    ragged = u1[:, :70, :120].contiguous()
+    lib, stream = TK._launcher(u1)
+    err, forms = 0.0, {}
+    for label, head in heads.items():
+        for x in (u1, ragged):
+            got = TK._alpha_head(lib, stream, x, head)
+            want = Q.alpha_head(x, head)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item() if got.shape == want.shape else math.inf
+            say(f"  alpha_head_i8 {label}: u1 {tuple(x.shape)} -> {tuple(got.shape)} "
+                f"max_abs_err {e:.3e} (tolerance {HEAD_TOL})")
+            err = max(err, e)
+        forms[label] = cuda_time_ms(lambda: TK._alpha_head(lib, stream, u1, head), 20)
+    if not err <= HEAD_TOL:
+        raise AssertionError(f"alpha head kernel disagrees with its plain version: {err}")
+    head = heads["K=1"]
+    plain_ms = cuda_time_ms(lambda: Q.alpha_head(u1, head), 3)
+    macs = u1.numel() * 9
+    bytes_moved = u1.numel() + u1.numel() // 128 * 4 + _nbytes(*head.values())
+    bound_ms, bound_by = bound(bytes_moved, 2 * macs, INT8_OPS_PER_S)
+    say(f"  alpha_head_i8 K=1: {forms['K=1']:.4f} ms (K=4 {forms['K=4']:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; {bytes_moved / 1e6:.1f} MB, "
+        f"{macs / 1e9:.2f} G MAC)")
+    return {"name": "alpha_head_i8", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/trunk_int8.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/trunk_int8.py:247",
+            "max_abs_err": err, "ms": forms["K=1"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "forms_ms": {"K=4": forms["K=4"]}}
+
+
+def ctx_plane(x0, tp):
+    """The pico/nano trunk's f32 ctx plane (relu6(ctx conv + d3), the SE's
+    input) by the plain trunk's layers."""
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+
+    d2 = Q._qconv(Q._down(x0, tp["d2dn"]), tp["d2b"])
+    d3 = Q._qconv(Q._down(d2, tp["d3dn"]), tp["d3b"])
+    c3 = Q._conv_i8(d3, tp["ctx"], dilation=3)
+    # contiguous NHWC, as the trunk's ctx conv writes it (the plain conv's
+    # output keeps the NCHW product's strides)
+    return torch.clamp(c3 + d3.to(torch.float32) * Q.ACT_SCALE, 0.0, 6.0).contiguous()
+
+
+def check_se(dev) -> dict:
+    """The SE alone (kernels/trunk_int8.py::_se_requant: the float64 mean,
+    dense layers and sigmoid, gate, requant) against its plain version
+    (models/quantized.py::_se, then _requant) at S=64 on pico's ctx plane
+    ([64, 18, 32, 192] f32): the trained pico's plane on the committed
+    frames, equal; the seeded pico's plane on random s8 stem output, no
+    element more than one s8 step apart (the count printed); then times and
+    the bound on the trained plane."""
+    from video_stream_segmenetation_tpu_torch import bridge
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
+    from video_stream_segmenetation_tpu_torch.models import quantized as Q
+    from video_stream_segmenetation_tpu_torch.models.mattenet_hd import init_pico_params
+    from video_stream_segmenetation_tpu_torch.ops.layout import space_to_depth
+    from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
+
+    blk = 10
+    model = Q.QuantizedMatteNetHD(bridge.load_export(bridge.WEIGHTS_DIR /
+                                                     "mattenet_hd10_pico.npz"), blk, 1, device=dev)
+    clip, _ = bridge.load_frames()
+    fp = space_to_depth(torch.as_tensor(clip[np.arange(S) % 2], device=dev), blk).contiguous()
+    with pinned():
+        x0 = model.stem(fp)
+    seeded = Q.trunk_params(Q.quantize_mattenet_hd(init_pico_params(0, blk), blk), dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x0_seeded = torch.randint(0, 128, tuple(x0.shape), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+    lib, stream = TK._launcher(x0)
+    planes = {}
+    for label, xin, tp, tol in (("trained", x0, model.trunk, SE_TRAINED_TOL),
+                                ("seeded", x0_seeded, seeded, SE_SEEDED_TOL)):
+        ctx_f = ctx_plane(xin, tp)
+        got = TK._se_requant(lib, stream, ctx_f, tp["se"])
+        want = Q._requant(Q._se(ctx_f, tp["se"]))
+        torch.cuda.synchronize()
+        diff = (got.int() - want.int()).abs()
+        err, apart = diff.max().item(), int((diff > 0).sum().item())
+        say(f"  se_requant {label} pico: ctx {tuple(ctx_f.shape)} -> {tuple(got.shape)} "
+            f"{got.dtype}, max_abs_err {err} s8 steps (tolerance {tol}), {apart} of "
+            f"{diff.numel()} elements apart")
+        if got.dtype != torch.int8 or err > tol:
+            raise AssertionError(f"SE kernel disagrees with its plain version on the {label} "
+                                 f"plane: {err}")
+        planes[label] = (ctx_f, tp["se"], err)
+    ctx_f, se, _ = planes["trained"]
+    ms = cuda_time_ms(lambda: TK._se_requant(lib, stream, ctx_f, se), 20)
+    plain_ms = cuda_time_ms(lambda: Q._requant(Q._se(ctx_f, se)), 3)
+    bytes_moved = _nbytes(ctx_f, *se.values()) + ctx_f.numel()
+    bound_ms, bound_by = bound(bytes_moved, 2 * S * (se["k0"].numel() + se["k1"].numel()),
+                               F32_OPS_PER_S)
+    say(f"  se_requant: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bytes_moved / 1e6:.1f} MB)")
+    return {"name": "se_requant", "route": "cuda",
+            "source": "video_stream_segmenetation_tpu_torch/csrc/trunk_int8.cu",
+            "replaces": "video_stream_segmenetation_tpu/kernels/trunk_int8.py:205",
+            "max_abs_err": float(max(e for _, _, e in planes.values())), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def check_u1_trunk(dev) -> dict:
@@ -1508,6 +1632,38 @@ def _counters():
             "decoder_int8": decoder_int8.fused_decoder_level,
             "conv3x3_i8_fused": conv_int8.conv3x3_i8_fused,
             "stochastic_round": stochastic_round.stochastic_round_bf16}
+
+
+def _part_counters():
+    """The trunk's head and SE entry points, counted apart from the trunks'
+    own counts (kernels/trunk_int8.py::_alpha_head, _se_requant; one SE
+    call is its two kernels): :func:`trunk_err` holds the calls of one
+    trunk call to TRUNK_PARTS."""
+    from video_stream_segmenetation_tpu_torch.kernels import trunk_int8
+
+    return {"alpha_head_i8": trunk_int8._alpha_head, "se_requant": trunk_int8._se_requant}
+
+
+# the head and SE entry-point calls (kernels/trunk_int8.py) in one call of
+# each counted trunk: one head with the int8 head; one SE after ctx and one
+# in each residual block that has one.  trunk_err holds every trunk form it
+# checks to it on the card; the kernels line's alpha_head_i8 and se_requant
+# launches are the main path's trunk calls times these (add_launches).
+TRUNK_PARTS = {"trunk_int8": (1, 1), "trunk_int8_u1": (0, 1), "micro_trunk": (1, 3),
+               "light_trunk": (1, 3), "full_trunk": (1, 3)}
+
+
+def add_launches(by_name: dict, launches: dict, entries=None) -> None:
+    """Add a phase's counts to the kernels line's entries (``entries``
+    renames some counters), and its trunk calls' head and SE calls
+    (TRUNK_PARTS) to alpha_head_i8 and se_requant."""
+    for counter, n in launches.items():
+        entry = (entries or {}).get(counter, counter)
+        if entry in by_name:
+            by_name[entry]["launches"] += n
+        heads, ses = TRUNK_PARTS.get(counter, (0, 0))
+        by_name["alpha_head_i8"]["launches"] += heads * n
+        by_name["se_requant"]["launches"] += ses * n
 
 
 def phase_label(name: str, overrides=None) -> str:
@@ -2836,7 +2992,7 @@ def expect_passthrough(eng, out: dict, frames_in) -> None:
 
 def _refused_launch(device):
     """A step that a kernel's C entry point refuses: the int8 alpha head
-    with Cin % 4 != 0 (kernels/_build.py::check raises)."""
+    with Cin not a multiple of 32 (kernels/_build.py::check raises)."""
     from video_stream_segmenetation_tpu_torch.kernels import _build
 
     def step(*args):
@@ -3250,7 +3406,22 @@ def trunk_vs_plain(model, frames_u8: np.ndarray, block: int) -> float:
 
 
 def trunk_err(model, x0) -> float:
-    """:func:`trunk_vs_plain` on the stem output ``x0``."""
+    """:func:`trunk_vs_plain` on the stem output ``x0``; the one trunk
+    call it makes must call the head and the SE as TRUNK_PARTS says for its
+    counter."""
+    counters = {**_counters(), **_part_counters()}
+    before = {k: c.launches for k, c in counters.items()}
+    err = _trunk_err(model, x0)
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    trunks = [k for k in TRUNK_PARTS if got[k]]
+    if len(trunks) != 1 or got[trunks[0]] != 1 or (
+            got["alpha_head_i8"], got["se_requant"]) != TRUNK_PARTS[trunks[0]]:
+        raise AssertionError(f"one trunk call ({model.decoder}, {model.head_impl} head) made "
+                             f"the calls {got}; TRUNK_PARTS says {TRUNK_PARTS}")
+    return err
+
+
+def _trunk_err(model, x0) -> float:
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
     from video_stream_segmenetation_tpu_torch.models import quantized as Q
 
@@ -4319,9 +4490,10 @@ def main() -> int:
                     for k, v in info["kernels"].items()))
 
     say(f"[3/{steps} kernels] vs plain versions at S={S}, 720p")
-    kernels = [*check_trunk(dev), check_refine(dev), check_decoder(dev), check_conv(dev),
-               check_u1_trunk(dev), *check_composite(dev), check_refine_plane(dev),
-               check_fused_refine(dev), check_refine_fast(dev), check_stochastic_round(dev)]
+    kernels = [*check_trunk(dev), check_alpha_head(dev), check_se(dev), check_refine(dev),
+               check_decoder(dev), check_conv(dev), check_u1_trunk(dev),
+               *check_composite(dev), check_refine_plane(dev), check_fused_refine(dev),
+               check_refine_fast(dev), check_stochastic_round(dev)]
     say("  the refine kernel's debug variants (bench-only: 'no_morph' skips stages 5 and 7, "
         "'no_bilateral' stage 8) vs their plain versions with the same tokens:")
     debug_errs = check_refine_debug(dev)
@@ -4362,9 +4534,7 @@ def main() -> int:
             if n != want:
                 raise AssertionError(f"{label}: {counter} launched {n} times in "
                                      f"{SERVE_STEPS} steps, expected {want}")
-            entry = entries.get(counter, counter)
-            if entry in by_name:
-                by_name[entry]["launches"] += n
+        add_launches(by_name, res["launches"], entries)
         med = statistics.median(res["times_ms"])
         iou_name = "foreground IoU" if "simplex_err" in res else "alpha IoU"
         quality = (f"{iou_name} vs ground truth {res['iou']:.4f}"
@@ -4443,9 +4613,7 @@ def main() -> int:
         f"FramePool: 1 priming + {ROUNDS} rounds and a drain, trained weights, committed "
         "frames")
     res = phase_production("cuda")
-    for counter, got in res["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, res["launches"])
     say(f"  rotation: median round {statistics.median(res['latencies_ms']):.2f} ms dispatch "
         f"to collect (host clock; {len(res['latencies_ms'])} rounds, "
         f"{[round(t, 1) for t in res['latencies_ms']]}), median step_round call "
@@ -4476,9 +4644,7 @@ def main() -> int:
         f"as it stands under per-group step_pipelined, {ROUNDS} rounds")
     rb = phase_routes("cuda")
     for res in (rb["a"], rb["b"]):
-        for counter, got in res["launches"].items():
-            if counter in by_name:
-                by_name[counter]["launches"] += got
+        add_launches(by_name, res["launches"])
     say(f"  routes: prev_alpha max_abs_err {rb['prev_err']:.3e} (tolerance "
         f"{ROUTE_PREV_TOL:g}), refined alpha {rb['alpha_err']:.3e} (tolerance "
         f"{ROUTE_ALPHA_TOL:g}), IoU {rb['a']['iou']:.4f} vs {rb['b']['iou']:.4f} (tolerance "
@@ -4493,9 +4659,7 @@ def main() -> int:
         "group_sizes=[24, 24, 16], fused_rounds=True), face_min_interval_s=0: 2 rounds and one "
         f"under set_sync_debug_mode('error'); the face models' forwards on K={FACE_K} streams")
     rr = phase_refface_round("cuda")
-    for counter, got in rr["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, rr["launches"])
     say(f"  refface round: launches {rr['launches']}; median round "
         f"{statistics.median(rr['latencies_ms']):.2f} ms dispatch to collect; the checked "
         f"round made no host synchronisation: "
@@ -4519,9 +4683,7 @@ def main() -> int:
         f"{MESH_FIT['steps']} steps, against one device; graft_entry.dryrun_multichip("
         f"{MESH_N})")
     ms = phase_mesh("cuda")
-    for counter, got in ms["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, ms["launches"])
     say_mesh(ms, smi, count)
     del ms
     torch.cuda.empty_cache()
@@ -4530,9 +4692,7 @@ def main() -> int:
         f"round rollout on the production rotation ({list(ROTATION)}, {FAST_ROUTE}), trained "
         "weights, committed frames")
     ro = phase_rollout("cuda")
-    for counter, got in ro["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, ro["launches"])
     sp, rp = ro["step_parity"], ro["round_parity"]
     say(f"  rollout: a chain of {ROLL_PARITY_N} steps vs {ROLL_PARITY_N} sequential make_step "
         f"calls on the same tagged frames: state, frame buffer and alpha buffer max_abs_err "
@@ -4566,9 +4726,7 @@ def main() -> int:
         f"(utils/checkpoint.py::save_engine), restored into a fresh engine, both stepped "
         f"{SNAPSHOT_STEPS} times")
     sn = phase_snapshot("cuda")
-    for counter, got in sn["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, sn["launches"])
     say(f"  snapshot: {sn['bytes'] / 2**20:.1f} MiB on disk; the restored engine's state and "
         f"its next {SNAPSHOT_STEPS} steps' frame, alpha, det_score and face_applied equal the "
         f"uninterrupted "
@@ -4583,9 +4741,7 @@ def main() -> int:
         "face_path=False)")
     counters = _counters()
     tr = phase_train(dev, counters)
-    for counter, got in tr["launches"].items():
-        if counter in by_name:
-            by_name[counter]["launches"] += got
+    add_launches(by_name, tr["launches"])
     for label, r in (("pretrain 240x320 b32", tr["pre"]), ("fine-tune 720x1280 b8", tr["ft"])):
         say(f"  train {label}: median step {statistics.median(r['ms'][1:]):.2f} ms (CUDA "
             f"events between steps' ends: the batch's generation and the step; median of "
@@ -4650,10 +4806,7 @@ def main() -> int:
             + f", face applied on {res['applied']} streams, mean det_score "
             f"{res['det_score']:.4f}, passthrough steps {res['passthrough']}; {res['s']:.1f} s")
         trunk = "trunk_int8_k4_pico" if preset_name == "multiclass_fast_pico" else "trunk_int8"
-        for counter, got in res["launches"].items():
-            entry = trunk if counter == "trunk_int8" else counter
-            if entry in by_name:
-                by_name[entry]["launches"] += got
+        add_launches(by_name, res["launches"], {"trunk_int8": trunk})
         if "trunk_err" in res:
             by_name[trunk]["max_abs_err"] = max(by_name[trunk]["max_abs_err"], res["trunk_err"])
     c = zoo["clip"]
@@ -4707,9 +4860,7 @@ def main() -> int:
         f"{[f'{v:.2e}' for v in rb['fit_rel']]} (tolerance {MESH_LOSS_RTOL:g}); "
         f"{rb['fit_mesh_s']:.1f} s on the mesh, {rb['fit_one_s']:.1f} s on one device")
     for label, launches, res in rb["gates"]:
-        for counter, got in launches.items():
-            if counter in by_name:
-                by_name[counter]["launches"] += got
+        add_launches(by_name, launches)
         by_name["trunk_int8"]["max_abs_err"] = max(by_name["trunk_int8"]["max_abs_err"],
                                                    res["trunk_err"])
         say(f"  realbg gate {label}: " + json.dumps({k: v for k, v in res.items()
@@ -4735,12 +4886,16 @@ def main() -> int:
     for tool in ("parity_check", "parity_check --synthetic", "face_parity",
                  "parity_matting int8_vs_float 720p", "parity_matting --small",
                  "tune_adaptive_ema", "diag_realistic_clips"):
-        for counter, got in tl[tool][1].items():
-            if counter in by_name:
-                by_name[counter]["launches"] += got
+        add_launches(by_name, tl[tool][1])
     say_tools(tl, smi)
     del tl
     torch.cuda.empty_cache()
+    say("  the trunk's head and SE entry-point calls on the main path (its trunk calls times "
+        "TRUNK_PARTS): " + ", ".join(f"{part} {by_name[part]['launches']}"
+                                     for part in _part_counters()))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"launched no time on the main path: {idle}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))

@@ -8,12 +8,15 @@ the median step on the host clock, synchronized), then ``python3 -m
 video_stream_segmenetation_tpu_torch.profile_step --config pico active``
 (the step's stages by CUDA events, the wall time by torch.profiler).
 With ``--kernels``, instead: ``chip_smoke.py``'s kernel checks of the
-trunk (its one-class head, the K=4 heads, the u1-out form), of every form
-of the refine body and of plan B's routed 3x3 convs, each held against its
-plain version and timed by CUDA events at S=64, then the micro, light and
-full (plan B) trunks with their trained weights on the committed frames'
-stem output.  Give a parent and a change as ``parent change change
-parent`` so that each side's spread shows.
+trunk (its one-class head, the K=4 heads, the u1-out form; the head and the
+SE alone, where the checkout has those checks), of every form of the
+refine body and of plan B's routed 3x3 convs, each held against its plain
+version and timed by CUDA events at S=64, then the micro, light and full
+(plan B) trunks with their trained weights on the committed frames' stem
+output.  Each checkout's log (under ``--out``) keeps its kernels phase's
+lines, the pico trunk's launches each beside its bound among them.  Give
+a parent and a change as ``parent change change parent`` so that each
+side's spread shows.
 
     python3 serve_ab.py [--kernels] --out DIR CHECKOUT [CHECKOUT ...]
 
@@ -59,9 +62,13 @@ from video_stream_segmenetation_tpu_torch.runtime.precision import pinned
 _build.build()
 dev = torch.device('cuda', 0)
 times = {}
-for check in (C.check_trunk, C.check_u1_trunk, C.check_refine, C.check_refine_plane,
-              C.check_fused_refine, C.check_refine_fast, C.check_decoder, C.check_conv):
-    got = check(dev)
+# a checkout without one of these checks (an older parent) skips it
+for name in ('check_trunk', 'check_alpha_head', 'check_se', 'check_u1_trunk', 'check_refine',
+             'check_refine_plane', 'check_fused_refine', 'check_refine_fast', 'check_decoder',
+             'check_conv'):
+    if not hasattr(C, name):
+        continue
+    got = getattr(C, name)(dev)
     for e in got if isinstance(got, list) else [got]:
         times[e['name']] = e['ms']
         for form, ms in e.get('forms_ms', {}).items():

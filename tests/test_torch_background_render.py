@@ -9,6 +9,7 @@ import json
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import background as jbg
 from video_stream_segmenetation_tpu_torch import background as tbg
 from video_stream_segmenetation_tpu_torch.background import data as tdata

@@ -7,6 +7,7 @@ import re
 
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch.kernels import _build
 
 PTXAS_LOG = """\

@@ -5,6 +5,7 @@ metrics on the same masks exactly, and a clip through the port's Engine."""
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu.utils import clips as jclips
 from video_stream_segmenetation_tpu_torch.runtime.config import PipelineStatics
 from video_stream_segmenetation_tpu_torch.service.engine import Engine

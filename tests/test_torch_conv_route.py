@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu.kernels.conv_int8 import conv3x3_i8_fused as jax_conv3x3
 from video_stream_segmenetation_tpu_torch.kernels import conv_int8 as TC
 from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models
 from video_stream_segmenetation_tpu.kernels.decoder_int8 import (
     fused_decoder_level as jax_decoder_level,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu.runtime.presets import preset as jax_preset
 from video_stream_segmenetation_tpu.service import Engine as JaxEngine
 from video_stream_segmenetation_tpu_torch import bridge

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models, ops
 from video_stream_segmenetation_tpu.ops import detect as JD
 from video_stream_segmenetation_tpu.ops import geometry as JG

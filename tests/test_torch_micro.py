@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models
 from video_stream_segmenetation_tpu.models import quantized as JQ
 from video_stream_segmenetation_tpu.utils.checkpoint import restore_params

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models, ops
 from video_stream_segmenetation_tpu.kernels.trunk_int8 import (
     fused_nano_trunk_alpha,

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import ops as jops
 from video_stream_segmenetation_tpu.runtime import native as jnative
 from video_stream_segmenetation_tpu_torch.ops import layout as TL

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import ops as J
 from video_stream_segmenetation_tpu.ops.prior import prior_plane_from_params as j_prior
 from video_stream_segmenetation_tpu.ops.resize import _interp_matrix as j_interp

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from tests import oracles as J
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch.utils import oracles as T
 
 H, W = 12, 20

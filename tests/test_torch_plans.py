@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models
 from video_stream_segmenetation_tpu.kernels.conv_int8 import conv3x3_i8_fused as jax_conv3x3
 from video_stream_segmenetation_tpu.kernels.trunk_int8 import fused_nano_trunk as jax_nano_trunk

@@ -8,6 +8,7 @@ that the tier-1 run's workers share the load.)"""
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch import bridge
 
 IOU_S, IOU_T = 2, 3

@@ -9,6 +9,7 @@ import os
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch import utils
 from video_stream_segmenetation_tpu_torch.utils import profiling
 

@@ -14,6 +14,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch.utils import quantize as TQ
 
 DTYPES = {"bfloat16": ml_dtypes.bfloat16, "float16": np.float16, "float32": np.float32}

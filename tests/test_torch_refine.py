@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import runtime
 from video_stream_segmenetation_tpu.kernels.refine_fused import fused_temporal_refine as jax_refine
 from video_stream_segmenetation_tpu_torch.kernels import refine_fused as TR

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import ops as jops
 from video_stream_segmenetation_tpu import runtime
 from video_stream_segmenetation_tpu.kernels.refine_fused import fused_temporal_refine as jax_refine

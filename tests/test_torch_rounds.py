@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models as jmodels
 from video_stream_segmenetation_tpu.runtime import make_step as jax_make_step
 from video_stream_segmenetation_tpu.runtime.pipeline import ModelBundle

@@ -10,6 +10,7 @@ import json
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu_torch import background as bgm
 from video_stream_segmenetation_tpu_torch.runtime.config import PipelineStatics
 from video_stream_segmenetation_tpu_torch.service.engine import Engine

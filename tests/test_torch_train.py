@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models
 from video_stream_segmenetation_tpu import train as jtrain
 from video_stream_segmenetation_tpu.train import losses as JL

@@ -22,6 +22,7 @@ from pathlib import Path
 import jax
 import numpy as np
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from video_stream_segmenetation_tpu import models
 from video_stream_segmenetation_tpu.models.quantized import quantize_mattenet_hd
 from video_stream_segmenetation_tpu.utils.checkpoint import restore_params

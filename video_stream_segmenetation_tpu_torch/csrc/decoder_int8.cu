@@ -54,7 +54,6 @@
 #define DEC_STAGE_BYTES (DEC_P * 128)
 #define DEC_MAX_SMEM 232448  // the most a block may use on Hopper (227 KB)
 #define DEC_MAX_SLABS (DEC_MAX_SMEM / (64 * 128))  // weight slabs that could fit
-#define DEC_MAX_DEVICES 64
 
 // Where a stream of stages stands: stage `slab` of product `phase` (0 the
 // up product over ceil(Ca/128) slabs, 1-4 the skip products of child
@@ -278,26 +277,19 @@ static int launch_decoder(const void* small, const void* skip, const void* wa,
   // the device and, through smem, on the weight slabs: worked out at the
   // first launch of this instantiation on a device at a slab count (with
   // the opt-in above 48 KB at the device's first), then reused; 0 until.
-  static bool sized[DEC_MAX_DEVICES] = {};
-  static int resident[DEC_MAX_DEVICES][DEC_MAX_SLABS + 1] = {};
+  static bool sized[VST_MAX_DEVICES] = {};
+  static int resident[VST_MAX_DEVICES][DEC_MAX_SLABS + 1] = {};
   const int slabs = (Ca + 127) / 128 + (Cb + 127) / 128;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= DEC_MAX_DEVICES || slabs > DEC_MAX_SLABS) return (int)cudaErrorInvalidValue;
+  if (slabs > DEC_MAX_SLABS) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  int e = current_device(&dev, &sms);
+  if (e != 0) return e;
   if (resident[dev][slabs] == 0) {
-    if (!sized[dev]) {
-      if ((err = cudaFuncSetAttribute(decoder_level_i8_kernel<NU>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      DEC_MAX_SMEM)) != cudaSuccess)
-        return (int)err;
-      sized[dev] = true;
-    }
-    int sms = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, decoder_level_i8_kernel<NU>, 128 * NU, smem)) != cudaSuccess)
-      return (int)err;
+    if ((e = opt_in_smem(decoder_level_i8_kernel<NU>, DEC_MAX_SMEM, sized, dev)) != 0) return e;
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, decoder_level_i8_kernel<NU>, 128 * NU, smem);
+    if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident[dev][slabs] = sms * per_sm;
   }

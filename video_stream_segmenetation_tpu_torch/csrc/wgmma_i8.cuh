@@ -341,9 +341,40 @@ conv_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// Once-a-device state of the launchers of this header's includers.
+constexpr int VST_MAX_DEVICES = 64;
+
+// The current device (below VST_MAX_DEVICES) and its SMs (looked up once a
+// device; sms may be null); 0 or the CUDA error.
+static inline int current_device(int* dev, int* sms) {
+  static int cached[VST_MAX_DEVICES] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (*dev < 0 || *dev >= VST_MAX_DEVICES) return (int)cudaErrorInvalidValue;
+  if (sms == nullptr) return 0;
+  if (cached[*dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&cached[*dev], cudaDevAttrMultiProcessorCount, *dev)) !=
+          cudaSuccess)
+    return (int)err;
+  *sms = cached[*dev];
+  return 0;
+}
+
+// The opt-in of `kernel` above 48 KB of dynamic shared memory, once on
+// device dev (an attribute of the function in that device's context;
+// `sized` is the caller's flags for this kernel); 0 or the CUDA error.
+template <typename Kernel>
+static int opt_in_smem(Kernel kernel, int max_smem, bool (&sized)[VST_MAX_DEVICES], int dev) {
+  if (sized[dev]) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (err != cudaSuccess) return (int)err;
+  sized[dev] = true;
+  return 0;
+}
+
 // One launch of the tile over S x Ho x Wo output pixels and, with ROUTED,
 // ceil(Cout / N) tiles of N channels; 0 or the CUDA error.
-constexpr int CONV_MAX_DEVICES = 64;
 template <int NT, bool ROUTED>
 static int launch_conv(const void* x, const void* w, const void* mult,
                        const void* bias, const void* res, const void* up,
@@ -355,19 +386,11 @@ static int launch_conv(const void* x, const void* w, const void* mult,
   const int nk = (KH * KW * Cin + CONV_BK - 1) / CONV_BK;
   const int stages = nk < C::stages ? nk : C::stages;  // the ring's stages in use
   const int smem = stages * C::stage_bytes + 1024;
-  // the opt-in above 48 KB, once a kernel on each device (an attribute of
-  // the function in that device's context)
-  static bool sized[CONV_MAX_DEVICES] = {};
+  static bool sized[VST_MAX_DEVICES] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= CONV_MAX_DEVICES) return (int)cudaErrorInvalidValue;
-  if (!sized[dev]) {
-    err = cudaFuncSetAttribute(conv_i8_kernel<NT, ROUTED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::max_smem);
-    if (err != cudaSuccess) return (int)err;
-    sized[dev] = true;
-  }
+  int err = current_device(&dev, nullptr);
+  if (err == 0) err = opt_in_smem(conv_i8_kernel<NT, ROUTED>, C::max_smem, sized, dev);
+  if (err != 0) return err;
   const long long M = (long long)S * Ho * Wo;
   const int n_tiles = ROUTED ? (Cout + 64 * NT - 1) / (64 * NT) : 1;
   const dim3 grid((unsigned)((M + CONV_BM - 1) / CONV_BM), (unsigned)n_tiles);

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vst_conv_i8": [_P] * 7 + [_I] * 16 + [_P],
     "vst_conv3x3_i8_fused": [_P] * 6 + [_I] * 7 + [_P],
-    "vst_se_requant": [_P] * 7 + [_I] * 4 + [_P],
+    "vst_se_requant": [_P] * 8 + [_I] * 5 + [_P],
     "vst_alpha_head_i8": [_P] * 5 + [_I] * 5 + [_P],
     "vst_temporal_refine": [_P] * 11 + [_I] * 10 + [_F, _F, _P],
     "vst_temporal_refine_debug": [_P] * 11 + [_I] * 11 + [_F, _F, _P],

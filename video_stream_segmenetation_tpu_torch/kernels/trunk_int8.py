@@ -7,8 +7,8 @@ Replaces the Pallas megakernel
 its K-class form ``fused_nano_trunk_alpha_q``/``fused_nano_trunk_alpha``
 (the multi-class presets, K = 4) and its u1-out form ``fused_nano_trunk``
 (``int8_head_impl='bf16'``): d2dn -> d2b -> d3dn -> d3b -> ctx
-(dilation 3) + residual -> SE -> u2red/u1red split 1x1 convs [-> int8 3x3
-alpha head with K output channels].  It takes the stem output in its
+(dilation 3) + residual -> SE -> u2red/u1red split 1x1 decoder levels [->
+int8 3x3 alpha head with K output channels].  It takes the stem output in its
 natural NHWC layout; the TPU's quad-parity folds are not carried over, so
 the K-class logits come out as ``[S, H, W, K]`` directly (the reference
 unfolds its quad columns ``qo*K + k`` to the same layout).
@@ -17,11 +17,13 @@ Bound on an H100: operations (about 1.44 G int8 multiply-adds a stream at
 720p at the pico widths, 2.6 G at nano's, 1.18 G at femto's, counted from
 the shapes) -- see the source's header for the design.  The kernels read
 the widths from the weights: femto runs every level at 128 channels.  One
-call of :func:`fused_nano_trunk_alpha` is 11 launches (one per layer, SE,
-head) and counts once in
-``fused_nano_trunk_alpha.launches``; one call of :func:`fused_nano_trunk`
-is the same launches but the head and counts once in
-``fused_nano_trunk.launches``.
+call of :func:`fused_nano_trunk_alpha` is 9 launches of the C entry points
+(five convs, the SE, the u2red and u1red levels through the decoder
+kernel of kernels/decoder_int8.py, the head; the SE's entry point runs
+two kernels) and counts once in ``fused_nano_trunk_alpha.launches``; one
+call of :func:`fused_nano_trunk` is the same launches but the head and
+counts once in ``fused_nano_trunk.launches``.  Neither counts in
+``fused_decoder_level.launches``.
 
 The micro, light and full plans, which the reference serves as XLA
 convolutions plus Pallas decoder levels (and, with
@@ -45,7 +47,10 @@ import torch
 
 from video_stream_segmenetation_tpu_torch.kernels import _build
 from video_stream_segmenetation_tpu_torch.kernels.conv_int8 import conv3x3_i8_fused
-from video_stream_segmenetation_tpu_torch.kernels.decoder_int8 import fused_decoder_level
+from video_stream_segmenetation_tpu_torch.kernels.decoder_int8 import (
+    fused_decoder_level,
+    launch_level,
+)
 from video_stream_segmenetation_tpu_torch.models import quantized as Q
 
 
@@ -110,18 +115,17 @@ def _launcher(x0):
 
 
 def _nano_u1(lib, stream, x0, tp):
-    """The pico/nano/femto trunk's 10 launches: x0 -> u1 s8."""
-    f32, i8 = torch.float32, torch.int8
+    """The pico/nano/femto trunk's 8 launches: x0 -> u1 s8 (u2red and
+    u1red one decoder-kernel launch each: no f32 addend in memory)."""
+    i8 = torch.int8
     d2 = _conv(lib, stream, x0, tp["d2dn"], i8, stride=2)
     d2 = _conv(lib, stream, d2, tp["d2b"], i8)
     d3 = _conv(lib, stream, d2, tp["d3dn"], i8, stride=2)
     d3 = _conv(lib, stream, d3, tp["d3b"], i8)
-    ctx_f = _conv(lib, stream, d3, tp["ctx"], f32, dil=3, mode=2, res=d3)
+    ctx_f = _conv(lib, stream, d3, tp["ctx"], torch.float32, dil=3, mode=2, res=d3)
     ctx = _se_requant(lib, stream, ctx_f, tp["se"])
-    ya = _conv(lib, stream, ctx, tp["u2red_up"], f32, mode=1)
-    u2 = _conv(lib, stream, d2, tp["u2red_skip"], i8, up=ya)
-    ya = _conv(lib, stream, u2, tp["u1red_up"], f32, mode=1)
-    return _conv(lib, stream, x0, tp["u1red_skip"], i8, up=ya)
+    u2 = launch_level(lib, stream, ctx, d2, tp["u2red_up"], tp["u2red_skip"])
+    return launch_level(lib, stream, u2, x0, tp["u1red_up"], tp["u1red_skip"])
 
 
 def fused_nano_trunk_alpha(x0: torch.Tensor, tp: dict) -> torch.Tensor:
@@ -161,20 +165,50 @@ def fused_nano_trunk(x0: torch.Tensor, tp: dict) -> torch.Tensor:
 fused_nano_trunk.launches = 0
 
 
+# the SE's partial sums a stream at most: the scratch allocated for them,
+# whose size the C entry point is given
+SE_MAX_CHUNKS = 16
+
+
 def _se_requant(lib, stream, x_f, se, res=None):
     """SE gate over each stream's [H, W, C] f32 plane, + res * 6/127 where
-    given, requant to s8."""
+    given, requant to s8: the plain version is models/quantized.py::_se,
+    then ``_requant`` (with the residual as in ``_block``).  One entry-point
+    call, two kernels: the mean's partial sums in float64 over (stream,
+    pixel chunk) blocks into a scratch buffer, then the gate (mean, dense
+    layers and sigmoid in float64, the same in each block of a stream) and
+    the requant over (stream, piece) blocks.  Counts its launches in
+    ``_se_requant.launches`` (inside the trunks' own counts)."""
     ns, hs, ws, c = x_f.shape
+    tensors = (x_f, res, *se.values())
+    if x_f.dtype != torch.float32 or c % 16 or (res is not None and (
+            res.dtype != torch.int8 or res.shape != x_f.shape)):
+        raise ValueError(f"se_requant: needs an f32 plane of a multiple of 16 channels and "
+                         f"an s8 residual of its shape; got {x_f.dtype} {tuple(x_f.shape)}, "
+                         f"residual {None if res is None else (res.dtype, tuple(res.shape))}")
+    if not all(t.is_contiguous() for t in tensors if t is not None) or any(
+            t.data_ptr() % 16 for t in (x_f, res) if t is not None):
+        raise ValueError("se_requant: the plane, the residual and the SE's weights must be "
+                         "contiguous, the plane and the residual 16-byte aligned")
     out = torch.empty_like(x_f, dtype=torch.int8)
+    part = torch.empty((SE_MAX_CHUNKS * ns * c,), dtype=torch.float64, device=x_f.device)
     _build.check(lib, lib.vst_se_requant(
         x_f.data_ptr(), se["k0"].data_ptr(), se["b0"].data_ptr(),
         se["k1"].data_ptr(), se["b1"].data_ptr(), _ptr(res), out.data_ptr(),
-        ns, hs * ws, c, se["b0"].shape[0], stream,
+        part.data_ptr(), ns, hs * ws, c, se["b0"].shape[0], SE_MAX_CHUNKS, stream,
     ), "se_requant")
+    _se_requant.launches += 1
     return out
 
 
+_se_requant.launches = 0
+
+
 def _alpha_head(lib, stream, u1, head):
+    """The int8 3x3 alpha head on the card (models/quantized.py::alpha_head
+    is the plain version): u1 [S, H, W, Cin] s8, Cin a multiple of 32 ->
+    logits [S, H, W] f32 for one class, [S, H, W, K] for K.  Counts its
+    launches in ``_alpha_head.launches`` (inside the trunks' own counts)."""
     s, h, w, c = u1.shape
     k = head["w"].shape[0]
     if not 1 <= k <= ALPHA_HEAD_MAX_K:
@@ -182,13 +216,21 @@ def _alpha_head(lib, stream, u1, head):
                          f"{ALPHA_HEAD_MAX_K}")
     if head["mult"].numel() != k or head["bias"].numel() != k:
         raise ValueError(f"alpha_head_i8: mult and bias need one value a class ({k})")
+    if c % 32 or tuple(head["w"].shape) != (k, 3, 3, c) or u1.dtype != torch.int8:
+        raise ValueError(f"alpha_head_i8: needs s8 u1 with a multiple of 32 channels and "
+                         f"weights [K, 3, 3, Cin]; got {u1.dtype} {tuple(u1.shape)}, weights "
+                         f"{tuple(head['w'].shape)}")
     logits = torch.empty((s, h, w) if k == 1 else (s, h, w, k), dtype=torch.float32,
                          device=u1.device)
     _build.check(lib, lib.vst_alpha_head_i8(
         u1.data_ptr(), head["w"].data_ptr(), head["mult"].data_ptr(),
         head["bias"].data_ptr(), logits.data_ptr(), s, h, w, c, k, stream,
     ), "alpha_head_i8")
+    _alpha_head.launches += 1
     return logits
+
+
+_alpha_head.launches = 0
 
 
 def _qconv(lib, stream, x, layer, conv_impl, dil=1):

@@ -145,8 +145,8 @@ def _trunk_stages(model, x0, stages):
     """Time the served trunk.  Micro's is timed as the two functions
     ``micro_trunk_alpha`` runs (its convolutions, then its decoder levels
     and head), and the second's kernels are listed one by one; so are the
-    pico/nano (its 11 launches), full and light trunks' kernels.  Returns
-    (logits, that list)."""
+    pico/nano (its 9 launches, 10 kernels: the SE's are two), full and light
+    trunks' kernels.  Returns (logits, that list)."""
     from video_stream_segmenetation_tpu_torch.kernels import trunk_int8 as TK
 
     if model.decoder in ("full", "light"):
@@ -156,7 +156,7 @@ def _trunk_stages(model, x0, stages):
         return logits, _kernel_ms(lambda: model.trunk_logits(x0))
     if model.decoder != "micro":
         head = f", K={model.num_classes} head" if model.num_classes > 1 else ""
-        stages[f"{model.decoder} trunk kernel (11 launches{head})"], logits = _event_ms(
+        stages[f"{model.decoder} trunk kernel (9 launches{head})"], logits = _event_ms(
             lambda: model.trunk_logits(x0))
         return logits, _kernel_ms(lambda: model.trunk_logits(x0))
     tp = model.trunk
